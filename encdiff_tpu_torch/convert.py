@@ -1,4 +1,4 @@
-"""Flax variable trees (nested numpy dicts) -> the port's ``state_dict``s.
+"""Flax variable trees (nested numpy dicts) <-> the port's ``state_dict``s.
 
 The port's modules carry the flax module names, so most leaves map by path:
 
@@ -12,6 +12,10 @@ The port's modules carry the flax module names, so most leaves map by path:
 Two leaves of Encoder4 need more: the warp MLPs live under ``warp_mlps``
 (``warp`` is a method), and the fc rows, flattened HWC by the JAX model,
 are permuted to the CHW flatten of an NCHW tensor.
+
+The inverse (``state_dict_to_flax``, ``encoder4_to_flax``) walks the tree
+a state dict was converted from, so that a trained model is saved under the
+JAX package's paths.
 """
 
 from __future__ import annotations
@@ -31,20 +35,42 @@ def _leaves(tree: dict, prefix: tuple = ()):
             yield prefix + (k,), np.asarray(v)
 
 
+def _torch_key(path: tuple) -> tuple[str, bool]:
+    """(state_dict key, whether the leaf is a kernel) of a flax leaf path."""
+    parts = [p for p in path if p not in _WRAPPERS]
+    leaf = parts[-1]
+    kernel = leaf == "kernel"
+    leaf = "weight" if kernel else _LEAVES.get(leaf, leaf)
+    return ".".join(parts[:-1] + [leaf]), kernel
+
+
 def flax_to_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     """Map every leaf of a flax params (or batch_stats) tree by path."""
     out = {}
     for path, arr in _leaves(tree):
-        parts = [p for p in path if p not in _WRAPPERS]
-        leaf = parts[-1]
-        if leaf == "kernel":
+        key, kernel = _torch_key(path)
+        if kernel:
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-            leaf = "weight"
-        else:
-            leaf = _LEAVES.get(leaf, leaf)
-        key = ".".join(parts[:-1] + [leaf])
         out[key] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
     return out
+
+
+def state_dict_to_flax(sd: dict, template: dict) -> dict:
+    """The flax tree of ``template``'s paths, valued from the state dict
+    ``sd`` (the inverse of ``flax_to_state_dict``), as float32 numpy."""
+    def walk(node, prefix):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, prefix + (k,))
+                continue
+            key, kernel = _torch_key(prefix + (k,))
+            arr = sd[key].detach().float().cpu().numpy()
+            if kernel:
+                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            out[k] = np.ascontiguousarray(arr)
+        return out
+    return walk(template, ())
 
 
 def encoder4_state_dict(params: dict, batch_stats: dict
@@ -64,8 +90,23 @@ def encoder4_state_dict(params: dict, batch_stats: dict
     return sd
 
 
+def encoder4_to_flax(sd: dict, params: dict, batch_stats: dict
+                     ) -> tuple[dict, dict]:
+    """(params, batch_stats) flax trees of an Encoder4 state dict, on the
+    paths of the given trees: the inverse of ``encoder4_state_dict``."""
+    sd = {("warp." + k[len("warp_mlps."):] if k.startswith("warp_mlps.")
+           else k): v for k, v in sd.items()}
+    d = sd["conv4.weight"].shape[0]
+    w = sd["fc.weight"]                       # (U, c*h*w), CHW columns
+    side = int(round((w.shape[1] // d) ** 0.5))
+    sd["fc.weight"] = (w.reshape(-1, d, side, side).permute(0, 2, 3, 1)
+                       .reshape(w.shape[0], -1))
+    return state_dict_to_flax(sd, params), state_dict_to_flax(sd, batch_stats)
+
+
 def first_stage_state_dict(params: dict) -> dict[str, torch.Tensor]:
-    """The decoding side of the VQ model: decoder, post_quant_conv and the
-    codebook. The encoder and quant_conv are not in the port yet."""
-    keep = {k: params[k] for k in ("decoder", "post_quant_conv", "quantize")}
+    """The VQ model: encoder, quant_conv, codebook, post_quant_conv and
+    decoder."""
+    keep = {k: params[k] for k in ("encoder", "quant_conv", "quantize",
+                                   "post_quant_conv", "decoder")}
     return flax_to_state_dict(keep)

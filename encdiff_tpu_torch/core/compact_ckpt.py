@@ -1,10 +1,11 @@
-"""Loader of the compact ``.npz`` checkpoints.
+"""The compact ``.npz`` checkpoints: load and save.
 
-A copy of the loading half of ``encdiff_tpu/core/compact_ckpt.py``
-(``_unflatten``, ``load_compact``) and of the ``.npz`` branch of
-``encdiff_tpu/train/checkpoint_io.py`` (``load_model_variables``). A compact
-checkpoint is one ``.npz`` whose keys are ``/``-joined paths of the flax
-variable tree, with weights stored as float16.
+A copy of ``encdiff_tpu/core/compact_ckpt.py`` (``_flatten``,
+``_unflatten``, ``save_compact``, ``load_compact``) and of the ``.npz``
+branch of ``encdiff_tpu/train/checkpoint_io.py`` (``load_model_variables``).
+A compact checkpoint is one ``.npz`` whose keys are ``/``-joined paths of
+the flax variable tree, with weight tensors stored as float16 and scalars
+(step, scale_factor) exact; it holds no optimizer state.
 """
 
 from __future__ import annotations
@@ -12,6 +13,20 @@ from __future__ import annotations
 import numpy as np
 
 _SEP = "/"
+
+
+def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    out: dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}{_SEP}"))
+        return out
+    arr = np.asarray(tree)
+    # narrow weight tensors only; scalars (step, scale_factor) stay exact
+    if arr.dtype in (np.float32, np.float64) and arr.size > 1:
+        arr = arr.astype(np.float16)
+    out[prefix[:-1]] = arr
+    return out
 
 
 def _unflatten(flat: dict[str, np.ndarray]) -> dict:
@@ -39,13 +54,17 @@ def load_model_variables(path: str) -> tuple[dict, float]:
 
     ``variables`` is the JAX package's layout, as nested numpy dicts:
     ``{unet: {params}, cond: {params, batch_stats}, first_stage: {params},
-    ema: params | None}``. The compact files carry no ``ema`` subtree, so
-    ``ema`` is None and sampling uses the raw UNet params, as
+    ema: params | None}``. Files without an ``ema`` subtree give None, and
+    sampling then uses the raw UNet params, as
     ``encdiff_tpu/evalx/swap.py:_unet_vars`` does.
     """
     if not path.endswith(".npz"):
         raise ValueError(f"expected a compact .npz checkpoint, got {path!r}")
-    tree = load_compact(path)
+    return model_variables(load_compact(path))
+
+
+def model_variables(tree: dict) -> tuple[dict, float]:
+    """(variables, scale_factor) of a loaded compact tree."""
     state, frozen = tree["state"], tree["frozen"]
     ema = state.get("ema")
     variables = {
@@ -56,3 +75,21 @@ def load_model_variables(path: str) -> tuple[dict, float]:
         "ema": ema["params"] if isinstance(ema, dict) else None,
     }
     return variables, float(np.asarray(state["scale_factor"]))
+
+
+def save_compact(path: str, state: dict, frozen: dict) -> str:
+    """Write ``{state: {params, batch_stats, scale_factor, step, ema},
+    frozen}`` (nested numpy dicts, the JAX package's layout) as one fp16
+    ``.npz`` that both packages' loaders read."""
+    tree = {
+        "state": {
+            "params": state["params"],
+            "batch_stats": state.get("batch_stats") or {},
+            "scale_factor": np.float32(np.asarray(state["scale_factor"])),
+            "step": np.asarray(state["step"]),
+            "ema": {"params": state["ema"]},
+        },
+        "frozen": frozen,
+    }
+    np.savez_compressed(path, **_flatten(tree))
+    return path

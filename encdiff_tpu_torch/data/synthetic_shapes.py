@@ -1,11 +1,12 @@
-"""Procedural Shapes3D stand-in renderer (fourth generation).
+"""Procedural Shapes3D stand-in renderer (fourth generation), and batches.
 
 A copy of ``_hue_rgb`` and ``render_all_v4`` from
 ``encdiff_tpu/data/synthetic_shapes.py``, so that the port can make the
-flagship's input images without importing the JAX package. The flagship
-trains on the full grid ``FULL_FACTOR_SIZES`` (480,000 images, 5.9 GB of
-uint8); callers that need a few inputs render a small ``factor_sizes`` grid
-instead, e.g. ``(2, 2, 2, 2, 2, 2)`` = 64 images.
+flagship's images without importing the JAX package. The flagship trains on
+the full grid ``FULL_FACTOR_SIZES`` (480,000 images, 5.9 GB of uint8);
+callers render a small ``factor_sizes`` grid instead: ``(2, 2, 2, 2, 2, 2)``
+= 64 images for swap inputs, ``TRAIN_GRID`` = 4,096 images (50 MB) for
+training batches, drawn by ``epoch_batches``.
 
 Factor order: floor_hue, wall_hue, object_hue, scale, shape, orientation.
 """
@@ -19,6 +20,17 @@ import numpy as np
 FACTOR_SIZES = [6, 6, 6, 4, 4, 8]
 #: the exact Shapes3D factor grid the flagship was trained on
 FULL_FACTOR_SIZES = [10, 10, 10, 8, 4, 15]
+#: the sub-grid the port trains on: 4 values of every factor, 4,096 images
+TRAIN_GRID = (4, 4, 4, 4, 4, 4)
+
+
+def epoch_batches(n: int, batch_size: int, seed: int, epoch: int = 0):
+    """Index arrays of one epoch's batches over ``n`` images: a permutation
+    seeded with ``seed + epoch``, cut into ``n // batch_size`` full batches
+    (the order of ``encdiff_tpu/train/data.py:epoch_loader``)."""
+    order = np.random.RandomState(seed + epoch).permutation(n)
+    return [order[i * batch_size:(i + 1) * batch_size]
+            for i in range(n // batch_size)]
 
 
 def _hue_rgb(i: int, n: int, s: float = 0.85, v: float = 0.95) -> np.ndarray:

@@ -1,9 +1,12 @@
-"""LatentDiffusion for inference: the EncDiff model behind the serving path.
+"""LatentDiffusion: the EncDiff model behind the serving and training paths.
 
-Counterpart of the inference half of ``encdiff_tpu/models/latent_diffusion.py``
-(``apply_model``, ``cond_encoding``, ``cond_warp``, ``decode_first_stage``,
-``sample_ddim``). Public methods take and return the JAX package's NHWC
-layout for images and latents; the modules inside run NCHW.
+Counterpart of ``encdiff_tpu/models/latent_diffusion.py``: for serving
+``apply_model``, ``cond_encoding``, ``cond_warp``, ``decode_first_stage``,
+``sample_ddim``; for training (:243-356, 412-421) ``encode_first_stage``,
+``get_learned_conditioning``, ``split_batch``, ``loss_fn`` (without MCL)
+and ``compute_scale_factor``, with the constant logvar table
+(``learn_logvar`` is False). Public methods take and return the JAX
+package's NHWC layout for images and latents; the modules inside run NCHW.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from encdiff_tpu_torch.core.compact_ckpt import load_model_variables
 from encdiff_tpu_torch.core.device import resolve_device
 from encdiff_tpu_torch.core.schedules import DDIMSchedule, DiffusionSchedule
 from encdiff_tpu_torch.diffusion.ddim import ddim_sample
+from encdiff_tpu_torch.diffusion.ddpm import ddpm_losses, schedule_tables
+from encdiff_tpu_torch.losses.indep import indep_penalty
 from encdiff_tpu_torch.models.autoencoder import VQModelInterface
 from encdiff_tpu_torch.nn.encoder4 import Encoder4
 from encdiff_tpu_torch.nn.unet import UNetModel
@@ -31,7 +36,13 @@ def _nhwc(x):
 
 
 class LatentDiffusion(nn.Module):
-    """UNet + Encoder4 + VQ decoder with the flagship's linear schedule.
+    """UNet + Encoder4 + VQ first stage with the flagship's linear schedule.
+    The loss settings ``scale_by_std``, ``indep_type`` and ``lambda_indep``
+    come from ``config`` with the JAX package's defaults; the rest are the
+    flagship's (ε-prediction, L1, no vlb term, a constant logvar of 0, HSIC
+    bandwidth 1), and a config that names another ``loss_type`` is
+    refused. Built frozen and in eval mode;
+    ``train.loop`` makes the UNet and Encoder4 trainable.
 
     ``device`` defaults to CUDA and raises when no CUDA device is present;
     pass ``device="cpu"`` to run on the CPU."""
@@ -48,7 +59,15 @@ class LatentDiffusion(nn.Module):
             timesteps=config["timesteps"], beta_schedule="linear",
             linear_start=config["linear_start"],
             linear_end=config["linear_end"])
+        self.num_timesteps = config["timesteps"]
         self.scale_factor = 1.0
+        self.scale_by_std = config.get("scale_by_std", False)
+        if config.get("loss_type", "l1") != "l1":
+            raise NotImplementedError("only the flagship's L1 loss is ported")
+        self.indep_type = config.get("indep_type") or None
+        self.lambda_indep = config.get("lambda_indep", 0.0)
+        self.tables = schedule_tables(self.schedule, self.device)
+        self.logvar = torch.zeros(self.num_timesteps, device=self.device)
         self.to(self.device).eval().requires_grad_(False)
 
     @classmethod
@@ -58,10 +77,13 @@ class LatentDiffusion(nn.Module):
         model.load_variables(*load_model_variables(path))
         return model
 
-    def load_variables(self, variables: dict, scale_factor: float) -> None:
+    def load_variables(self, variables: dict, scale_factor: float,
+                       use_ema: bool = True) -> None:
         """Load the JAX package's variable tree (nested numpy dicts). The
-        UNet takes the EMA params when the tree has them."""
-        unet = variables.get("ema") or variables["unet"]["params"]
+        UNet takes the EMA params when the tree has them, unless
+        ``use_ema`` is False (training resumes from the raw params)."""
+        unet = ((use_ema and variables.get("ema"))
+                or variables["unet"]["params"])
         self.unet.load_state_dict(convert.flax_to_state_dict(unet))
         cond = variables["cond"]
         self.cond_stage_model.load_state_dict(convert.encoder4_state_dict(
@@ -82,7 +104,9 @@ class LatentDiffusion(nn.Module):
 
     @torch.no_grad()
     def cond_encoding(self, x):
-        """Images (B, 64, 64, 3) in [-1, 1] -> (B, latent_unit) scalars."""
+        """Images (B, 64, 64, 3) in [-1, 1] -> (B, latent_unit) scalars,
+        with the BatchNorms on their running statistics."""
+        self.cond_stage_model.eval()
         return self.cond_stage_model.encoding(_nchw(self._tensor(x)))
 
     @torch.no_grad()
@@ -121,3 +145,63 @@ class LatentDiffusion(nn.Module):
                           _nchw(self._tensor(x_T)), noises=noises,
                           generator=generator, temperature=temperature)
         return _nhwc(out)
+
+    # --- training -----------------------------------------------------------
+    def split_batch(self, batch):
+        """A train batch -> (x, z): images (B, H, W, 3) float32 in [-1, 1]
+        on the device, and the cached pre-scale first-stage code
+        (B, h, w, C) or None. ``batch`` is an image array (uint8 is
+        normalised on the device) or ``{"image": images, "z": code}``."""
+        z = None
+        if isinstance(batch, dict):
+            z = self._tensor(batch["z"])
+            batch = batch["image"]
+        x = torch.as_tensor(batch, device=self.device)
+        if x.dtype.is_floating_point:
+            return x.float(), z
+        return x.float() / 127.5 - 1.0, z
+
+    @torch.no_grad()
+    def encode_first_stage(self, x):
+        """The frozen VQ encode, no quantization: images (B, H, W, 3) in
+        [-1, 1] -> pre-quant latents (B, H/4, W/4, embed_dim)."""
+        return _nhwc(self.first_stage_model.encode(_nchw(self._tensor(x))))
+
+    def get_learned_conditioning(self, x, train: bool = False):
+        """Images (B, 64, 64, 3) in [-1, 1] -> (flat tokens (B, U*D),
+        scalars u (B, U)). With ``train`` Encoder4 normalises with batch
+        statistics and updates its running statistics in place."""
+        self.cond_stage_model.train(train)
+        u = self.cond_stage_model.encoding(_nchw(self._tensor(x)))
+        return self.cond_stage_model.warp(u), u
+
+    @torch.no_grad()
+    def compute_scale_factor(self, batch):
+        """1 / std(z) of the batch's first-stage code, as a float32 scalar
+        tensor (scale_by_std; the train step calls it at step 0 only)."""
+        x, z = self.split_batch(batch)
+        if z is None:
+            z = self.encode_first_stage(x)
+        return 1.0 / torch.clamp(z.float().reshape(-1).std(unbiased=False),
+                                 min=1e-8)
+
+    def loss_fn(self, batch, t, noise, scale_factor):
+        """The training loss without MCL: (loss, loss_dict) with the JAX
+        package's names. ``t`` (B,) and ``noise`` (B, h, w, C) are given:
+        the train step draws them. Encoder4 runs in train mode and updates
+        its running statistics."""
+        x, z = self.split_batch(batch)
+        if z is None:
+            z = self.encode_first_stage(x)
+        z = _nchw(z) * scale_factor
+        tokens, u = self.get_learned_conditioning(x, train=True)
+        t = torch.as_tensor(t, device=self.device).long()
+        loss, loss_dict = ddpm_losses(
+            self.tables, lambda x_noisy, tt: self.unet(x_noisy, tt, tokens),
+            z, t, _nchw(self._tensor(noise)), self.logvar)
+        if self.indep_type is not None and self.lambda_indep > 0:
+            pen = indep_penalty(self.indep_type, u)
+            loss = loss + self.lambda_indep * pen
+            loss_dict["train/loss_indep"] = pen
+            loss_dict["train/loss"] = loss
+        return loss, loss_dict

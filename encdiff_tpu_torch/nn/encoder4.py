@@ -1,11 +1,12 @@
-"""Encoder4, the concept-token encoder, in eval mode, NCHW.
+"""Encoder4, the concept-token encoder, NCHW.
 
 Counterpart of ``encdiff_tpu/nn/encoder4.py:30-148``: a stride-2 CNN maps a
 (B, 3, 64, 64) image to ``latent_unit`` scalars (``encoding``), and
 ``latent_unit`` scalar->token MLPs lift them to concept tokens (``warp``).
-BatchNorms run on their running statistics (eps 1e-5); ``bn3`` is followed
-by no ReLU, as in the reference. The final Linear reads the CHW flatten;
-the converter permutes the flax HWC-ordered fc rows to match.
+``bn3`` is followed by no ReLU, as in the reference. The final Linear reads
+the CHW flatten; the converter permutes the flax HWC-ordered fc rows to
+match. In eval mode the BatchNorms run on their running statistics; in
+train mode they follow flax (``BatchNorm`` below).
 """
 
 from __future__ import annotations
@@ -17,13 +18,35 @@ from torch import nn
 from encdiff_tpu_torch.nn.layers import TorchConv
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-5) whose train mode is flax's
+    ``nn.BatchNorm(momentum=0.9)``: normalise with the batch mean and the
+    biased batch variance E[x²] − E[x]² (flax's fast variance, clipped at
+    0), and update the running statistics as ``ra = 0.9·ra + 0.1·batch``
+    with that biased variance. ``nn.BatchNorm2d`` itself updates the
+    running variance with the unbiased one, at momentum 0.1."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = (0, 2, 3)
+        mean = x.mean(dim=dims)
+        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[None, :, None, None]) * mul[None, :, None, None]
+                + self.bias[None, :, None, None])
+
+
 class EncResBlock(nn.Module):
     """x + Conv1x1(ReLU(BN(Conv3x3(ReLU(x)))))."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.conv1 = TorchConv(channels, channels, 3, padding=1)
-        self.bn = nn.BatchNorm2d(channels, eps=1e-5)
+        self.bn = BatchNorm(channels, eps=1e-5)
         self.conv2 = TorchConv(channels, channels, 1)
 
     def forward(self, x):
@@ -60,7 +83,7 @@ class Encoder4(nn.Module):
             self.add_module(f"conv{i}", TorchConv(cin, d, 4, stride=2,
                                                   padding=1))
         for i in range(1, 6):
-            self.add_module(f"bn{i}", nn.BatchNorm2d(d, eps=1e-5))
+            self.add_module(f"bn{i}", BatchNorm(d, eps=1e-5))
         self.res1 = EncResBlock(d)
         self.res2 = EncResBlock(d)
         side = image_size // 16

@@ -1,10 +1,10 @@
-"""VQ decoder backbone, NCHW.
+"""VQ encoder and decoder backbones, NCHW.
 
-Counterpart of the decoding half of ``encdiff_tpu/nn/vae.py:24-222``:
-ResnetBlock (GN-SiLU eps 1e-6 through the ``groupnorm_silu`` kernel),
-AttnBlock (single head over all positions through ``attention_core``),
-Upsample and Decoder. The VQ Encoder and its asymmetric-pad Downsample are
-not on the serving path and are not ported yet.
+Counterpart of ``encdiff_tpu/nn/vae.py:24-222``: ResnetBlock (GN-SiLU eps
+1e-6 through the ``groupnorm_silu`` kernel), AttnBlock (single head over
+all positions through ``attention_core``), the asymmetric-pad Downsample,
+Upsample, Encoder and Decoder. The first stage runs frozen, so these run
+forward only.
 """
 
 from __future__ import annotations
@@ -60,6 +60,19 @@ class AttnBlock(nn.Module):
         return x + self.proj_out(out)
 
 
+class Downsample(nn.Module):
+    """3x3 stride-2 conv after the reference's asymmetric pad: none at the
+    top and left, one row and column at the bottom and right."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = TorchConv(channels, channels, 3, stride=2,
+                              padding=((0, 1), (0, 1)))
+
+    def forward(self, x):
+        return self.conv(x)
+
+
 class Upsample(nn.Module):
     """Nearest 2x + 3x3 conv."""
 
@@ -69,6 +82,48 @@ class Upsample(nn.Module):
 
     def forward(self, x):
         return self.conv(upsample_nearest_2x(x))
+
+
+class Encoder(nn.Module):
+    """Image (B, in_channels, H, W) -> latent moments (B, z_channels or
+    2 * z_channels, H / 2^(L-1), W / 2^(L-1))."""
+
+    def __init__(self, ch: int, ch_mult: Sequence[int], num_res_blocks: int,
+                 in_channels: int, resolution: int, z_channels: int,
+                 double_z: bool = True, attn_resolutions: Sequence[int] = ()):
+        super().__init__()
+        del resolution  # shapes follow the input image
+        if attn_resolutions:
+            raise NotImplementedError(
+                "encoder attention outside the mid block is not ported")
+        self.num_levels = len(ch_mult)
+        self.num_res_blocks = num_res_blocks
+        self.conv_in = TorchConv(in_channels, ch, 3, padding=1)
+        block_in = ch
+        for i_level, mult in enumerate(ch_mult):
+            for i_block in range(num_res_blocks):
+                self.add_module(f"down_{i_level}_block_{i_block}",
+                                ResnetBlock(block_in, ch * mult))
+                block_in = ch * mult
+            if i_level != self.num_levels - 1:
+                self.add_module(f"down_{i_level}_downsample",
+                                Downsample(block_in))
+        self.mid_block_1 = ResnetBlock(block_in)
+        self.mid_attn_1 = AttnBlock(block_in)
+        self.mid_block_2 = ResnetBlock(block_in)
+        self.norm_out = GNSiLU(block_in, eps=1e-6)
+        self.conv_out = TorchConv(block_in, 2 * z_channels if double_z
+                                  else z_channels, 3, padding=1)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for i_level in range(self.num_levels):
+            for i_block in range(self.num_res_blocks):
+                h = getattr(self, f"down_{i_level}_block_{i_block}")(h)
+            if i_level != self.num_levels - 1:
+                h = getattr(self, f"down_{i_level}_downsample")(h)
+        h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
+        return self.conv_out(self.norm_out(h))
 
 
 class Decoder(nn.Module):

@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from encdiff_tpu_torch.nn.kernels import plain_path
-from encdiff_tpu_torch.nn.kernels.attention import (attention_core,
-                                                    attention_core_plain)
-from encdiff_tpu_torch.nn.kernels.groupnorm_silu import groupnorm_silu
+from encdiff_tpu_torch.nn.kernels.attention import (
+    attention_core, attention_core_bwd, attention_core_bwd_plain,
+    attention_core_plain)
+from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (
+    groupnorm_silu, groupnorm_silu_bwd_plain, gn_silu_bwd)
 
 CARD_TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -81,3 +83,85 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda_device):
     q = torch.zeros(2, 2, 8, 24, device=cuda_device)
     with pytest.raises(ValueError):
         attention_core(q, q, q, 0.2)
+
+
+def _heads_view(gen, device, b, length, h, dh):
+    """(B, H, L, dh) view of a (B, L, H, dh) buffer: the callers' layout."""
+    return torch.randn(b, length, h, dh, generator=gen,
+                       device=device).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,m,dh", [
+    (128, 8, 256, 256, 8), (128, 8, 256, 20, 8), (128, 8, 64, 64, 16),
+    (128, 8, 64, 20, 16), (128, 8, 16, 16, 32), (128, 8, 16, 20, 32),
+    (128, 8, 4, 4, 32), (128, 8, 4, 20, 32), (2, 3, 600, 45, 8),
+    (2, 3, 33, 700, 16)])
+def test_attention_core_bwd_kernel_matches_plain(cuda_device, b, h, n, m, dh):
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    q = _heads_view(gen, cuda_device, b, n, h, dh)
+    k = _heads_view(gen, cuda_device, b, m, h, dh)
+    v = _heads_view(gen, cuda_device, b, m, h, dh)
+    do = _heads_view(gen, cuda_device, b, n, h, dh)
+    before = attention_core_bwd.launches
+    grads = attention_core_bwd(q, k, v, do, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert attention_core_bwd.launches == before + 1
+    for got, ref in zip(grads, attention_core_bwd_plain(q, k, v, do,
+                                                         dh ** -0.5)):
+        torch.testing.assert_close(got, ref, **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_attention_core_autograd_runs_both_kernels(cuda_device):
+    gen = torch.Generator(cuda_device).manual_seed(6)
+    q, k, v = (_heads_view(gen, cuda_device, 4, 64, 8, 16).requires_grad_()
+               for _ in range(3))
+    do = torch.randn(4, 8, 64, 16, generator=gen, device=cuda_device)
+    fwd, bwd = attention_core.launches, attention_core_bwd.launches
+    grads = torch.autograd.grad(attention_core(q, k, v, 0.25), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (attention_core.launches, attention_core_bwd.launches) == (
+        fwd + 1, bwd + 1)
+    ref = torch.autograd.grad(attention_core_plain(q, k, v, 0.25), (q, k, v),
+                              do)
+    for got, want in zip(grads, ref):
+        torch.testing.assert_close(got, want, **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,eps,film", [
+    ((128, 64, 16, 16), 1e-5, True), ((128, 512, 2, 2), 1e-5, True),
+    ((128, 1024, 2, 2), 1e-5, True), ((128, 192, 16, 16), 1e-5, True),
+    ((3, 96, 5, 7), 1e-6, False)])
+def test_gn_silu_bwd_kernel_matches_plain(cuda_device, shape, eps, film):
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    args = _gn_inputs(gen, cuda_device, *shape, film)
+    g = torch.randn(shape, generator=gen, device=cuda_device)
+    before = gn_silu_bwd.launches
+    grads = gn_silu_bwd(g, *args, eps=eps)
+    torch.cuda.synchronize()
+    assert gn_silu_bwd.launches == before + 1
+    ref = groupnorm_silu_bwd_plain(g, *args, eps=eps)
+    for got, want in zip(grads, ref):
+        if want is None:
+            assert got is None
+        else:
+            torch.testing.assert_close(got, want, **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_groupnorm_silu_autograd_runs_both_kernels(cuda_device):
+    gen = torch.Generator(cuda_device).manual_seed(8)
+    args = [t.requires_grad_() for t in
+            _gn_inputs(gen, cuda_device, 4, 128, 8, 8, True)]
+    g = torch.randn(4, 128, 8, 8, generator=gen, device=cuda_device)
+    fwd, bwd = groupnorm_silu.launches, gn_silu_bwd.launches
+    grads = torch.autograd.grad(groupnorm_silu(*args), args, g)
+    torch.cuda.synchronize()
+    assert (groupnorm_silu.launches, gn_silu_bwd.launches) == (fwd + 1,
+                                                               bwd + 1)
+    with plain_path():
+        ref = torch.autograd.grad(groupnorm_silu(*args), args, g)
+    for got, want in zip(grads, ref):
+        torch.testing.assert_close(got, want, **CARD_TOL)

@@ -456,6 +456,10 @@ def test_port_imports_only_torch_numpy_and_stdlib():
     files = sorted((ROOT / "encdiff_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    subpackages = {p.parent.name for p in files}
+    assert {"core", "data", "diffusion", "evalx", "kernels", "losses",
+            "models", "nn", "train"} <= subpackages, subpackages
+    assert ROOT / "encdiff_tpu_torch" / "train_steps.py" in files
     for path in files:
         for name in _imports(path):
             for banned in BANNED:
