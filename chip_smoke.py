@@ -6,7 +6,7 @@
 Phases, one line each with its wall time; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi). No CUDA: fail.
-2. build: both CUDA kernels with nvcc into ``build/``.
+2. build: the three CUDA sources with nvcc into ``build/``.
 3. shapes: the flagship checkpoint, 8 rendered inputs folded into the 160
    swap samples; one UNet ε call and one VQ decode at B = 160 record every
    kernel call's shape, and the first UNet call on the kernel path is held
@@ -36,6 +36,26 @@ The flagship's stage-2 train step, B = 128, from the same checkpoint through
     the new batch statistics.
 12. train-profile: one train step's device time by kernel (torch.profiler).
 
+The faces configuration's stage-2 train step (256 px images, 64x64 latents,
+micro-batch 8, 4-way accumulation) from a fresh seeded init, through the
+same entry points:
+
+13. faces-shapes: hooks record every forward and backward kernel call of
+    one micro-step; the flash kernels run at the UNet's 64² and 32² levels
+    and in the VQ encoder's mid block.
+14. faces-kernels: the three flash kernels (forward, dq, dk/dv) against
+    their plain versions at every recorded shape, and the four earlier
+    kernels at the faces shapes they had not seen, timed beside the plain
+    version, the PyTorch library call, ``attention_core`` (the flash
+    kernels' baseline) and the card's bound.
+15. faces-train: 12 optimizer updates (48 micro-batches) on the face
+    renderer's 512-image sub-grid, with the launch counters set to 0 just
+    before and read just after; AdamW may move only on every 4th
+    micro-batch, the EMA on every one.
+16. faces-reference: one forward + backward at micro-batch 2, kernel path
+    against plain path.
+17. faces-profile: one optimizer update's device time by kernel.
+
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -54,7 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from encdiff_tpu_torch import train_steps
-from encdiff_tpu_torch.configs import FLAGSHIP_TRAIN
+from encdiff_tpu_torch.configs import FACES_TRAIN, FLAGSHIP_TRAIN
 from encdiff_tpu_torch.core.schedules import DDIMSchedule
 from encdiff_tpu_torch.data.synthetic_shapes import (TRAIN_GRID,
                                                      epoch_batches,
@@ -67,10 +87,14 @@ from encdiff_tpu_torch.nn import layers as port_layers
 from encdiff_tpu_torch.nn import vae as port_vae
 from encdiff_tpu_torch.nn.kernels import attention as kattn
 from encdiff_tpu_torch.nn.kernels import build, plain_path
+from encdiff_tpu_torch.nn.kernels import flash_attention as kflash
 from encdiff_tpu_torch.nn.kernels import groupnorm_silu as kgn
 from encdiff_tpu_torch.nn.kernels.attention import (
     attention_core, attention_core_bwd, attention_core_bwd_plain,
     attention_core_plain)
+from encdiff_tpu_torch.nn.kernels.flash_attention import (
+    flash_attention_dkdv, flash_attention_dkdv_plain, flash_attention_dq,
+    flash_attention_dq_plain, flash_attention_fwd, flash_attention_fwd_plain)
 from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (
     groupnorm_silu, groupnorm_silu_bwd_plain, groupnorm_silu_plain,
     gn_silu_bwd)
@@ -103,8 +127,21 @@ PATH_TOL = dict(rtol=1e-3, atol=1e-3)
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-3
 GRAD_ZERO = 1e-6
-# the kernel path runs twice on the same inputs: its run-to-run spread
+# the leaves whose exact gradient is zero: Encoder4's conv biases that feed
+# a BatchNorm; no other leaf may be set apart
+EXACT_ZERO = {"cond.conv1.bias", "cond.conv2.bias", "cond.conv3.bias",
+              "cond.conv4.bias", "cond.res1.conv1.bias", "cond.res1.conv2.bias",
+              "cond.res2.conv1.bias"}
+# the kernel path runs twice on the same inputs: its run-to-run spread;
+# three draws of t and noise, so that a run is likely to meet an L1 sign
+# that differs between the paths (reference_check)
 REFERENCE_REPEATS = 2
+REFERENCE_DRAWS = 3
+# the faces train step: 12 optimizer updates of 4 micro-batches of 8; the
+# reference check at micro-batch 2 (the plain backward at 8 would hold about
+# five (64, 4096, 4096) fp32 score tensors at once)
+FACES_UPDATES = 12
+FACES_REFERENCE_BATCH = 2
 KERNELS = {
     "groupnorm_silu": dict(
         source="encdiff_tpu_torch/csrc/groupnorm_silu.cu",
@@ -119,10 +156,23 @@ KERNELS = {
         source="encdiff_tpu_torch/csrc/groupnorm_silu.cu",
         replaces="no Pallas counterpart; XLA VJP at "
                  "encdiff_tpu/nn/pallas/groupnorm_silu.py:113"),
+    "flash_attention_fwd": dict(
+        source="encdiff_tpu_torch/csrc/flash_attention.cu",
+        replaces="encdiff_tpu/nn/pallas/flash_attention.py:129"),
+    "flash_attention_dq": dict(
+        source="encdiff_tpu_torch/csrc/flash_attention.cu",
+        replaces="encdiff_tpu/nn/pallas/flash_attention.py:187"),
+    "flash_attention_dkdv": dict(
+        source="encdiff_tpu_torch/csrc/flash_attention.cu",
+        replaces="encdiff_tpu/nn/pallas/flash_attention.py:211"),
 }
+FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkdv")
 WRAPPERS = {"groupnorm_silu": groupnorm_silu, "attention_core": attention_core,
             "attention_core_bwd": attention_core_bwd,
-            "gn_silu_bwd": gn_silu_bwd}
+            "gn_silu_bwd": gn_silu_bwd,
+            "flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_dq": flash_attention_dq,
+            "flash_attention_dkdv": flash_attention_dkdv}
 
 
 def phase(name, t0, msg):
@@ -155,7 +205,14 @@ def time_ms(fn, reps: int = 20) -> float:
 def record_shapes(model):
     """Forward pre-hooks that record, per kernel, the shape of every call
     one forward pass makes. Returns (records, remove)."""
-    records = {"groupnorm_silu": [], "attention_core": []}
+    records = {"groupnorm_silu": [], "attention_core": [],
+               "flash_attention_fwd": []}
+
+    def attn(b, h, n, m, dh):  # the routing of nn.attention.attention
+        if port_attention.takes_flash(n, m):
+            records["flash_attention_fwd"].append((b, h, n, dh))
+        else:
+            records["attention_core"].append((b, h, n, m, dh))
 
     def gn_hook(mod, args):
         x = args[0]
@@ -166,12 +223,11 @@ def record_shapes(model):
         x = args[0]
         ctx = kwargs.get("context", args[1] if len(args) > 1 else None)
         m = x.shape[1] if ctx is None else ctx.shape[1]
-        records["attention_core"].append(
-            (x.shape[0], mod.heads, x.shape[1], m, mod.dim_head))
+        attn(x.shape[0], mod.heads, x.shape[1], m, mod.dim_head)
 
     def attnblock_hook(mod, args):
         b, c, h, w = args[0].shape
-        records["attention_core"].append((b, 1, h * w, h * w, c))
+        attn(b, 1, h * w, h * w, c)
 
     handles = []
     for mod in model.modules():
@@ -225,6 +281,65 @@ def gn_bwd_cost(shape, film):
     n = b * c * h * w
     nbytes = 4 * (3 * n + 4 * c + (4 * b * c if film else 0))
     return nbytes, n * (4 + 4 + (3 if film else 0) + 3 + 5 + 1 + 6 + 4 + 4)
+
+
+def flash_cost(name, b, h, n, dh):
+    """(bytes, fp32 operations) of one flash kernel call: its inputs read
+    and outputs written once (q, k, v, o, dO, dq, dk, dv (B, H, N, dh); lse,
+    delta (B, H, N)); per score one exponential and 2 dh operations per
+    product: q kᵀ and P v in the forward; q kᵀ, dO vᵀ and dS k for dq;
+    q kᵀ, dO vᵀ, Pᵀ dO and dSᵀ q for dk/dv."""
+    bh = b * h
+    tensors, stats, products = {"flash_attention_fwd": (4, 1, 2),
+                                "flash_attention_dq": (5, 2, 3),
+                                "flash_attention_dkdv": (6, 2, 4)}[name]
+    return (4 * bh * n * (tensors * dh + stats),
+            bh * n * n * (2 * dh * products + 1))
+
+
+def check_flash(name, shape, gen):
+    """Check and time one flash kernel at (B, H, N, dh) on the callers'
+    layout, beside its plain version, SDPA (forward; its autograd backward,
+    which gives dq, dk and dv together, for the two backward kernels) and
+    attention_core / attention_core_bwd at the same shape."""
+    b, h, n, dh = shape
+    q, k, v, do = (torch.randn(b, n, h, dh, generator=gen,
+                               device="cuda").transpose(1, 2)
+                   for _ in range(4))
+    scale = dh ** -0.5
+    if name == "flash_attention_fwd":
+        kernel = lambda: flash_attention_fwd(q, k, v, scale)
+        plain = lambda: flash_attention_fwd_plain(q, k, v, scale)
+        library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+        baseline = lambda: attention_core(q, k, v, scale)
+    else:
+        o, lse = flash_attention_fwd_plain(q, k, v, scale)
+        delta = (do * o).sum(dim=-1).contiguous()
+        args = (q, k, v, do, lse, delta, scale)
+        fn, plain_fn = {
+            "flash_attention_dq": (flash_attention_dq,
+                                   flash_attention_dq_plain),
+            "flash_attention_dkdv": (flash_attention_dkdv,
+                                     flash_attention_dkdv_plain)}[name]
+        kernel = lambda: fn(*args)
+        plain = lambda: plain_fn(*args)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        library = lambda: torch.autograd.grad(out, leaves, do,
+                                              retain_graph=True)
+        baseline = lambda: attention_core_bwd(q, k, v, do, scale)
+    got, ref = kernel(), plain()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, **KERNEL_TOL)
+    err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+    del got, ref
+    nbytes, ops = flash_cost(name, *shape)
+    return dict(err=err, ms=time_ms(kernel), plain_ms=time_ms(plain, 5),
+                library_ms=time_ms(library), baseline_ms=time_ms(baseline, 5),
+                bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=ops / PEAK_FP32 * 1e3)
 
 
 def check_gn(shape, eps, film, gen):
@@ -331,9 +446,12 @@ def check_gn_bwd(shape, eps, film, gen):
 def record_backward_shapes():
     """Hooks on the backward of the two autograd Functions: every backward
     kernel call's shape, as ``check_*_bwd`` take it."""
-    records = {"attention_core_bwd": [], "gn_silu_bwd": []}
-    attn_fn, gn_fn = kattn._AttentionCore, kgn._GNSiLU
-    attn_bwd, gn_bwd = attn_fn.backward, gn_fn.backward
+    records = {"attention_core_bwd": [], "gn_silu_bwd": [],
+               "flash_attention_dq": [], "flash_attention_dkdv": []}
+    attn_fn, gn_fn, flash_fn = (kattn._AttentionCore, kgn._GNSiLU,
+                                kflash._FlashAttention)
+    attn_bwd, gn_bwd, flash_bwd = (attn_fn.backward, gn_fn.backward,
+                                   flash_fn.backward)
 
     def attn_hook(ctx, do):
         q, k, _ = ctx.saved_tensors
@@ -347,43 +465,68 @@ def record_backward_shapes():
                                        scale is not None))
         return gn_bwd(ctx, g)
 
-    attn_fn.backward, gn_fn.backward = map(staticmethod, (attn_hook, gn_hook))
+    def flash_hook(ctx, do):
+        q = ctx.saved_tensors[0]
+        for name in ("flash_attention_dq", "flash_attention_dkdv"):
+            records[name].append(tuple(q.shape))
+        return flash_bwd(ctx, do)
+
+    fns = (attn_fn, gn_fn, flash_fn)
+    for fn, hook in zip(fns, (attn_hook, gn_hook, flash_hook)):
+        fn.backward = staticmethod(hook)
     try:
         yield records
     finally:
-        attn_fn.backward, gn_fn.backward = map(staticmethod,
-                                               (attn_bwd, gn_bwd))
+        for fn, bwd in zip(fns, (attn_bwd, gn_bwd, flash_bwd)):
+            fn.backward = staticmethod(bwd)
 
 
-def check_rows(name, shapes, gen):
+def check_rows(name, shapes, gen, seen=None):
     """Check and time kernel ``name`` at each distinct shape of ``shapes``;
-    rows carry the shape and its number of calls."""
+    rows carry the shape and its number of calls. ``seen`` maps (name,
+    shape) to the row of an earlier phase, which is reused, not rerun."""
     check = {"groupnorm_silu": lambda key: check_gn(*key, gen),
              "attention_core": lambda key: check_attn(key, gen),
              "gn_silu_bwd": lambda key: check_gn_bwd(*key, gen),
-             "attention_core_bwd": lambda key: check_attn_bwd(key, gen)}[name]
+             "attention_core_bwd": lambda key: check_attn_bwd(key, gen)}.get(
+                 name, lambda key: check_flash(name, key, gen))
+    seen = {} if seen is None else seen
     rows = []
     for key, count in sorted(collections.Counter(shapes).items(), key=str):
-        r = check(key)
+        earlier = (name, key) in seen
+        r = dict(seen[(name, key)]) if earlier else check(key)
         r.update(shape=key, count=count)
         rows.append(r)
+        base = (f" attention_core {r['baseline_ms']:.5f}"
+                if "baseline_ms" in r else "")
         print(f"  {name} {key} x{count}: err {r['err']:.2e} "
               f"ms {r['ms']:.5f} plain {r['plain_ms']:.5f} "
-              f"library {r['library_ms']:.5f} "
-              f"bound {max(r['bytes_ms'], r['ops_ms']):.5f}", flush=True)
+              f"library {r['library_ms']:.5f}{base} "
+              f"bound {max(r['bytes_ms'], r['ops_ms']):.5f}"
+              + (" (checked in an earlier phase)" if earlier else ""),
+              flush=True)
     return rows
+
+
+def seen_rows(*tables):
+    """(name, shape) -> row over tables of checked rows by kernel name."""
+    return {(name, r["shape"]): r for table in tables
+            for name, rows in table.items() for r in rows}
 
 
 def summed(rows):
     """A kernel's times summed over the calls of ``rows``."""
     total = lambda f: sum(r[f] * r["count"] for r in rows)
     bytes_ms, ops_ms = total("bytes_ms"), total("ops_ms")
-    return {"ms": total("ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) * r["count"]
-                            for r in rows),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": total("library_ms"),
-            "max_abs_err": max(r["err"] for r in rows)}
+    out = {"ms": total("ms"), "plain_ms": total("plain_ms"),
+           "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) * r["count"]
+                           for r in rows),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": total("library_ms"),
+           "max_abs_err": max(r["err"] for r in rows)}
+    if all("baseline_ms" in r for r in rows):
+        out["attention_core_ms"] = total("baseline_ms")
+    return out
 
 
 def reset_counts():
@@ -536,28 +679,41 @@ def main() -> int:
     del model
 
     train_rows, train_launches, per_step = train_phases(smi)
+    faces_rows, faces_launches, per_micro = faces_phases(
+        smi, seen_rows(serve_rows, train_rows))
 
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name in KERNELS:
-        train = summed(train_rows[name])
-        top = summed(serve_rows[name]) if name in serve_rows else train
-        launches = {"swap": swap_launches[name], "train": train_launches[name]}
-        kernels.append({
+        parts = {w: summed(rows[name]) for w, rows in (
+            ("serve", serve_rows), ("train_step", train_rows),
+            ("faces_micro_step", faces_rows)) if rows.get(name)}
+        top = next(iter(parts.values()))
+        launches = {"swap": swap_launches[name], "train": train_launches[name],
+                    "faces_train": faces_launches[name]}
+        entry = {
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": sum(launches.values()), "launches_by_path": launches,
-            "max_abs_err": max(top["max_abs_err"], train["max_abs_err"]),
-            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")},
-            "train_step": {**{k: train[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-                "launches": len(per_step[name])},
-        })
+            "max_abs_err": max(p["max_abs_err"] for p in parts.values()),
+            **{k: top[k] for k in fields}}
+        for workload, calls in (("train_step", per_step),
+                                ("faces_micro_step", per_micro)):
+            if workload in parts:
+                entry[workload] = {
+                    **{k: v for k, v in parts[workload].items()
+                       if k != "max_abs_err"},
+                    "launches": len(calls[name])}
+        kernels.append(entry)
     print("# kernels: ms, plain_ms, bound_ms and library_ms are summed over "
           "the launches of one UNet call plus one VQ decode at B=160 for the "
-          "forward kernels, and over one train step at B=128 for the "
-          "backward kernels; train_step holds every kernel's sums over one "
-          "train step at B=128; launches count the swap request and the "
-          f"{TRAIN_STEPS} train steps", flush=True)
+          "forward kernels, over one train step at B=128 for the flagship's "
+          "backward kernels, and over one faces micro-step (micro-batch 8, "
+          "256 px) for the flash kernels; train_step and faces_micro_step "
+          "hold every kernel's sums over those steps (attention_core_ms: "
+          "attention_core or attention_core_bwd at the flash kernels' shapes; "
+          "the library backward gives dq, dk and dv together); launches "
+          f"count the swap request, the {TRAIN_STEPS} train steps and the "
+          f"{4 * FACES_UPDATES} faces micro-steps", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     phase("total", t_all, "chip_smoke passed")
@@ -579,10 +735,125 @@ def print_profile(name, t0, what, prof):
         print(f"  {ms:9.4f} ms {n:5.0f}x  {kname[:110]}", flush=True)
 
 
+def record_step(model, state, batch, t, noise):
+    """The shape of every forward and backward kernel call of one forward +
+    backward on ``batch``, by kernel; Encoder4's statistics are restored."""
+    bn = cond_state(model)
+    fwd, remove = record_shapes(model)
+    with record_backward_shapes() as bwd:
+        loss_and_grads(model, state, batch, t, noise)
+    torch.cuda.synchronize()
+    remove()
+    model.cond_stage_model.load_state_dict(bn)
+    return {**fwd, **bwd}
+
+
 def cond_state(model):
     """A copy of Encoder4's state: its parameters and batch statistics."""
     return {k: v.clone() for k, v in
             model.cond_stage_model.state_dict().items()}
+
+
+def reference_check(name, t0, model, state, batch, draws):
+    """For each (t, noise) of ``draws``, one forward + backward on ``batch``
+    on the plain path and on the kernel path: the loss to LOSS_RTOL, every
+    gradient leaf to GRAD_RTOL relative L2 but the leaves whose exact
+    gradient is zero (held within GRAD_ZERO of the global norm), the new
+    batch statistics to PATH_TOL, on each of ``REFERENCE_REPEATS``
+    kernel-path runs.
+
+    Those kernel-path runs start their backward from the plain path's
+    gradient at the UNet output. The L1 loss's gradient there is
+    sign(ε_θ − ε) / n: where |ε_θ − ε| is within the two paths' rounding
+    its sign differs between them, and one such element moves the
+    gradients of the top UNet level by about 1e-3 relative L2. One more
+    kernel-path run on its own upstream gradient shows it: printed, with
+    the number of such elements, and not held to the tolerance."""
+    bn = cond_state(model)
+
+    def forward_backward(t, noise, upstream=None):
+        seen = {}
+
+        def output_hook(mod, args, out):
+            def grad_hook(g):
+                seen["upstream"] = g.detach().clone()
+                return upstream
+            out.register_hook(grad_hook)
+        handle = model.unet.register_forward_hook(output_hook)
+        try:
+            loss_dict, _ = loss_and_grads(model, state, batch, t, noise)
+        finally:
+            handle.remove()
+        grads = {k: p.grad.detach().clone()
+                 for k, p in trainable_parameters(model).items()}
+        stats = {k: v for k, v in cond_state(model).items()
+                 if k.endswith(("running_mean", "running_var"))}
+        model.cond_stage_model.load_state_dict(bn)
+        return loss_dict["train/loss"].item(), grads, stats, seen["upstream"]
+
+    readings, faults = [], []
+    for i, (t, noise) in enumerate(draws):
+        with plain_path():
+            loss_p, grads_p, stats_p, upstream_p = forward_backward(t, noise)
+        own = forward_backward(t, noise)
+        runs = [forward_backward(t, noise, upstream_p)
+                for _ in range(REFERENCE_REPEATS)]
+        torch.cuda.synchronize()
+        norms = {k: torch.linalg.vector_norm(g).item()
+                 for k, g in grads_p.items()}
+        total = sum(n * n for n in norms.values()) ** 0.5
+        zero = sorted(k for k, n in norms.items() if n <= GRAD_ZERO * total)
+        if not set(zero) <= EXACT_ZERO:
+            raise RuntimeError(f"leaves with a gradient under {GRAD_ZERO} of "
+                               f"the global norm that are not known exact "
+                               f"zeros: {sorted(set(zero) - EXACT_ZERO)}")
+
+        def relative(grads):
+            return {k: torch.linalg.vector_norm(g - grads_p[k]).item()
+                    / norms[k] for k, g in grads.items() if k not in zero}
+
+        worst_own = max((r, k) for k, r in relative(own[1]).items())
+        flips = (own[3] != upstream_p).sum().item()
+        got = []
+        for loss_k, grads_k, stats_k, _ in runs:
+            if abs(loss_k - loss_p) > LOSS_RTOL * abs(loss_p):
+                faults.append(f"draw {i}: loss kernel {loss_k} vs plain "
+                              f"{loss_p}")
+            rel = relative(grads_k)
+            for r, k in sorted(((r, k) for k, r in rel.items()),
+                               reverse=True)[:2]:
+                print(f"  draw {i}: gradient {k}: relative L2 {r:.3e}, "
+                      f"|g| / global {norms[k] / total:.3e}", flush=True)
+            failed = [k for k, r in rel.items() if r > GRAD_RTOL]
+            loud = [k for k in zero if torch.linalg.vector_norm(
+                grads_k[k]).item() > GRAD_ZERO * total]
+            if failed or loud:
+                faults.append(f"draw {i}: gradients off: {failed}; "
+                              f"zero-gradient leaves above {GRAD_ZERO} of "
+                              f"the global norm: {loud}")
+            for k in stats_p:
+                torch.testing.assert_close(stats_k[k], stats_p[k], **PATH_TOL)
+            worst = max((r, k) for k, r in rel.items())
+            got.append(f"{worst[0]:.3e} ({worst[1]})")
+        spread = max(torch.linalg.vector_norm(g - runs[1][1][k]).item()
+                     / norms[k] for k, g in runs[0][1].items()
+                     if k not in zero)
+        readings.append(
+            f"draw {i}: plain loss {loss_p:.7f}, kernel "
+            f"{', '.join(f'{r[0]:.7f}' for r in runs)}; worst leaf "
+            f"{'; '.join(got)}; run to run {spread:.3e}; L1 signs that "
+            f"differ at the UNet output {flips}, and on its own upstream "
+            f"gradient the kernel path's worst leaf {worst_own[0]:.3e} "
+            f"({worst_own[1]})")
+    if faults:
+        raise RuntimeError(f"{name}: " + "; ".join(readings + faults))
+    phase(name, t0, f"B={len(batch)}, {len(draws)} draws of t and noise: "
+          f"{len(grads_p) - len(zero)} of {len(grads_p)} gradient leaves "
+          f"within relative L2 {GRAD_RTOL} on each of {REFERENCE_REPEATS} "
+          f"kernel-path runs, loss within {LOSS_RTOL}, batch statistics "
+          f"within {PATH_TOL}; the {len(zero)} leaves with a zero exact "
+          f"gradient within {GRAD_ZERO} of the global norm: {zero}. "
+          + " | ".join(readings))
 
 
 def train_phases(smi):
@@ -597,22 +868,16 @@ def train_phases(smi):
     gen = torch.Generator("cuda").manual_seed(config["seed"])
     first = images[torch.from_numpy(
         epoch_batches(len(images), TRAIN_BATCH, config["seed"])[0]).cuda()]
-    t, noise = draw_t_and_noise(model, TRAIN_BATCH, gen)
-    bn = cond_state(model)
-    fwd, remove = record_shapes(model)
-    with record_backward_shapes() as bwd:
-        loss_and_grads(model, state, first, t, noise)
-    torch.cuda.synchronize()
-    remove()
-    model.cond_stage_model.load_state_dict(bn)
-    per_step = {**fwd, **bwd}
+    per_step = record_step(model, state, first,
+                           *draw_t_and_noise(model, TRAIN_BATCH, gen))
     phase("train-shapes", t0, f"B={TRAIN_BATCH}, global step {state.step}: "
           f"per train step { {k: len(v) for k, v in per_step.items()} }")
 
     # ---- 9: every kernel at every shape of the train step
     t0 = time.perf_counter()
     kgen = torch.Generator("cuda").manual_seed(SEED + 2)
-    rows = {name: check_rows(name, per_step[name], kgen) for name in KERNELS}
+    rows = {name: check_rows(name, per_step[name], kgen) for name in KERNELS
+            if per_step.get(name)}
     phase("train-kernels", t0, "each kernel matches its plain version at "
           f"every shape of the B={TRAIN_BATCH} train step (tol {KERNEL_TOL})")
 
@@ -667,61 +932,9 @@ def train_phases(smi):
     t0 = time.perf_counter()
     batch = images[torch.from_numpy(
         epoch_batches(len(images), TRAIN_BATCH, config["seed"], 1)[0]).cuda()]
-    t, noise = draw_t_and_noise(model, TRAIN_BATCH, gen)
-    bn = cond_state(model)
-
-    def forward_backward():
-        loss_dict, _ = loss_and_grads(model, state, batch, t, noise)
-        grads = {k: p.grad.detach().clone()
-                 for k, p in trainable_parameters(model).items()}
-        stats = {k: v for k, v in cond_state(model).items()
-                 if k.endswith(("running_mean", "running_var"))}
-        return loss_dict["train/loss"].item(), grads, stats
-
-    runs = []
-    for _ in range(REFERENCE_REPEATS):
-        runs.append(forward_backward())
-        model.cond_stage_model.load_state_dict(bn)
-    with plain_path():
-        loss_p, grads_p, stats_p = forward_backward()
-    torch.cuda.synchronize()
-    norms = {k: torch.linalg.vector_norm(g).item() for k, g in grads_p.items()}
-    total = sum(n * n for n in norms.values()) ** 0.5
-    zero = sorted(k for k, n in norms.items() if n <= GRAD_ZERO * total)
-    readings = []
-    for loss_k, grads_k, stats_k in runs:
-        if abs(loss_k - loss_p) > LOSS_RTOL * abs(loss_p):
-            raise RuntimeError(f"loss kernel {loss_k} vs plain {loss_p}")
-        rel = {k: (torch.linalg.vector_norm(g - grads_p[k]).item()
-                   / norms[k]) for k, g in grads_k.items() if k not in zero}
-        for r, k in sorted(((r, k) for k, r in rel.items()), reverse=True)[:4]:
-            print(f"  gradient {k}: relative L2 {r:.3e}, |g| / global "
-                  f"{norms[k] / total:.3e}", flush=True)
-        failed = [k for k, r in rel.items() if r > GRAD_RTOL]
-        loud = [k for k in zero if torch.linalg.vector_norm(grads_k[k]).item()
-                > GRAD_ZERO * total]
-        if failed or loud:
-            raise RuntimeError(f"gradients off: {failed}; zero-gradient "
-                               f"leaves above {GRAD_ZERO} of the global "
-                               f"norm: {loud}")
-        for k in stats_p:
-            torch.testing.assert_close(stats_k[k], stats_p[k], **PATH_TOL)
-        worst = max((r, k) for k, r in rel.items())
-        readings.append(f"loss {loss_k:.7f}, worst {worst[0]:.3e} "
-                        f"({worst[1]}), unet.conv_in.bias "
-                        f"{rel.get('unet.conv_in.bias', float('nan')):.3e}")
-    spread = max(torch.linalg.vector_norm(g - runs[1][1][k]).item()
-                 / max(norms[k], 1e-30) for k, g in runs[0][1].items()
-                 if k not in zero)
-    phase("train-reference", t0, f"plain loss {loss_p:.7f} (rtol "
-          f"{LOSS_RTOL}); {len(grads_p)} gradient leaves, "
-          f"{len(grads_p) - len(zero)} within relative L2 {GRAD_RTOL} on "
-          f"each of {REFERENCE_REPEATS} kernel-path runs: "
-          + "; ".join(readings)
-          + f"; kernel path run to run: worst relative L2 {spread:.3e}; "
-          f"{len(zero)} leaves with a zero exact gradient within "
-          f"{GRAD_ZERO} of the global norm {total:.4f}: {zero}; batch "
-          f"statistics within {PATH_TOL}")
+    reference_check("train-reference", t0, model, state, batch, [
+        draw_t_and_noise(model, TRAIN_BATCH, gen)
+        for _ in range(REFERENCE_DRAWS)])
 
     # ---- 12: where the time of one train step goes (not pass/fail)
     t0 = time.perf_counter()
@@ -729,6 +942,159 @@ def train_phases(smi):
                   profile(lambda: train_step(model, state, batch,
                                              generator=gen), calls=2))
     return rows, launches, per_step
+
+
+def redraw_trainable(model, gen):
+    """Draw every trainable leaf anew from ``gen`` as the CPU whole-step
+    tests value theirs: kernels N(0, 1/fan_in), norm scales 1 + N(0, 0.1²),
+    every other leaf N(0, 0.1²). A fresh init has zero output convolutions
+    and, at the warmup's LR, leaves whose gradients are tiny without being
+    zero; at this generic point every leaf but the exact-zero ones carries
+    a gradient the reference check can hold to GRAD_RTOL."""
+    with torch.no_grad():
+        for name, p in trainable_parameters(model).items():
+            noise = torch.randn(p.shape, generator=gen, device=p.device)
+            if p.dim() > 1:   # conv / linear weights, the warp MLPs' w1-w3
+                fan_in = (p.shape[-2] if name.startswith("cond.warp_mlps.")
+                          else p[0].numel())
+                p.copy_(noise / fan_in ** 0.5)
+            elif name.endswith(".weight"):
+                p.copy_(1.0 + 0.1 * noise)
+            else:
+                p.copy_(0.1 * noise)
+
+
+def faces_phases(smi, seen):
+    """Phases 13-17 on the faces configuration's train step from a fresh
+    seeded init. ``seen`` holds the rows checked in earlier phases by
+    (kernel, shape). Returns the checked rows of every kernel at the faces
+    micro-step's shapes, the launches of the train run, and the calls of
+    one micro-step by kernel."""
+    # ---- 13: every kernel call of one micro-step
+    t0 = time.perf_counter()
+    config = FACES_TRAIN
+    seed, micro = config["seed"], config["batch_size"]
+    accumulate = config["accumulate_grad_batches"]
+    model, state, _ = train_steps.fresh_for_training(config, seed, "cuda")
+    images = train_steps.training_images("faces", config, "cuda")
+    gen = torch.Generator("cuda").manual_seed(seed)
+    first = images[torch.from_numpy(
+        epoch_batches(len(images), micro, seed)[0]).cuda()]
+    per_micro = record_step(model, state, first,
+                            *draw_t_and_noise(model, micro, gen))
+    flash_shapes = {k: sorted(set(per_micro[k])) for k in FLASH}
+    phase("faces-shapes", t0, f"{len(images)} images of "
+          f"{tuple(images.shape[1:])}, micro-batch {micro}, global step "
+          f"{state.step}: per micro-step "
+          f"{ {k: len(v) for k, v in per_micro.items()} }; flash shapes "
+          f"(B, H, N, dh) {flash_shapes}; attention_core shapes "
+          f"{sorted(set(per_micro['attention_core']))}; GN-SiLU shapes "
+          f"{sorted(set(s for s, _, _ in per_micro['groupnorm_silu']))}")
+
+    # ---- 14: every kernel at every shape of the micro-step
+    t0 = time.perf_counter()
+    kgen = torch.Generator("cuda").manual_seed(SEED + 3)
+    rows = {name: check_rows(name, per_micro[name], kgen, seen)
+            for name in KERNELS if per_micro.get(name)}
+    phase("faces-kernels", t0, "each kernel matches its plain version at "
+          f"every shape of the faces micro-step (tol {KERNEL_TOL}); per "
+          "micro-step: " + "; ".join(
+              f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f}, plain "
+              f"{v['plain_ms']:.3f}, library {v['library_ms']:.3f}"
+              + (f", attention_core {v['attention_core_ms']:.3f}"
+                 if "attention_core_ms" in v else "") + ")"
+              for k, v in ((k, summed(r)) for k, r in rows.items())))
+
+    # ---- 15: the train run, counters read around it alone
+    t0 = time.perf_counter()
+    steps = FACES_UPDATES * accumulate
+    params = trainable_parameters(model)
+    first_param = next(iter(params.values()))
+    prev = {k: p.detach().clone() for k, p in params.items()}
+    prev_ema = {k: v.clone() for k, v in state.ema.params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, metrics, moved, ema_moved, adam_counts = [], [], [], [], []
+    t1 = time.perf_counter()
+    for m in train_steps.run(model, state, images, steps, micro, seed, gen):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        metrics.append(m)
+        # outside the timed span: which state moved in this micro-step
+        moved.append(any(not torch.equal(p, prev[k])
+                         for k, p in params.items()))
+        ema_moved.append(any(not torch.equal(v, prev_ema[k])
+                             for k, v in state.ema.params.items()))
+        adam = state.optimizer.state.get(first_param, {}).get("step")
+        adam_counts.append(0 if adam is None else int(adam))
+        prev = {k: p.detach().clone() for k, p in params.items()}
+        prev_ema = {k: v.clone() for k, v in state.ema.params.items()}
+        t1 = time.perf_counter()
+    launches, plain_calls = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    series = {k: torch.stack([m[k] for m in metrics]).tolist()
+              for k in ("train/loss", "train/loss_simple", "grad_norm")}
+    if not all(torch.isfinite(torch.tensor(v)).all() for v in series.values()):
+        raise RuntimeError(f"non-finite loss or grad_norm: {series}")
+    boundary = [(i + 1) % accumulate == 0 for i in range(steps)]
+    if moved != boundary:
+        raise RuntimeError(f"parameters moved at micro-steps "
+                           f"{[i + 1 for i, v in enumerate(moved) if v]}, "
+                           f"expected every {accumulate}th")
+    if adam_counts != [(i + 1) // accumulate for i in range(steps)]:
+        raise RuntimeError(f"AdamW counts {adam_counts}")
+    if not all(ema_moved[accumulate:]) or state.ema.num_updates != steps:
+        raise RuntimeError(f"the EMA stood still at micro-steps "
+                           f"{[i + 1 for i, v in enumerate(ema_moved) if not v]}"
+                           f" ({state.ema.num_updates} updates)")
+    if (state.step, state.updates) != (steps, FACES_UPDATES):
+        raise RuntimeError(f"global step {state.step}, updates "
+                           f"{state.updates}")
+    expected = {k: len(v) * steps for k, v in per_micro.items()}
+    if launches != expected or any(plain_calls.values()):
+        raise RuntimeError(f"launches {launches}, expected {expected}; "
+                           f"plain calls {plain_calls}")
+    rest = times[accumulate:]  # after the first update
+    per_update = [sum(times[i:i + accumulate])
+                  for i in range(accumulate, steps, accumulate)]
+    median = lambda v: sorted(v)[len(v) // 2]
+    phase("faces-train", t0, f"{FACES_UPDATES} updates x {accumulate} "
+          f"micro-batches of {micro} from a fresh init (seed {seed}): per "
+          f"micro-step {median(rest) * 1e3:.3f} ms median, "
+          f"{sum(rest) / len(rest) * 1e3:.3f} ms mean (micro-steps "
+          f"{accumulate + 1}-{steps}; first {times[0] * 1e3:.1f} ms); per "
+          f"update {median(per_update) * 1e3:.3f} ms median, "
+          f"{sum(per_update) / len(per_update) * 1e3:.3f} ms mean (updates "
+          f"2-{FACES_UPDATES}), {len(per_update) / sum(per_update):.3f} "
+          f"updates/s; peak memory {peak / 2**20:.1f} MiB; "
+          + ", ".join(f"{k} {v[0]:.6f} -> {v[-1]:.6f}"
+                      for k, v in series.items())
+          + f", lr {metrics[0]['lr']:.4e} -> {metrics[-1]['lr']:.4e}; "
+          f"parameters and AdamW moved at micro-steps "
+          f"{[i + 1 for i, v in enumerate(moved) if v]} only, the EMA at "
+          f"every micro-step from {accumulate + 1} on (none before the "
+          f"first update: the EMA starts equal to the parameters); launches "
+          f"per micro-step { {k: v // steps for k, v in launches.items()} },"
+          f" plain calls {plain_calls} | {smi}")
+
+    # ---- 16: one forward + backward at micro-batch 2, kernel vs plain path
+    t0 = time.perf_counter()
+    redraw_trainable(model, torch.Generator("cuda").manual_seed(seed + 1))
+    batch = first[:FACES_REFERENCE_BATCH]
+    reference_check("faces-reference", t0, model, state, batch, [
+        draw_t_and_noise(model, FACES_REFERENCE_BATCH, gen)
+        for _ in range(REFERENCE_DRAWS)])
+
+    # ---- 17: where the time of one optimizer update goes (not pass/fail)
+    t0 = time.perf_counter()
+
+    def update():
+        for _ in range(accumulate):
+            train_step(model, state, first, generator=gen)
+    print_profile("faces-profile", t0, f"one update ({accumulate} "
+                  f"micro-steps of {micro})", profile(update, calls=1))
+    return rows, launches, per_micro
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""The flagship configuration as Python dicts.
+"""The flagship and the faces configurations as Python dicts.
 
 ``FLAGSHIP`` holds the model fields of
 ``configs/demo/synthetic-shapes-v4-full-encdiff.yaml`` (the architecture of
@@ -9,6 +9,13 @@ purification phase trained with: the YAML's training fields and the run's
 HSIC overrides (``demo_artifacts/round5/v4purify_run/run_metadata.json``).
 ``tests/test_torch_port_slice.py`` and
 ``tests/test_torch_port_train_modules.py`` hold both equal to those files.
+
+``FACES`` and ``FACES_TRAIN`` hold the model and training fields of
+``configs/demo/synthetic-faces-encdiff.yaml``: 256 px images of the
+procedural face grid on 64x64x3 latents, micro-batch 8 with 4-way gradient
+accumulation; ``train.harness``'s default seed. ``dtype`` is the YAML's
+(bf16 activations on the TPU); the port reads it and runs fp32.
+``tests/test_torch_port_faces.py`` holds both equal to the YAML.
 """
 
 FLAGSHIP = {
@@ -73,4 +80,32 @@ FLAGSHIP_TRAIN = {
         "f_max": [1.0],
         "f_min": [1.0],
     },
+}
+
+
+FACES = {
+    "timesteps": 1000,
+    "loss_type": "l1",
+    "scale_by_std": True,
+    "linear_start": 0.0015,
+    "linear_end": 0.0155,
+    "image_size": 64,
+    "channels": 3,
+    "dtype": "bfloat16",
+    "unet_config": {**FLAGSHIP["unet_config"], "image_size": 64},
+    "first_stage_config": {
+        **FLAGSHIP["first_stage_config"],
+        "ddconfig": {**FLAGSHIP["first_stage_config"]["ddconfig"],
+                     "resolution": 256},
+    },
+    "cond_stage_config": dict(FLAGSHIP["cond_stage_config"]),
+}
+
+FACES_TRAIN = {
+    **FACES,
+    "base_learning_rate": 2.0e-06,
+    "batch_size": 8,
+    "accumulate_grad_batches": 4,
+    "seed": 23,
+    "scheduler_config": dict(FLAGSHIP_TRAIN["scheduler_config"]),
 }

@@ -15,7 +15,9 @@ are permuted to the CHW flatten of an NCHW tensor.
 
 The inverse (``state_dict_to_flax``, ``encoder4_to_flax``) walks the tree
 a state dict was converted from, so that a trained model is saved under the
-JAX package's paths.
+JAX package's paths. A model initialised in the port has no such tree:
+``state_dict_tree`` makes one without the wrappers' inner levels, which the
+port's loader drops anyway.
 """
 
 from __future__ import annotations
@@ -71,6 +73,28 @@ def state_dict_to_flax(sd: dict, template: dict) -> dict:
             out[k] = np.ascontiguousarray(arr)
         return out
     return walk(template, ())
+
+
+def state_dict_tree(sd: dict) -> dict:
+    """A flax-layout tree of ``sd`` without the flax wrappers' inner levels,
+    as float32 numpy: kernels transposed back, norm ``weight`` -> ``scale``,
+    ``running_mean`` / ``running_var`` -> ``mean`` / ``var``;
+    ``num_batches_tracked`` is dropped. ``flax_to_state_dict`` inverts it."""
+    names = {v: k for k, v in _LEAVES.items()}
+    tree: dict = {}
+    for key, t in sd.items():
+        *path, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        arr = t.detach().float().cpu().numpy()
+        if leaf == "weight" and arr.ndim > 1:
+            leaf = "kernel"
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[names.get(leaf, leaf)] = np.ascontiguousarray(arr)
+    return tree
 
 
 def encoder4_state_dict(params: dict, batch_stats: dict

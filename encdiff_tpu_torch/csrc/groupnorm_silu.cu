@@ -16,10 +16,13 @@
 //
 // Bound on the H100: bytes. Each element is read once and written once
 // (8 bytes) for about ten fp32 operations, far below the card's
-// 67 TFLOP/s / 3.35 TB/s = 20 operations per byte. A group is at most
-// 32 KB on the flagship's path (64 x 64 x 2 channels in the VQ decoder), so
-// the second and third passes hit L1 / L2 and device memory sees about one
-// read and one write of x. No shared-memory staging, no vector loads and no
+// 67 TFLOP/s / 3.35 TB/s = 20 operations per byte. A group is 32 KB on the
+// flagship's path (64 x 64 x 2 channels in the VQ decoder), so the second
+// and third passes hit L1 / L2 and device memory sees about one read and one
+// write of x. On the faces path a VQ encoder group is 256 KB (256 x 256 x 1
+// channel) and a call's x is 64 MB, more than the 50 MB L2: there the
+// re-reads reach device memory too. Any group size is taken: the passes
+// stream through it. No shared-memory staging, no vector loads and no
 // tuning yet: a later change can make it faster.
 
 #include <cuda_runtime.h>
@@ -122,7 +125,8 @@ extern "C" int gn_silu_fwd(const void* x, const void* gamma, const void* beta,
 // Bound on the H100: bytes, as the forward: x and g read, dx written once
 // (12 bytes an element) for about thirty fp32 operations. The group is read
 // three times more (statistics, per-channel sums, dx); a group is at most
-// 32 KB on the train path, so the re-reads hit L1 / L2.
+// 32 KB on the flagship's train path and 64 KB on the faces one (the UNet's
+// 64 x 64 level, 4 channels a group), so the re-reads hit L1 / L2.
 
 namespace {
 

@@ -5,7 +5,8 @@ Counterpart of ``encdiff_tpu/models/latent_diffusion.py``: for serving
 ``sample_ddim``; for training (:243-356, 412-421) ``encode_first_stage``,
 ``get_learned_conditioning``, ``split_batch``, ``loss_fn`` (without MCL)
 and ``compute_scale_factor``, with the constant logvar table
-(``learn_logvar`` is False). Public methods take and return the JAX
+(``learn_logvar`` is False); ``init_parameters`` is the seeded fresh init
+of ``init_variables`` (:198). Public methods take and return the JAX
 package's NHWC layout for images and latents; the modules inside run NCHW.
 """
 
@@ -23,8 +24,11 @@ from encdiff_tpu_torch.diffusion.ddim import ddim_sample
 from encdiff_tpu_torch.diffusion.ddpm import ddpm_losses, schedule_tables
 from encdiff_tpu_torch.losses.indep import indep_penalty
 from encdiff_tpu_torch.models.autoencoder import VQModelInterface
-from encdiff_tpu_torch.nn.encoder4 import Encoder4
-from encdiff_tpu_torch.nn.unet import UNetModel
+from encdiff_tpu_torch.nn.attention import SpatialTransformer
+from encdiff_tpu_torch.nn.encoder4 import Encoder4, WarpMLPs
+from encdiff_tpu_torch.nn.layers import GNSiLU
+from encdiff_tpu_torch.nn.quantize import VectorQuantizer
+from encdiff_tpu_torch.nn.unet import ResBlock, UNetModel
 
 
 def _nchw(x):
@@ -41,7 +45,9 @@ class LatentDiffusion(nn.Module):
     come from ``config`` with the JAX package's defaults; the rest are the
     flagship's (ε-prediction, L1, no vlb term, a constant logvar of 0, HSIC
     bandwidth 1), and a config that names another ``loss_type`` is
-    refused. Built frozen and in eval mode;
+    refused. Parameters and activations are fp32 whatever ``dtype`` the
+    config names (the faces YAML's bfloat16 is the TPU's). Built frozen and
+    in eval mode;
     ``train.loop`` makes the UNet and Encoder4 trainable.
 
     ``device`` defaults to CUDA and raises when no CUDA device is present;
@@ -53,7 +59,12 @@ class LatentDiffusion(nn.Module):
         self.image_size = config["image_size"]
         self.channels = config["channels"]
         self.unet = UNetModel(**config["unet_config"])
-        self.cond_stage_model = Encoder4(**config["cond_stage_config"])
+        # Encoder4 reads the images the first stage encodes: its fc is sized
+        # for the first stage's resolution, as the JAX harness initialises
+        # it (``train/harness.py:_image_resolution``)
+        self.cond_stage_model = Encoder4(**{
+            "image_size": config["first_stage_config"]["ddconfig"]["resolution"],
+            **config["cond_stage_config"]})
         self.first_stage_model = VQModelInterface(**config["first_stage_config"])
         self.schedule = DiffusionSchedule.create(
             timesteps=config["timesteps"], beta_schedule="linear",
@@ -71,9 +82,11 @@ class LatentDiffusion(nn.Module):
         self.to(self.device).eval().requires_grad_(False)
 
     @classmethod
-    def from_checkpoint(cls, path: str, device="cuda") -> "LatentDiffusion":
-        """The flagship with the weights of a compact ``.npz`` checkpoint."""
-        model = cls(FLAGSHIP, device)
+    def from_checkpoint(cls, path: str, device="cuda",
+                        config: dict = FLAGSHIP) -> "LatentDiffusion":
+        """The model of ``config`` (the flagship by default) with the
+        weights of a compact ``.npz`` checkpoint."""
+        model = cls(config, device)
         model.load_variables(*load_model_variables(path))
         return model
 
@@ -86,11 +99,69 @@ class LatentDiffusion(nn.Module):
                 or variables["unet"]["params"])
         self.unet.load_state_dict(convert.flax_to_state_dict(unet))
         cond = variables["cond"]
-        self.cond_stage_model.load_state_dict(convert.encoder4_state_dict(
-            cond["params"], cond.get("batch_stats") or {}))
+        sd = convert.encoder4_state_dict(cond["params"],
+                                         cond.get("batch_stats") or {})
+        out_f, in_f = sd["fc.weight"].shape
+        if self.cond_stage_model.fc.in_features != in_f:
+            # a flax Dense takes its input size from the image it was
+            # initialised on, so the weights, not the config, fix it
+            self.cond_stage_model.fc = nn.Linear(in_f, out_f).to(
+                self.device).requires_grad_(False)
+        self.cond_stage_model.load_state_dict(sd)
         self.first_stage_model.load_state_dict(
             convert.first_stage_state_dict(variables["first_stage"]["params"]))
         self.scale_factor = float(scale_factor)
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """A fresh init of every parameter and batch statistic, drawn from
+        ``generator`` alone, with the distributions of the JAX
+        ``init_variables``: convolutions and linears U(±1/√fan_in) for weight
+        and bias (torch's default, ``layers.torch_linear_init``), zeros for
+        the zero-initialised outputs (each UNet ResBlock's and the UNet's
+        ``out_conv``, each SpatialTransformer's ``proj_out``), the warp MLPs
+        U(±1/√fan_in) by layer, the codebook U(±1/n_embed), norms at ones and
+        zeros, BatchNorm statistics at 0 and 1. The scale factor is 1."""
+        zero = {self.unet.out_conv}
+        for m in self.unet.modules():
+            if isinstance(m, ResBlock):
+                zero.add(m.out_conv)
+            elif isinstance(m, SpatialTransformer):
+                zero.add(m.proj_out)
+
+        def uniform(t, bound):
+            t.uniform_(-bound, bound, generator=generator)
+
+        done = set()
+        for m in self.modules():
+            own = list(m.parameters(recurse=False))
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                for t in own:
+                    if m in zero:
+                        t.zero_()
+                    else:
+                        uniform(t, fan_in ** -0.5)
+            elif isinstance(m, (GNSiLU, nn.GroupNorm, nn.LayerNorm,
+                                nn.BatchNorm2d)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                if isinstance(m, nn.BatchNorm2d):
+                    m.running_mean.zero_()
+                    m.running_var.fill_(1.0)
+                    m.num_batches_tracked.zero_()
+            elif isinstance(m, WarpMLPs):
+                for fan_in, names in ((1, "w1 b1"), (64, "w2 b2"),
+                                      (128, "w3 b3")):
+                    for name in names.split():
+                        uniform(getattr(m, name), fan_in ** -0.5)
+            elif isinstance(m, VectorQuantizer):
+                uniform(m.embedding, 1.0 / m.embedding.shape[0])
+            elif own:
+                raise TypeError(f"no init rule for {type(m).__name__}")
+            done.update(id(t) for t in own)
+        assert done == {id(t) for t in self.parameters()}
+        self.scale_factor = 1.0
 
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -104,7 +175,7 @@ class LatentDiffusion(nn.Module):
 
     @torch.no_grad()
     def cond_encoding(self, x):
-        """Images (B, 64, 64, 3) in [-1, 1] -> (B, latent_unit) scalars,
+        """Images (B, S, S, 3) in [-1, 1] -> (B, latent_unit) scalars,
         with the BatchNorms on their running statistics."""
         self.cond_stage_model.eval()
         return self.cond_stage_model.encoding(_nchw(self._tensor(x)))
@@ -168,7 +239,7 @@ class LatentDiffusion(nn.Module):
         return _nhwc(self.first_stage_model.encode(_nchw(self._tensor(x))))
 
     def get_learned_conditioning(self, x, train: bool = False):
-        """Images (B, 64, 64, 3) in [-1, 1] -> (flat tokens (B, U*D),
+        """Images (B, S, S, 3) in [-1, 1] -> (flat tokens (B, U*D),
         scalars u (B, U)). With ``train`` Encoder4 normalises with batch
         statistics and updates its running statistics in place."""
         self.cond_stage_model.train(train)

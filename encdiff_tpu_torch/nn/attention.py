@@ -1,8 +1,9 @@
 """Cross-attention stack of the UNet, NCHW at its edges.
 
 Counterpart of ``encdiff_tpu/nn/attention.py:28-191`` without attention-map
-capture, which is not on the serving path: every attention goes to the
-``attention_core`` kernel.
+capture, which is not on the serving or training path. ``attention`` routes
+as the JAX ``attention`` does: large self-attention to the flash kernels,
+everything else to the ``attention_core`` kernel.
 """
 
 from __future__ import annotations
@@ -11,7 +12,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from encdiff_tpu_torch.nn.kernels.attention import attention_core
+from encdiff_tpu_torch.nn.kernels.flash_attention import flash_attention
 from encdiff_tpu_torch.nn.layers import TorchConv
+
+
+def takes_flash(n: int, m: int) -> bool:
+    """Whether attention of N queries over M keys runs the flash kernels:
+    self-attention with N == M >= 1024 and N % 512 == 0, the JAX package's
+    rule (``encdiff_tpu/nn/attention.py:45``), so that each site runs the
+    counterpart of the kernel the JAX package runs there."""
+    return n == m and n >= 1024 and n % 512 == 0
+
+
+def attention(q, k, v, scale: float):
+    """softmax(q kᵀ·scale) v on (B, H, N, dh) tensors, through the flash
+    kernels where ``takes_flash``, else through ``attention_core``."""
+    if takes_flash(q.shape[2], k.shape[2]):
+        return flash_attention(q, k, v, scale)
+    return attention_core(q, k, v, scale)
 
 
 class CrossAttention(nn.Module):
@@ -37,7 +55,7 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).view(b, n, h, dh).transpose(1, 2)
         k = self.to_k(context).view(b, m, h, dh).transpose(1, 2)
         v = self.to_v(context).view(b, m, h, dh).transpose(1, 2)
-        out = attention_core(q, k, v, self.scale)
+        out = attention(q, k, v, self.scale)
         return self.to_out(out.transpose(1, 2).reshape(b, n, h * dh))
 
 

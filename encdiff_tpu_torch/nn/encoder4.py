@@ -1,7 +1,7 @@
 """Encoder4, the concept-token encoder, NCHW.
 
 Counterpart of ``encdiff_tpu/nn/encoder4.py:30-148``: a stride-2 CNN maps a
-(B, 3, 64, 64) image to ``latent_unit`` scalars (``encoding``), and
+(B, 3, S, S) image to ``latent_unit`` scalars (``encoding``), and
 ``latent_unit`` scalar->token MLPs lift them to concept tokens (``warp``).
 ``bn3`` is followed by no ReLU, as in the reference. The final Linear reads
 the CHW flatten; the converter permutes the flax HWC-ordered fc rows to
@@ -91,7 +91,8 @@ class Encoder4(nn.Module):
         self.warp_mlps = WarpMLPs(latent_unit, context_dim)
 
     def encoding(self, x):
-        """(B, 3, 64, 64) -> (B, latent_unit) raw scalars."""
+        """(B, 3, S, S) -> (B, latent_unit) raw scalars; S is the
+        ``image_size`` the fc was sized for."""
         h = F.relu(self.bn1(self.conv1(x)))
         h = F.relu(self.bn2(self.conv2(h)))
         h = self.bn3(self.conv3(h))

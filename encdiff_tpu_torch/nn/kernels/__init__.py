@@ -15,6 +15,7 @@ import contextlib
 import torch
 
 _ROUTE = {"plain": False}
+_INT_MAX = 2**31 - 1
 
 
 @contextlib.contextmanager
@@ -49,6 +50,20 @@ def check_cuda_tensor(name: str, t, device, shape=None) -> None:
         raise ValueError(f"{name}: dtype {t.dtype}, expected torch.float32")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def head_strides(name, tensors):
+    """The batch, head and row strides of each (B, H, L, dh) tensor; raises
+    unless its last dimension is contiguous and its strides fit int32."""
+    out = []
+    for tname, t in tensors:
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: {tname} needs a contiguous last "
+                             f"dimension, strides {t.stride()}")
+        if max(t.stride()) > _INT_MAX:
+            raise ValueError(f"{name}: {tname} strides exceed int32")
+        out += t.stride()[:3]
+    return out
 
 
 def launch_stream(device) -> int:

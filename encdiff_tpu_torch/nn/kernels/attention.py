@@ -15,13 +15,12 @@ import functools
 import torch
 
 from encdiff_tpu_torch.nn.kernels import (build, check_cuda_tensor,
-                                          launch_stream, raise_on_error,
-                                          takes_plain)
+                                          head_strides, launch_stream,
+                                          raise_on_error, takes_plain)
 
 #: head sizes the kernels take (csrc/attention_core.cu): forward, backward
 HEAD_SIZES = (8, 16, 32, 64, 128)
 BWD_HEAD_SIZES = (8, 16, 32)
-_INT_MAX = 2**31 - 1
 
 
 def attention_core_plain(q, k, v, scale: float):
@@ -65,20 +64,6 @@ def _bwd_fn():
     fn.argtypes = [p] * 9 + [i] * 5 + [ctypes.POINTER(i), ctypes.c_float, p]
     fn.restype = i
     return fn
-
-
-def _strides(name, tensors):
-    """The batch, head and row strides of each (B, H, L, dh) tensor; raises
-    unless its last dimension is contiguous and its strides fit int32."""
-    out = []
-    for tname, t in tensors:
-        if t.stride(3) != 1:
-            raise ValueError(f"{name}: {tname} needs a contiguous last "
-                             f"dimension, strides {t.stride()}")
-        if max(t.stride()) > _INT_MAX:
-            raise ValueError(f"{name}: {tname} strides exceed int32")
-        out += t.stride()[:3]
-    return out
 
 
 class _AttentionCore(torch.autograd.Function):
@@ -125,8 +110,8 @@ def _attention_core_fwd(q, k, v, scale: float):
     check_cuda_tensor("k", k, q.device, (b, h, m, dh))
     check_cuda_tensor("v", v, q.device, (b, h, m, dh))
     out = torch.empty((b, n, h, dh), device=q.device).transpose(1, 2)
-    strides = _strides("attention_core", (("q", q), ("k", k), ("v", v),
-                                          ("out", out)))
+    strides = head_strides("attention_core", (("q", q), ("k", k), ("v", v),
+                                              ("out", out)))
     rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                b, h, n, m, dh, *strides, scale, launch_stream(q.device))
     raise_on_error("attention_core_fwd", rc)
@@ -163,7 +148,7 @@ def attention_core_bwd(q, k, v, do, scale: float):
     dk = torch.empty((b, m, h, dh), device=q.device).transpose(1, 2)
     dv = torch.empty((b, m, h, dh), device=q.device).transpose(1, 2)
     stats = torch.empty((2, b * h, n), device=q.device)  # logsumexp, delta
-    strides = _strides("attention_core_bwd", (
+    strides = head_strides("attention_core_bwd", (
         ("q", q), ("k", k), ("v", v), ("do", do), ("dq", dq), ("dk", dk),
         ("dv", dv)))
     c_strides = (ctypes.c_int * len(strides))(*strides)

@@ -20,7 +20,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
-NAMES = ("groupnorm_silu", "attention_core")
+NAMES = ("groupnorm_silu", "attention_core", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``encdiff_tpu/nn/vae.py:24-222``: ResnetBlock (GN-SiLU eps
 1e-6 through the ``groupnorm_silu`` kernel), AttnBlock (single head over
-all positions through ``attention_core``), the asymmetric-pad Downsample,
+all positions through ``nn.attention.attention``: the flash kernel from
+1,024 positions on, ``attention_core`` below), the asymmetric-pad Downsample,
 Upsample, Encoder and Decoder. The first stage runs frozen, so these run
 forward only.
 """
@@ -13,7 +14,7 @@ from typing import Sequence
 
 from torch import nn
 
-from encdiff_tpu_torch.nn.kernels.attention import attention_core
+from encdiff_tpu_torch.nn.attention import attention
 from encdiff_tpu_torch.nn.layers import GNSiLU, TorchConv, upsample_nearest_2x
 
 
@@ -54,8 +55,8 @@ class AttnBlock(nn.Module):
         def tokens(conv):  # (B, C, H, W) -> (B, 1, HW, C), rows contiguous
             return conv(h).flatten(2).transpose(1, 2).contiguous()[:, None]
 
-        out = attention_core(tokens(self.q), tokens(self.k), tokens(self.v),
-                             c ** -0.5)
+        out = attention(tokens(self.q), tokens(self.k), tokens(self.v),
+                        c ** -0.5)
         out = out[:, 0].transpose(1, 2).contiguous().view(b, c, hgt, wid)
         return x + self.proj_out(out)
 

@@ -1,10 +1,11 @@
 """The stage-2 train step: loss, backward, AdamW, EMA and scale-by-std.
 
 Counterpart of ``encdiff_tpu/train/loop.py:128-250`` (``TrainState``,
-``scaled_learning_rate``, ``build_optimizer``, ``create_train_state``,
-``build_train_step``) without MCL. The JAX step is one jitted XLA program;
-here it is eager PyTorch whose GN-SiLU and attention run the port's kernels
-forward and backward. As in the JAX step:
+``scaled_learning_rate``, ``build_optimizer`` with its ``optax.MultiSteps``
+gradient accumulation, ``create_train_state``, ``build_train_step``)
+without MCL. The JAX step is one jitted XLA program; here it is eager
+PyTorch whose GN-SiLU and attention run the port's kernels forward and
+backward. As in the JAX step:
 
 - scale_by_std sets the scale factor from the batch at global step 0 only;
   later steps keep the state's;
@@ -13,7 +14,14 @@ forward and backward. As in the JAX step:
   from weights alone begins the warmup again. Each step sets the LR itself;
 - ``grad_norm`` is the global L2 norm of the gradients, and nothing clips
   them;
-- the EMA of the UNet moves after the optimizer step.
+- the EMA of the UNet moves after the optimizer step;
+- with accumulation over k micro-batches (``optax.MultiSteps``) each call
+  is one micro-batch: its gradients go into a running mean kept in buffers
+  of its own (Welford's update, as optax), AdamW (its moments, its count
+  and so the LR) moves on every k-th call only, with the mean, and the
+  other calls leave the parameters as they are; the global step,
+  Encoder4's batch statistics and the EMA move on every call, and
+  ``grad_norm`` is the micro-batch's.
 
 t and the noise come from an explicit ``torch.Generator``, or are given.
 """
@@ -44,12 +52,16 @@ class TrainState:
     lr_fn: Callable[[int], float]
     ema: ema_lib.EmaState           # over the UNet only
     scale_factor: torch.Tensor      # float32 scalar
+    accumulate: int = 1             # micro-batches per optimizer update
+    mini_step: int = 0              # micro-batches in the running mean
+    acc_grads: list | None = None   # the running mean of their gradients
 
 
-def scaled_learning_rate(base_lr: float, batch_size: int) -> float:
+def scaled_learning_rate(base_lr: float, batch_size: int,
+                         accumulate: int = 1) -> float:
     """The reference's LR rule, accumulate x ngpu x batch x base_lr, on one
-    device without accumulation."""
-    return batch_size * base_lr
+    device."""
+    return accumulate * batch_size * base_lr
 
 
 def trainable_parameters(model) -> dict:
@@ -72,12 +84,14 @@ def create_train_state(model, config: dict, step: int = 0) -> TrainState:
     """A fresh optimizer and EMA (from the model's current UNet) for
     ``model``, whose UNet and Encoder4 become trainable; ``step`` is the
     global step the weights were saved at. ``config`` gives
-    ``base_learning_rate``, ``batch_size`` and the ``scheduler_config`` of
-    a ``LambdaLinearScheduler``."""
+    ``base_learning_rate``, ``batch_size``, the ``scheduler_config`` of a
+    ``LambdaLinearScheduler`` and optionally ``accumulate_grad_batches``
+    (1 by default)."""
     model.unet.requires_grad_(True)
     model.cond_stage_model.requires_grad_(True)
+    accumulate = config.get("accumulate_grad_batches", 1)
     lr = scaled_learning_rate(config["base_learning_rate"],
-                              config["batch_size"])
+                              config["batch_size"], accumulate)
     lr_fn = as_lr_schedule(
         LambdaLinearScheduler(**config["scheduler_config"]), lr)
     optimizer = build_optimizer(list(trainable_parameters(model).values()),
@@ -86,7 +100,8 @@ def create_train_state(model, config: dict, step: int = 0) -> TrainState:
                       ema=ema_lib.init(dict(model.unet.named_parameters())),
                       scale_factor=torch.tensor(
                           model.scale_factor, dtype=torch.float32,
-                          device=model.device))
+                          device=model.device),
+                      accumulate=accumulate)
 
 
 def draw_t_and_noise(model, batch_size: int, generator: torch.Generator):
@@ -122,20 +137,40 @@ def global_norm(tensors) -> torch.Tensor:
 
 def train_step(model, state: TrainState, batch, *, t=None, noise=None,
                generator: torch.Generator | None = None) -> dict:
-    """One step on ``batch`` (B, 64, 64, 3) uint8 or [-1, 1] floats; t and
-    noise are drawn from ``generator`` unless given. Updates ``state`` and
-    the model in place; returns the metrics as device scalars: the loss
-    dict, ``grad_norm`` and ``lr``."""
+    """One step on ``batch`` (B, S, S, 3) uint8 or [-1, 1] floats, one
+    micro-batch when ``state.accumulate`` > 1; t and noise are drawn from
+    ``generator`` unless given. Updates ``state`` and the model in place;
+    returns the metrics as device scalars: the loss dict, ``grad_norm`` and
+    ``lr`` (the LR of the optimizer's next update)."""
     if t is None or noise is None:
         t, noise = draw_t_and_noise(model, len(batch), generator)
     loss_dict, sf = loss_and_grads(model, state, batch, t, noise)
     params = list(trainable_parameters(model).values())
-    grad_norm = global_norm([p.grad for p in params])
+    grads = [p.grad for p in params]
+    grad_norm = global_norm(grads)
     lr = state.lr_fn(state.updates)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    state.optimizer.step()
-    state.updates += 1
+    update = True
+    if state.accumulate > 1:
+        if state.acc_grads is None:
+            state.acc_grads = [torch.zeros_like(g) for g in grads]
+        # acc + (g - acc) / (n + 1): optax.MultiSteps' running mean
+        diff = torch._foreach_sub(grads, state.acc_grads)
+        torch._foreach_div_(diff, state.mini_step + 1)
+        torch._foreach_add_(state.acc_grads, diff)
+        state.mini_step += 1
+        update = state.mini_step == state.accumulate
+        if update:
+            for p, acc in zip(params, state.acc_grads):
+                p.grad = acc
+    if update:
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        state.updates += 1
+        if state.accumulate > 1:
+            state.optimizer.zero_grad(set_to_none=True)
+            torch._foreach_zero_(state.acc_grads)
+            state.mini_step = 0
     ema_lib.update(state.ema, dict(model.unet.named_parameters()),
                    decay=EMA_DECAY)
     state.step += 1

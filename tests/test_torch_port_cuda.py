@@ -17,6 +17,10 @@ from encdiff_tpu_torch.nn.kernels import plain_path
 from encdiff_tpu_torch.nn.kernels.attention import (
     attention_core, attention_core_bwd, attention_core_bwd_plain,
     attention_core_plain)
+from encdiff_tpu_torch.nn.kernels.flash_attention import (
+    flash_attention, flash_attention_dkdv, flash_attention_dkdv_plain,
+    flash_attention_dq, flash_attention_dq_plain, flash_attention_fwd,
+    flash_attention_fwd_plain)
 from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (
     groupnorm_silu, groupnorm_silu_bwd_plain, gn_silu_bwd)
 
@@ -165,3 +169,95 @@ def test_groupnorm_silu_autograd_runs_both_kernels(cuda_device):
         ref = torch.autograd.grad(groupnorm_silu(*args), args, g)
     for got, want in zip(grads, ref):
         torch.testing.assert_close(got, want, **CARD_TOL)
+
+
+def _flash_inputs(gen, device, b, h, n, dh):
+    """q, k, v, dO as the callers' (B, N, H, dh)-backed views, and the
+    saved lse and delta of the plain forward."""
+    q, k, v, do = (_heads_view(gen, device, b, n, h, dh) for _ in range(4))
+    o, lse = flash_attention_fwd_plain(q, k, v, dh ** -0.5)
+    delta = (do * o).sum(dim=-1).contiguous()
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,dh", [
+    (2, 2, 256, 8), (1, 4, 1024, 16), (2, 1, 1024, 128), (1, 3, 333, 8),
+    (1, 1, 77, 128), (8, 8, 4096, 8)])
+def test_flash_attention_fwd_kernel_matches_plain(cuda_device, b, h, n, dh):
+    gen = torch.Generator(cuda_device).manual_seed(9)
+    q, k, v, _, _, _ = _flash_inputs(gen, cuda_device, b, h, n, dh)
+    before = flash_attention_fwd.launches
+    o, lse = flash_attention_fwd(q, k, v, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert o.transpose(1, 2).is_contiguous() and lse.is_contiguous()
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, dh ** -0.5)
+    torch.testing.assert_close(o, o_ref, **CARD_TOL)
+    torch.testing.assert_close(lse, lse_ref, **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,dh", [
+    (2, 2, 256, 8), (1, 4, 1024, 16), (1, 3, 333, 8), (2, 2, 130, 16),
+    (8, 8, 4096, 8)])
+def test_flash_attention_bwd_kernels_match_plain(cuda_device, b, h, n, dh):
+    gen = torch.Generator(cuda_device).manual_seed(10)
+    args = _flash_inputs(gen, cuda_device, b, h, n, dh)
+    before = flash_attention_dq.launches, flash_attention_dkdv.launches
+    dq = flash_attention_dq(*args, dh ** -0.5)
+    dk, dv = flash_attention_dkdv(*args, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert (flash_attention_dq.launches, flash_attention_dkdv.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(dq, flash_attention_dq_plain(*args, dh ** -0.5),
+                               **CARD_TOL)
+    for got, want in zip((dk, dv),
+                         flash_attention_dkdv_plain(*args, dh ** -0.5)):
+        torch.testing.assert_close(got, want, **CARD_TOL)
+    # no atomics: a second run repeats bit for bit
+    assert torch.equal(dk, flash_attention_dkdv(*args, dh ** -0.5)[0])
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_runs_all_three_kernels(cuda_device):
+    gen = torch.Generator(cuda_device).manual_seed(11)
+    q, k, v = (_heads_view(gen, cuda_device, 2, 1024, 4, 16).requires_grad_()
+               for _ in range(3))
+    do = torch.randn(2, 4, 1024, 16, generator=gen, device=cuda_device)
+    before = (flash_attention_fwd.launches, flash_attention_dq.launches,
+              flash_attention_dkdv.launches)
+    grads = torch.autograd.grad(flash_attention(q, k, v, 0.25), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_dq.launches,
+            flash_attention_dkdv.launches) == tuple(n + 1 for n in before)
+    with plain_path():
+        ref = torch.autograd.grad(flash_attention(q, k, v, 0.25), (q, k, v),
+                                  do)
+    for got, want in zip(grads, ref):
+        torch.testing.assert_close(got, want, **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_reject_what_they_do_not_take(cuda_device):
+    q = torch.zeros(1, 2, 256, 16, device=cuda_device)
+    lse = torch.zeros(1, 2, 256, device=cuda_device)
+    bad = [
+        lambda: flash_attention_fwd(*(torch.zeros(
+            1, 2, 16, 256, device=cuda_device).transpose(2, 3),) * 3, 0.3),
+        lambda: flash_attention_fwd(q.double(), q.double(), q.double(), 0.3),
+        lambda: flash_attention_fwd(q, q[:, :, :128], q[:, :, :128], 0.3),
+        lambda: flash_attention_fwd(*(torch.zeros(1, 2, 256, 32,
+                                                  device=cuda_device),) * 3,
+                                    0.3),
+        lambda: flash_attention_dq(*(torch.zeros(1, 1, 256, 128,
+                                                 device=cuda_device),) * 4,
+                                   lse[:, :1], lse[:, :1], 0.3),
+        lambda: flash_attention_dq(q, q, q, q, lse.transpose(1, 2)
+                                   .contiguous().transpose(1, 2), lse, 0.3),
+        lambda: flash_attention_dkdv(q, q, q, q, lse, lse[:, :, :128], 0.3),
+        lambda: flash_attention_dkdv(q, q, q.cpu(), q, lse, lse, 0.3),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()

@@ -507,8 +507,8 @@ def test_kernel_inputs_keep_the_kernels_layout(small_models, monkeypatch):
         return kattn.attention_core_plain(q, k, v, scale)
 
     monkeypatch.setattr(tlayers, "groupnorm_silu", gn)
+    # the VQ AttnBlock reaches attention_core through nn.attention.attention
     monkeypatch.setattr(tattn, "attention_core", attn)
-    monkeypatch.setattr(tvae, "attention_core", attn)
     _, _, tmodel = small_models
     swap_sample(tmodel, np.tanh(_randn(26, 1, 64, 64, 3)), ddim_steps=1,
                 eta=0.0)
