@@ -6,11 +6,13 @@
 Phases, one line each with its wall time; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi). No CUDA: fail.
-2. build: the three CUDA sources with nvcc into ``build/``.
+2. build: the four CUDA sources with nvcc into ``build/``, all at once.
 3. shapes: the flagship checkpoint, 8 rendered inputs folded into the 160
    swap samples; one UNet ε call and one VQ decode at B = 160 record every
-   kernel call's shape, and the first UNet call on the kernel path is held
-   against the same call on the plain PyTorch path.
+   kernel call's shape (the 16 cross-attention sites on ``fused_attention``,
+   the self-attention on ``attention_core``), and the first UNet call on
+   the kernel path is held against the same call on the plain PyTorch
+   path.
 4. kernels: each kernel against its plain version at every shape of phase
    3, timed with CUDA events beside the plain version, one PyTorch library
    call and the card's bound.
@@ -56,6 +58,32 @@ same entry points:
     against plain path.
 17. faces-profile: one optimizer update's device time by kernel.
 
+The faces configuration's serving paths, as the faces eval chain
+(``scripts/round3_faces_eval.sh``) runs them, from a fresh seeded init with
+every trainable leaf redrawn (a fresh init's zero output convolutions would
+make ε identically zero):
+
+18. faces-serve-shapes: every kernel call of one UNet call and one 256 px
+    decode at each batch the serving paths run: 32 (the swap's chunk), 16
+    (its last chunk) and 64 (the FID batch); the first UNet ε at B = 32 on
+    the kernel path against the plain path; peak memory of the UNet call
+    and of the decode at B = 32.
+19. faces-serve-kernels: every kernel at every shape of phase 18 against
+    its plain version (rows of earlier phases reused), timed beside the
+    plain version, the PyTorch library call and the bound;
+    ``fused_attention`` also beside the chain it replaces (``nn.Linear`` x3,
+    ``attention_core``, ``nn.Linear``), whose SDPA form is its library call.
+20. faces-serve: one swap request, 4 rendered faces -> 80 samples, DDIM 50,
+    eta 0 (UNet chunks of 32, 32 and 16, a decode of each), with the launch
+    counters set to 0 just before and read just after.
+21. faces-serve-reference: 10-step chains of 20 samples at eta 0 (and its
+    decode) and at eta 1 (the FID's, with injected noise), kernel path
+    against plain path.
+22. faces-fid: 64 rendered faces against 64 reconstructions (DDIM 50, eta
+    1, one batch of 64), Inception features on the card: the uncalibrated
+    FID, with the launch counters read around the sampling.
+23. faces-serve-profile: one UNet call at B = 32, device time by kernel.
+
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -73,13 +101,16 @@ import time
 import torch
 import torch.nn.functional as F
 
+from encdiff_tpu_torch import fid as fid_cli
 from encdiff_tpu_torch import train_steps
-from encdiff_tpu_torch.configs import FACES_TRAIN, FLAGSHIP_TRAIN
+from encdiff_tpu_torch.configs import FACES, FACES_TRAIN, FLAGSHIP_TRAIN
 from encdiff_tpu_torch.core.schedules import DDIMSchedule
 from encdiff_tpu_torch.data.synthetic_shapes import (TRAIN_GRID,
                                                      epoch_batches,
                                                      render_all_v4)
-from encdiff_tpu_torch.evalx.swap import swap_conditions, swap_sample
+from encdiff_tpu_torch.evalx import fid as fid_lib
+from encdiff_tpu_torch.evalx.swap import (TOKEN_BUDGET, swap_conditions,
+                                          swap_sample)
 from encdiff_tpu_torch.generate_swap import pick_inputs
 from encdiff_tpu_torch.models.latent_diffusion import LatentDiffusion
 from encdiff_tpu_torch.nn import attention as port_attention
@@ -95,6 +126,8 @@ from encdiff_tpu_torch.nn.kernels.attention import (
 from encdiff_tpu_torch.nn.kernels.flash_attention import (
     flash_attention_dkdv, flash_attention_dkdv_plain, flash_attention_dq,
     flash_attention_dq_plain, flash_attention_fwd, flash_attention_fwd_plain)
+from encdiff_tpu_torch.nn.kernels.fused_attention import (
+    fused_attention, fused_attention_plain)
 from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (
     groupnorm_silu, groupnorm_silu_bwd_plain, groupnorm_silu_plain,
     gn_silu_bwd)
@@ -114,6 +147,10 @@ TRAIN_STEPS = 40  # ms per step: the median, and the mean, of the steps after th
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 CUDA-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+# the most bytes of scores the plain flash forward holds at once: above it,
+# it runs over slices of the batch (every (b, h) is independent), so that
+# the FID batch's (64, 8, 4096, 8) fits beside its (B, H, N, N) exponentials
+PLAIN_SCORE_BYTES = 2 ** 32
 # kernel vs plain version at one shape: fp32 sums in another order
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
 # a whole UNet call / a 10-step chain / a decode / new batch statistics,
@@ -142,6 +179,12 @@ REFERENCE_DRAWS = 3
 # five (64, 4096, 4096) fp32 score tensors at once)
 FACES_UPDATES = 12
 FACES_REFERENCE_BATCH = 2
+# faces serving as the eval chain runs it: a swap of 4 inputs at DDIM 50,
+# eta 0; FID on one batch of 64 at DDIM 50, eta 1
+FACES_INPUTS = 4
+FACES_DDIM_STEPS = 50
+FACES_FID_NUM = 64
+FACES_REFERENCE_SAMPLES = 20
 KERNELS = {
     "groupnorm_silu": dict(
         source="encdiff_tpu_torch/csrc/groupnorm_silu.cu",
@@ -165,6 +208,9 @@ KERNELS = {
     "flash_attention_dkdv": dict(
         source="encdiff_tpu_torch/csrc/flash_attention.cu",
         replaces="encdiff_tpu/nn/pallas/flash_attention.py:211"),
+    "fused_attention": dict(
+        source="encdiff_tpu_torch/csrc/fused_attention.cu",
+        replaces="encdiff_tpu/nn/pallas/attention.py:66"),
 }
 FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkdv")
 WRAPPERS = {"groupnorm_silu": groupnorm_silu, "attention_core": attention_core,
@@ -172,7 +218,14 @@ WRAPPERS = {"groupnorm_silu": groupnorm_silu, "attention_core": attention_core,
             "gn_silu_bwd": gn_silu_bwd,
             "flash_attention_fwd": flash_attention_fwd,
             "flash_attention_dq": flash_attention_dq,
-            "flash_attention_dkdv": flash_attention_dkdv}
+            "flash_attention_dkdv": flash_attention_dkdv,
+            "fused_attention": fused_attention}
+#: what each kernel's baseline column times: the route it replaces at the
+#: same shape
+BASELINE = {"flash_attention_fwd": "attention_core_ms",
+            "flash_attention_dq": "attention_core_ms",
+            "flash_attention_dkdv": "attention_core_ms",
+            "fused_attention": "chain_ms"}
 
 
 def phase(name, t0, msg):
@@ -206,7 +259,7 @@ def record_shapes(model):
     """Forward pre-hooks that record, per kernel, the shape of every call
     one forward pass makes. Returns (records, remove)."""
     records = {"groupnorm_silu": [], "attention_core": [],
-               "flash_attention_fwd": []}
+               "flash_attention_fwd": [], "fused_attention": []}
 
     def attn(b, h, n, m, dh):  # the routing of nn.attention.attention
         if port_attention.takes_flash(n, m):
@@ -219,9 +272,14 @@ def record_shapes(model):
         film = len(args) > 1 and args[1] is not None
         records["groupnorm_silu"].append((tuple(x.shape), mod.eps, film))
 
-    def xattn_hook(mod, args, kwargs):
+    def xattn_hook(mod, args, kwargs):  # the routing of CrossAttention
         x = args[0]
         ctx = kwargs.get("context", args[1] if len(args) > 1 else None)
+        if mod.takes_fused(x, ctx):
+            records["fused_attention"].append(
+                (*x.shape[:2], x.shape[2], *ctx.shape[1:], mod.heads,
+                 mod.dim_head))
+            return
         m = x.shape[1] if ctx is None else ctx.shape[1]
         attn(x.shape[0], mod.heads, x.shape[1], m, mod.dim_head)
 
@@ -297,6 +355,53 @@ def flash_cost(name, b, h, n, dh):
             bh * n * n * (2 * dh * products + 1))
 
 
+def fused_cost(b, n, c, m, d, h, dh):
+    """(bytes, fp32 operations) of one fused_attention call (C_out = C): x,
+    ctx, the four weights and the bias read and y written once; the four
+    projections (2 B N C HD, 4 B M D HD, 2 B N HD C), the two attention
+    products (4 B N M HD) and the softmax (max, sub, exp, add per score)."""
+    hd = h * dh
+    nbytes = 4 * (2 * b * n * c + b * m * d + 2 * c * hd + 2 * d * hd + c)
+    ops = (2 * b * n * c * hd + 4 * b * m * d * hd + 4 * b * n * m * hd
+           + 2 * b * n * hd * c + 4 * b * h * n * m)
+    return nbytes, ops
+
+
+def check_fused(shape, gen):
+    """Check and time fused_attention at (B, N, C, M, D, H, dh) on the call
+    site's layout (transposed nn.Linear weights), beside its plain version,
+    the chain it replaces on the route (nn.Linear x3, attention_core,
+    nn.Linear) and the same chain with SDPA, the library call."""
+    b, n, c, m, d, h, dh = shape
+    hd = h * dh
+    rand = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x, ctx = rand(b, n, c), rand(b, m, d)
+    lin_q, lin_k, lin_v = (rand(hd, cin) * cin ** -0.5 for cin in (c, d, d))
+    lin_o, bo = rand(c, hd) * hd ** -0.5, 0.1 * rand(c)
+    args = (x, ctx, lin_q.t(), lin_k.t(), lin_v.t(), lin_o.t(), bo)
+    kernel = lambda: fused_attention(*args, heads=h, dim_head=dh)
+    plain = lambda: fused_attention_plain(*args, heads=h, dim_head=dh)
+
+    def chain(attn):
+        q = F.linear(x, lin_q).view(b, n, h, dh).transpose(1, 2)
+        k = F.linear(ctx, lin_k).view(b, m, h, dh).transpose(1, 2)
+        v = F.linear(ctx, lin_v).view(b, m, h, dh).transpose(1, 2)
+        o = attn(q, k, v, scale=dh ** -0.5)
+        return F.linear(o.transpose(1, 2).reshape(b, n, hd), lin_o, bo)
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **KERNEL_TOL)
+    torch.testing.assert_close(chain(attention_core), ref, **KERNEL_TOL)
+    nbytes, ops = fused_cost(*shape)
+    return dict(err=(out - ref).abs().max().item(), ms=time_ms(kernel),
+                plain_ms=time_ms(plain),
+                library_ms=time_ms(
+                    lambda: chain(F.scaled_dot_product_attention)),
+                baseline_ms=time_ms(lambda: chain(attention_core)),
+                bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=ops / PEAK_FP32 * 1e3)
+
+
 def check_flash(name, shape, gen):
     """Check and time one flash kernel at (B, H, N, dh) on the callers'
     layout, beside its plain version, SDPA (forward; its autograd backward,
@@ -309,7 +414,15 @@ def check_flash(name, shape, gen):
     scale = dh ** -0.5
     if name == "flash_attention_fwd":
         kernel = lambda: flash_attention_fwd(q, k, v, scale)
-        plain = lambda: flash_attention_fwd_plain(q, k, v, scale)
+        step = max(1, PLAIN_SCORE_BYTES // (4 * h * n * n))
+
+        def plain():
+            if step >= b:
+                return flash_attention_fwd_plain(q, k, v, scale)
+            parts = [flash_attention_fwd_plain(q[i:i + step], k[i:i + step],
+                                               v[i:i + step], scale)
+                     for i in range(0, b, step)]
+            return tuple(torch.cat(t) for t in zip(*parts))
         library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
         baseline = lambda: attention_core(q, k, v, scale)
     else:
@@ -488,7 +601,8 @@ def check_rows(name, shapes, gen, seen=None):
     check = {"groupnorm_silu": lambda key: check_gn(*key, gen),
              "attention_core": lambda key: check_attn(key, gen),
              "gn_silu_bwd": lambda key: check_gn_bwd(*key, gen),
-             "attention_core_bwd": lambda key: check_attn_bwd(key, gen)}.get(
+             "attention_core_bwd": lambda key: check_attn_bwd(key, gen),
+             "fused_attention": lambda key: check_fused(key, gen)}.get(
                  name, lambda key: check_flash(name, key, gen))
     seen = {} if seen is None else seen
     rows = []
@@ -497,7 +611,7 @@ def check_rows(name, shapes, gen, seen=None):
         r = dict(seen[(name, key)]) if earlier else check(key)
         r.update(shape=key, count=count)
         rows.append(r)
-        base = (f" attention_core {r['baseline_ms']:.5f}"
+        base = (f" {BASELINE[name][:-3]} {r['baseline_ms']:.5f}"
                 if "baseline_ms" in r else "")
         print(f"  {name} {key} x{count}: err {r['err']:.2e} "
               f"ms {r['ms']:.5f} plain {r['plain_ms']:.5f} "
@@ -514,8 +628,8 @@ def seen_rows(*tables):
             for name, rows in table.items() for r in rows}
 
 
-def summed(rows):
-    """A kernel's times summed over the calls of ``rows``."""
+def summed(name, rows):
+    """Kernel ``name``'s times summed over the calls of ``rows``."""
     total = lambda f: sum(r[f] * r["count"] for r in rows)
     bytes_ms, ops_ms = total("bytes_ms"), total("ops_ms")
     out = {"ms": total("ms"), "plain_ms": total("plain_ms"),
@@ -525,7 +639,7 @@ def summed(rows):
            "library_ms": total("library_ms"),
            "max_abs_err": max(r["err"] for r in rows)}
     if all("baseline_ms" in r for r in rows):
-        out["attention_core_ms"] = total("baseline_ms")
+        out[BASELINE[name]] = total("baseline_ms")
     return out
 
 
@@ -627,7 +741,8 @@ def main() -> int:
     kgen = torch.Generator("cuda").manual_seed(SEED + 1)
     serve_rows = {name: check_rows(name, per_unet[name] + per_decode[name],
                                    kgen)
-                  for name in ("groupnorm_silu", "attention_core")}
+                  for name in ("groupnorm_silu", "attention_core",
+                               "fused_attention")}
     phase("kernels", t0, "each kernel matches its plain version at every "
           f"main-path shape (tol {KERNEL_TOL})")
 
@@ -681,23 +796,30 @@ def main() -> int:
     train_rows, train_launches, per_step = train_phases(smi)
     faces_rows, faces_launches, per_micro = faces_phases(
         smi, seen_rows(serve_rows, train_rows))
+    fserve_rows, fserve_other, fserve_launches, per_fserve = faces_serve_phases(
+        smi, seen_rows(serve_rows, train_rows, faces_rows))
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name in KERNELS:
-        parts = {w: summed(rows[name]) for w, rows in (
+        parts = {w: summed(name, rows[name]) for w, rows in (
             ("serve", serve_rows), ("train_step", train_rows),
-            ("faces_micro_step", faces_rows)) if rows.get(name)}
+            ("faces_micro_step", faces_rows), ("faces_serve", fserve_rows))
+            if rows.get(name)}
         top = next(iter(parts.values()))
         launches = {"swap": swap_launches[name], "train": train_launches[name],
-                    "faces_train": faces_launches[name]}
+                    "faces_train": faces_launches[name],
+                    **{path: counts[name]
+                       for path, counts in fserve_launches.items()}}
         entry = {
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": sum(launches.values()), "launches_by_path": launches,
-            "max_abs_err": max(p["max_abs_err"] for p in parts.values()),
-            **{k: top[k] for k in fields}}
+            "max_abs_err": max([p["max_abs_err"] for p in parts.values()]
+                               + [r["err"] for r in fserve_other.get(name, ())]),
+            **{k: top[k] for k in (*fields, BASELINE.get(name)) if k in top}}
         for workload, calls in (("train_step", per_step),
-                                ("faces_micro_step", per_micro)):
+                                ("faces_micro_step", per_micro),
+                                ("faces_serve", per_fserve)):
             if workload in parts:
                 entry[workload] = {
                     **{k: v for k, v in parts[workload].items()
@@ -708,12 +830,17 @@ def main() -> int:
           "the launches of one UNet call plus one VQ decode at B=160 for the "
           "forward kernels, over one train step at B=128 for the flagship's "
           "backward kernels, and over one faces micro-step (micro-batch 8, "
-          "256 px) for the flash kernels; train_step and faces_micro_step "
-          "hold every kernel's sums over those steps (attention_core_ms: "
+          "256 px) for the flash kernels; train_step, faces_micro_step and "
+          "faces_serve (one UNet call at B=32 plus one 256 px decode of 32) "
+          "hold every kernel's sums over those calls; max_abs_err also "
+          "covers the faces serving shapes at B=16 and B=64 (attention_core_ms: "
           "attention_core or attention_core_bwd at the flash kernels' shapes; "
-          "the library backward gives dq, dk and dv together); launches "
-          f"count the swap request, the {TRAIN_STEPS} train steps and the "
-          f"{4 * FACES_UPDATES} faces micro-steps", flush=True)
+          "chain_ms: nn.Linear x3 + attention_core + nn.Linear at "
+          "fused_attention's shapes, whose SDPA form is its library_ms; the "
+          "library backward gives dq, dk and dv together); launches count "
+          f"the swap request, the {TRAIN_STEPS} train steps, the "
+          f"{4 * FACES_UPDATES} faces micro-steps, the faces swap request and "
+          "the faces FID sampling", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     phase("total", t_all, "chip_smoke passed")
@@ -1003,7 +1130,7 @@ def faces_phases(smi, seen):
               f"{v['plain_ms']:.3f}, library {v['library_ms']:.3f}"
               + (f", attention_core {v['attention_core_ms']:.3f}"
                  if "attention_core_ms" in v else "") + ")"
-              for k, v in ((k, summed(r)) for k, r in rows.items())))
+              for k, v in ((k, summed(k, r)) for k, r in rows.items())))
 
     # ---- 15: the train run, counters read around it alone
     t0 = time.perf_counter()
@@ -1095,6 +1222,226 @@ def faces_phases(smi, seen):
     print_profile("faces-profile", t0, f"one update ({accumulate} "
                   f"micro-steps of {micro})", profile(update, calls=1))
     return rows, launches, per_micro
+
+
+def faces_model(seed: int):
+    """The faces configuration's model from a fresh init drawn from
+    ``seed``, every trainable leaf then redrawn (``redraw_trainable``): a
+    fresh init's zero output convolutions would make ε identically zero."""
+    model = LatentDiffusion(FACES, "cuda")
+    model.init_parameters(torch.Generator("cuda").manual_seed(seed))
+    redraw_trainable(model, torch.Generator("cuda").manual_seed(seed + 1))
+    return model
+
+
+def record_serve_call(model, x_T, t, tokens):
+    """Every kernel call of one UNet call on ``x_T`` and of one VQ decode of
+    ``x_T``, by kernel: (ε, UNet calls, decode calls, (peak, peak)), each
+    peak the most bytes allocated during that call, what was allocated
+    before it included."""
+    records, remove = record_shapes(model)
+
+    def run(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        calls = {k: list(v) for k, v in records.items()}
+        for v in records.values():
+            v.clear()
+        return out, calls, torch.cuda.max_memory_allocated()
+
+    try:
+        eps, per_unet, unet_peak = run(lambda: model.apply_model(x_T, t,
+                                                                 tokens))
+        _, per_decode, decode_peak = run(
+            lambda: model.decode_first_stage(x_T))
+    finally:
+        remove()
+    return eps, per_unet, per_decode, (unet_peak, decode_peak)
+
+
+def faces_serve_phases(smi, seen):
+    """Phases 18-23 on the faces configuration's serving paths. ``seen``
+    holds the rows checked in earlier phases by (kernel, shape). Returns the
+    checked rows of every kernel at one UNet call at the swap's chunk (32)
+    plus one 256 px decode of 32, the rows checked at the other batches the
+    serving paths run (16 and 64), the launches of the swap request and of
+    the FID sampling, and the calls of that UNet call plus decode by
+    kernel."""
+    # ---- 18: every kernel call of one UNet call and one decode per batch
+    t0 = time.perf_counter()
+    seed = FACES_TRAIN["seed"]
+    size = FACES["first_stage_config"]["ddconfig"]["resolution"]
+    model = faces_model(seed)
+    images = pick_inputs(FACES_INPUTS, SEED, "faces")
+    u = model.cond_encoding(images)
+    n_units = u.shape[1]
+    tokens = model.cond_warp(
+        swap_conditions(u).reshape(n_units * FACES_INPUTS, n_units))
+    n_samples = len(tokens)
+    side = model.image_size
+    chunk = TOKEN_BUDGET // (side * side)  # swap_sample's UNet chunk
+    chunks = [min(chunk, n_samples - i) for i in range(0, n_samples, chunk)]
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    first = DDIMSchedule.create(model.schedule, FACES_DDIM_STEPS).timesteps[-1]
+    by_batch = {}
+    for b in sorted({*chunks, FACES_FID_NUM}):
+        x_b = torch.randn(b, side, side, model.channels, generator=gen,
+                          device="cuda")
+        t_b = torch.full((b,), int(first), device="cuda")
+        by_batch[b] = (x_b, t_b, *record_serve_call(model, x_b, t_b,
+                                                    tokens[:b]))
+    x_T, t_first, eps_kernel, per_unet, per_decode, peaks = by_batch[chunk]
+    with plain_path():
+        eps_plain = model.apply_model(x_T, t_first, tokens[:chunk])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(eps_kernel, eps_plain, **PATH_TOL)
+    if eps_plain.abs().max().item() == 0.0:
+        raise RuntimeError("the UNet's ε is identically zero")
+    per_call = {k: per_unet[k] + per_decode[k] for k in per_unet}
+    phase("faces-serve-shapes", t0, f"{len(images)} rendered faces of "
+          f"{tuple(images.shape[1:])} -> {n_samples} swap samples; per UNet "
+          f"call at B={chunk} "
+          f"{ {k: len(v) for k, v in per_unet.items()} }, per {size} px decode "
+          f"{ {k: len(v) for k, v in per_decode.items()} }, the same counts "
+          f"at B={sorted(b for b in by_batch if b != chunk)}; fused_attention "
+          f"shapes (B, N, C, M, D, H, dh) at B={chunk} "
+          f"{sorted(set(per_unet['fused_attention']))}; first UNet eps "
+          f"kernel vs plain max_abs_err "
+          f"{(eps_kernel - eps_plain).abs().max().item():.3e} (tol {PATH_TOL});"
+          f" peak memory at B={chunk}: UNet call {peaks[0] / 2**20:.1f} MiB, "
+          f"decode {peaks[1] / 2**20:.1f} MiB (the model's weights "
+          f"included) | {smi}")
+    for b, (_, _, _, unet_b, decode_b, _) in by_batch.items():
+        counts = [{k: len(v) for k, v in c.items()} for c in (unet_b, decode_b)]
+        if counts != [{k: len(v) for k, v in c.items()}
+                      for c in (per_unet, per_decode)]:
+            raise RuntimeError(f"kernel calls at B={b} {counts} differ from "
+                               f"those at B={chunk}")
+
+    # ---- 19: every kernel at every shape of the UNet calls and decodes
+    t0 = time.perf_counter()
+    kgen = torch.Generator("cuda").manual_seed(SEED + 4)
+    rows = {name: check_rows(name, per_call[name], kgen, seen)
+            for name in per_call if per_call[name]}
+    other = {b: v for b, v in by_batch.items() if b != chunk}
+    print(f"  at B={sorted(other)}:", flush=True)
+    seen = {**seen, **seen_rows(rows)}
+    other_rows = {name: check_rows(
+        name, [s for (_, _, _, unet_b, decode_b, _) in other.values()
+               for s in unet_b[name] + decode_b[name]], kgen, seen)
+        for name in per_call if per_call[name]}
+    phase("faces-serve-kernels", t0, "each kernel matches its plain version "
+          f"at every shape of one UNet call and one {size} px decode at "
+          f"B={sorted(by_batch)} (tol {KERNEL_TOL}); per UNet call + decode "
+          f"at B={chunk}: " + "; ".join(
+              f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f}, plain "
+              f"{v['plain_ms']:.3f}, library {v['library_ms']:.3f}"
+              + "".join(f", {b[:-3]} {v[b]:.3f}" for b in set(BASELINE.values())
+                        if b in v) + ")"
+              for k, v in ((k, summed(k, r)) for k, r in rows.items())))
+    del by_batch, other
+
+    # ---- 20: one swap request as the eval chain runs it
+    t0 = time.perf_counter()
+    expected = {k: (len(per_unet.get(k, ())) * FACES_DDIM_STEPS
+                    + len(per_decode.get(k, ()))) * len(chunks)
+                for k in KERNELS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_req = time.perf_counter()
+    out = swap_sample(model, images, ddim_steps=FACES_DDIM_STEPS, eta=0.0,
+                      generator=torch.Generator("cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_req
+    swap_launches, plain_calls = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(out.shape) != (n_samples, size, size, 3):
+        raise RuntimeError(f"faces swap output shape {tuple(out.shape)}")
+    if not torch.isfinite(out).all():
+        raise RuntimeError("faces swap output has non-finite values")
+    if swap_launches != expected or any(plain_calls.values()):
+        raise RuntimeError(f"launches {swap_launches}, expected {expected}; "
+                           f"plain calls {plain_calls}")
+    phase("faces-serve", t0, f"swap request B={FACES_INPUTS} -> {n_samples} "
+          f"samples of {size} px, UNet chunks {chunks}, DDIM "
+          f"{FACES_DDIM_STEPS}, eta 0: wall {wall:.3f}s, "
+          f"{n_samples / wall:.3f} samples/s, peak memory "
+          f"{peak / 2**20:.1f} MiB, launches {swap_launches} (expected), "
+          f"plain calls {plain_calls} | {smi}")
+    del out
+
+    # ---- 21: a short chain and its decode, kernel path vs plain path
+    t0 = time.perf_counter()
+    n_ref = FACES_REFERENCE_SAMPLES
+    x_ref = torch.randn(n_ref, side, side, model.channels, generator=gen,
+                        device="cuda")
+    noises = torch.randn(10, n_ref, side, side, model.channels,
+                         generator=gen, device="cuda")
+
+    def chains():
+        return (model.sample_ddim(tokens[:n_ref], steps=10, x_T=x_ref),
+                model.sample_ddim(tokens[:n_ref], steps=10, eta=1.0,
+                                  x_T=x_ref, noises=noises))
+    lat_k, eta1_k = chains()
+    img_k = model.decode_first_stage(lat_k, force_not_quantize=True)
+    with plain_path():
+        lat_p, eta1_p = chains()
+        img_p = model.decode_first_stage(lat_k, force_not_quantize=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lat_k, lat_p, **PATH_TOL)
+    torch.testing.assert_close(eta1_k, eta1_p, **PATH_TOL)
+    torch.testing.assert_close(img_k, img_p, **PATH_TOL)
+    phase("faces-serve-reference", t0, f"{n_ref} samples: 10-step chain "
+          f"max_abs_err {(lat_k - lat_p).abs().max().item():.3e} at eta 0, "
+          f"{(eta1_k - eta1_p).abs().max().item():.3e} at eta 1 (injected "
+          f"noise), decode max_abs_err "
+          f"{(img_k - img_p).abs().max().item():.3e} (tol {PATH_TOL})")
+    del lat_k, img_k, lat_p, img_p, eta1_k, eta1_p
+
+    # ---- 22: FID of 64 reconstructions against their 64 real faces
+    t0 = time.perf_counter()
+    real = fid_cli.real_images(FACES_FID_NUM)
+    expected = {k: len(per_unet.get(k, ())) * FACES_DDIM_STEPS
+                + len(per_decode.get(k, ())) for k in KERNELS}
+    torch.cuda.synchronize()
+    reset_counts()
+    t_req = time.perf_counter()
+    recon = fid_cli.reconstructions(model, real, FACES_FID_NUM,
+                                    FACES_DDIM_STEPS, 1.0)
+    torch.cuda.synchronize()
+    sample_wall = time.perf_counter() - t_req
+    fid_launches, plain_calls = read_counts()
+    if fid_launches != expected or any(plain_calls.values()):
+        raise RuntimeError(f"launches {fid_launches}, expected {expected}; "
+                           f"plain calls {plain_calls}")
+    t_req = time.perf_counter()
+    inception = fid_lib.fid_inception("cuda", seed=0)
+    score = fid_lib.compute_fid(inception, real.astype("float32") / 255.0,
+                                recon, batch_size=FACES_FID_NUM)
+    fid_wall = time.perf_counter() - t_req
+    if recon.shape != (FACES_FID_NUM, size, size, 3) or not (
+            score == score and abs(score) != float("inf")):
+        raise RuntimeError(f"FID {score} on reconstructions of shape "
+                           f"{recon.shape}")
+    phase("faces-fid", t0, f"{FACES_FID_NUM} rendered faces vs "
+          f"{FACES_FID_NUM} reconstructions (one batch, DDIM "
+          f"{FACES_DDIM_STEPS}, eta 1): sampling {sample_wall:.3f}s, "
+          f"Inception features and the Fréchet distance {fid_wall:.3f}s; "
+          f"FID {score:.6f} (uncalibrated: random-init Inception); "
+          f"launches {fid_launches} (expected), plain calls {plain_calls} "
+          f"| {smi}")
+    del inception, recon
+
+    # ---- 23: where the time of one UNet call goes (not pass/fail)
+    t0 = time.perf_counter()
+    print_profile("faces-serve-profile", t0, f"one UNet call at "
+                  f"B={chunk}", profile(lambda: model.apply_model(
+                      x_T, t_first, tokens[:chunk])))
+    return (rows, other_rows,
+            {"faces_swap": swap_launches, "faces_fid": fid_launches}, per_call)
 
 
 if __name__ == "__main__":

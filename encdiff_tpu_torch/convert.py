@@ -13,6 +13,8 @@ Two leaves of Encoder4 need more: the warp MLPs live under ``warp_mlps``
 (``warp`` is a method), and the fc rows, flattened HWC by the JAX model,
 are permuted to the CHW flatten of an NCHW tensor.
 
+``inception_state_dict`` maps the FID Inception's flax variables the same way.
+
 The inverse (``state_dict_to_flax``, ``encoder4_to_flax``) walks the tree
 a state dict was converted from, so that a trained model is saved under the
 JAX package's paths. A model initialised in the port has no such tree:
@@ -134,3 +136,12 @@ def first_stage_state_dict(params: dict) -> dict[str, torch.Tensor]:
     keep = {k: params[k] for k in ("encoder", "quant_conv", "quantize",
                                    "post_quant_conv", "decoder")}
     return flax_to_state_dict(keep)
+
+
+def inception_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """The FID Inception's flax variables (``params`` and ``batch_stats``,
+    as ``encdiff_tpu.evalx.fid.init_fid_variables`` makes them) -> the
+    state dict of ``evalx.fid.InceptionV3FID``, whose names are
+    pytorch-fid's."""
+    return {**flax_to_state_dict(variables["params"]),
+            **flax_to_state_dict(variables["batch_stats"])}

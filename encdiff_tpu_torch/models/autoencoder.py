@@ -29,6 +29,7 @@ class VQModelInterface(nn.Module):
         if ddconfig.get("dropout", 0.0):
             raise ValueError("the VQ decoder is built for inference: dropout 0")
         self.disentangled_dim = disentangled_dim if use_disentangled_concat else 0
+        self.resolution = ddconfig["resolution"]  # the decoded image's side
         self.encoder = Encoder(
             ch=ddconfig["ch"], ch_mult=tuple(ddconfig["ch_mult"]),
             num_res_blocks=ddconfig["num_res_blocks"],

@@ -4,15 +4,35 @@ Counterpart of ``encdiff_tpu/nn/attention.py:28-191`` without attention-map
 capture, which is not on the serving or training path. ``attention`` routes
 as the JAX ``attention`` does: large self-attention to the flash kernels,
 everything else to the ``attention_core`` kernel.
+
+``CrossAttention.forward`` takes the ``fused_attention`` kernel (the
+projections, the per-head softmax and the output projection in one launch)
+when both hold:
+
+- a ``context`` is given (cross-attention: the queries attend to the
+  concept tokens);
+- autograd will not need a gradient: grad mode is off, or neither the
+  inputs nor the module's weights require grad.
+
+Every other call projects in PyTorch and runs ``attention``. So serving
+(``swap_sample``, ``sample_ddim``, the FID sampler, all under
+``torch.no_grad``) runs ``fused_attention`` at every cross-attention site,
+and the train step keeps ``attention_core`` and its backward there. Inside
+``plain_path()`` the route reaches ``fused_attention_plain``. This departs
+from the JAX routing only in which implementation computes the same
+function: the JAX package runs XLA's projections around ``attention_core``
+there (``encdiff_tpu/nn/pallas/__init__.py:28-36``).
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
 from encdiff_tpu_torch.nn.kernels.attention import attention_core
 from encdiff_tpu_torch.nn.kernels.flash_attention import flash_attention
+from encdiff_tpu_torch.nn.kernels.fused_attention import fused_attention
 from encdiff_tpu_torch.nn.layers import TorchConv
 
 
@@ -47,7 +67,23 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
         self.to_out = nn.Linear(inner, query_dim)
 
+    def takes_fused(self, x, context) -> bool:
+        """Whether this call runs the ``fused_attention`` kernel: a context
+        is given and autograd will not need a gradient."""
+        if context is None:
+            return False
+        return not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, context, *self.parameters())))
+
     def forward(self, x, context=None):
+        if self.takes_fused(x, context):
+            # no gradient is needed here, so every argument goes in detached
+            # (a parameter's view still reports requires_grad under no_grad)
+            return fused_attention(
+                x.detach(), context.detach(), self.to_q.weight.detach().t(),
+                self.to_k.weight.detach().t(), self.to_v.weight.detach().t(),
+                self.to_out.weight.detach().t(), self.to_out.bias.detach(),
+                heads=self.heads, dim_head=self.dim_head)
         context = x if context is None else context
         b, n, _ = x.shape
         m = context.shape[1]

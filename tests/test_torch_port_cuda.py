@@ -21,6 +21,8 @@ from encdiff_tpu_torch.nn.kernels.flash_attention import (
     flash_attention, flash_attention_dkdv, flash_attention_dkdv_plain,
     flash_attention_dq, flash_attention_dq_plain, flash_attention_fwd,
     flash_attention_fwd_plain)
+from encdiff_tpu_torch.nn.kernels.fused_attention import (
+    fused_attention, fused_attention_plain)
 from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (
     groupnorm_silu, groupnorm_silu_bwd_plain, gn_silu_bwd)
 
@@ -261,3 +263,92 @@ def test_flash_wrappers_reject_what_they_do_not_take(cuda_device):
     for call in bad:
         with pytest.raises(ValueError):
             call()
+
+
+def _fused_inputs(gen, device, b, n, c, m, d, heads, dim_head, c_out=None):
+    """x, ctx, and the weights as the call site passes them: transposed
+    views of nn.Linear weights (out, in), so (in, out) with strides
+    (1, in)."""
+    inner = heads * dim_head
+    c_out = c if c_out is None else c_out
+    rand = lambda *s: torch.randn(*s, generator=gen, device=device)
+    x, ctx = rand(b, n, c), rand(b, m, d)
+    wq, wk, wv = (rand(inner, cin).t() * cin ** -0.5
+                  for cin in (c, d, d))
+    wo = rand(c_out, inner).t() * inner ** -0.5
+    return x, ctx, wq, wk, wv, wo, 0.1 * rand(c_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,m,d,heads,dim_head,self_attn", [
+    (32, 4096, 64, 20, 16, 8, 8, False),     # faces, 64x64 latents
+    (32, 1024, 128, 20, 16, 8, 16, False),   # faces, 32x32 latents
+    (5, 100, 64, 20, 16, 8, 8, False),       # ragged row tile, per head
+    (160, 256, 256, 20, 16, 8, 32, False),   # flagship, 16x16 at 256 ch
+    (160, 4, 256, 20, 16, 8, 32, False),     # flagship, 2x2 mid block
+    (2, 64, 32, 64, 32, 4, 8, True),         # the JAX test's self-attention
+    (3, 45, 40, 7, 12, 3, 16, False)])       # ragged row tile, odd sizes
+def test_fused_attention_kernel_matches_plain(cuda_device, b, n, c, m, d,
+                                              heads, dim_head, self_attn):
+    gen = torch.Generator(cuda_device).manual_seed(6)
+    x, ctx, wq, wk, wv, wo, bo = _fused_inputs(gen, cuda_device, b, n, c, m,
+                                               d, heads, dim_head)
+    if self_attn:
+        ctx = x
+    before = fused_attention.launches
+    out = fused_attention(x, ctx, wq, wk, wv, wo, bo, heads=heads,
+                          dim_head=dim_head)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    ref = fused_attention_plain(x, ctx, wq, wk, wv, wo, bo, heads=heads,
+                                dim_head=dim_head)
+    torch.testing.assert_close(out, ref, **CARD_TOL)
+    # the same weights as contiguous (in, out) arrays give the same output
+    dense = [w.contiguous() for w in (wq, wk, wv, wo)]
+    again = fused_attention(x, ctx, *dense, bo, heads=heads,
+                            dim_head=dim_head)
+    torch.testing.assert_close(again, out, **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_fused_attention_wrapper_refusals(cuda_device):
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    args = _fused_inputs(gen, cuda_device, 2, 16, 32, 20, 16, 4, 8)
+    kw = dict(heads=4, dim_head=8)
+    x, ctx, wq, wk, wv, wo, bo = args
+    with pytest.raises(ValueError, match="forward only"):
+        fused_attention(x.requires_grad_(), *args[1:], **kw)
+    x.requires_grad_(False)
+    with pytest.raises(ValueError, match="forward only"):
+        fused_attention(*args[:5], wo.detach().requires_grad_(), bo, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_attention(*(t.double() for t in args), **kw)
+    with pytest.raises(ValueError, match="expected cuda"):
+        fused_attention(x, ctx.cpu(), *args[2:], **kw)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_attention(*(t.to("meta") for t in args), **kw)
+    # k and v of one batch row: 2 x 1,000 x 256 floats do not fit
+    big = _fused_inputs(gen, cuda_device, 1, 8, 32, 1000, 16, 8, 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_attention(*big, heads=8, dim_head=32)
+    wide = _fused_inputs(gen, cuda_device, 1, 8, 32, 20, 16, 8, 64)
+    with pytest.raises(ValueError, match="exceeds"):
+        fused_attention(*wide, heads=8, dim_head=64)
+    odd = _fused_inputs(gen, cuda_device, 1, 8, 32, 20, 16, 3, 24)
+    with pytest.raises(ValueError, match="head size"):
+        fused_attention(*odd, heads=3, dim_head=24)
+
+
+@pytest.mark.cuda
+def test_fused_attention_counts_launches_and_plain_calls(cuda_device):
+    gen = torch.Generator(cuda_device).manual_seed(8)
+    args = _fused_inputs(gen, cuda_device, 4, 64, 64, 20, 16, 8, 8)
+    launches, plain = fused_attention.launches, fused_attention.plain_calls
+    for _ in range(3):
+        out = fused_attention(*args, heads=8, dim_head=8)
+    with plain_path():
+        ref = fused_attention(*args, heads=8, dim_head=8)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == launches + 3
+    assert fused_attention.plain_calls == plain + 1
+    torch.testing.assert_close(out, ref, **CARD_TOL)
