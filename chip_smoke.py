@@ -86,6 +86,21 @@ make ε identically zero):
 
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
+
+The two 3xTF32 kernels (the flash forward and ``fused_attention``) carry,
+beside the fp32 CUDA-core bound of the others, their design's bound: the
+largest of bytes, three tf32 passes of their products at the dense TF32
+peak (tc), their exponentials at the SFU's rate at the SM clock nvidia-smi
+reads (exp) and, for ``fused_attention``, its attention's CUDA-core FLOPs
+(simt). After each phase that checks them, one line per kernel counts the
+shapes where it is no slower than its library yardstick (SDPA; for
+``fused_attention`` the faster of its chain and its SDPA chain).
+
+    python3 chip_smoke.py --kernels-only
+
+runs only the device and build phases and those two kernels at every shape
+of the faces serving paths at B = 16, 32 and 64 and of flagship serving,
+against their plain versions, timed beside their yardsticks.
 """
 
 from __future__ import annotations
@@ -144,9 +159,15 @@ TRAIN_BATCH = 128
 # weight near 1 moves in fp32 only once the LR has grown for some tens of
 # steps (at 22 steps some norm weights had not moved in a B = 8 CPU run).
 TRAIN_STEPS = 40  # ms per step: the median, and the mean, of the steps after the first two
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 CUDA-core FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 CUDA-core FLOP/s
+# and dense TF32 tensor-core FLOP/s; the SFU's exponentials per SM and clock
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
+EXP_PER_SM_CLOCK = 16
+#: the card's SM count and highest SM clock (Hz), for the exponential bound:
+#: an H100 SXM's until main() reads the card's
+CARD = {"sms": 132, "sm_hz": 1.98e9}
 # the most bytes of scores the plain flash forward holds at once: above it,
 # it runs over slices of the batch (every (b, h) is independent), so that
 # the FID batch's (64, 8, 4096, 8) fits beside its (B, H, N, N) exponentials
@@ -238,6 +259,16 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def sm_clocks_mhz():
+    """(current, highest) SM clock of card 0 in MHz, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    now, top = (float(v) for v in out[0].split(","))
+    return now, top
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -355,6 +386,44 @@ def flash_cost(name, b, h, n, dh):
             bh * n * n * (2 * dh * products + 1))
 
 
+def flash_fwd_work(b, h, n, dh):
+    """(product FLOPs, exponentials) of one flash forward: q kᵀ and P v,
+    2 N² dh FLOPs each per (batch, head), and one exponential per score."""
+    bh = b * h
+    return 4 * bh * n * n * dh, bh * n * n
+
+
+def fused_work(b, n, c, m, d, h, dh):
+    """(tensor-core FLOPs, CUDA-core FLOPs, exponentials) of one
+    fused_attention call (C_out = C): the four weight products (2 B N C HD,
+    4 B M D HD, 2 B N HD C) on the tensor cores; the attention's two
+    products and its softmax (4 B N M HD + 4 B H N M) on the CUDA cores;
+    one exponential per score."""
+    hd = h * dh
+    return (2 * b * n * c * hd + 4 * b * m * d * hd + 2 * b * n * hd * c,
+            4 * b * n * m * hd + 4 * b * h * n * m, b * h * n * m)
+
+
+def design_bounds(products, exps, simt=0):
+    """(tc_ms, exp_ms, simt_ms): the least times of a 3xTF32 kernel's parts
+    on the card: three tf32 passes of its products at the dense TF32 peak,
+    its exponentials at the SFU's rate at the card's highest SM clock, and
+    its CUDA-core FLOPs at the fp32 peak."""
+    return (3 * products / PEAK_TF32 * 1e3,
+            exps / (EXP_PER_SM_CLOCK * CARD["sms"] * CARD["sm_hz"]) * 1e3,
+            simt / PEAK_FP32 * 1e3)
+
+
+def bound(row):
+    """A checked row's least time (ms): bytes against operations at the
+    fp32 CUDA-core peak, or for the 3xTF32 kernels (rows with tc_ms)
+    bytes against each part of the design's work."""
+    if "tc_ms" in row:
+        return max(row["bytes_ms"], row["tc_ms"], row["exp_ms"],
+                   row.get("simt_ms", 0.0))
+    return max(row["bytes_ms"], row["ops_ms"])
+
+
 def fused_cost(b, n, c, m, d, h, dh):
     """(bytes, fp32 operations) of one fused_attention call (C_out = C): x,
     ctx, the four weights and the bias read and y written once; the four
@@ -394,12 +463,15 @@ def check_fused(shape, gen):
     torch.testing.assert_close(out, ref, **KERNEL_TOL)
     torch.testing.assert_close(chain(attention_core), ref, **KERNEL_TOL)
     nbytes, ops = fused_cost(*shape)
+    products, simt, exps = fused_work(*shape)
+    tc_ms, exp_ms, simt_ms = design_bounds(products, exps, simt)
     return dict(err=(out - ref).abs().max().item(), ms=time_ms(kernel),
                 plain_ms=time_ms(plain),
                 library_ms=time_ms(
                     lambda: chain(F.scaled_dot_product_attention)),
                 baseline_ms=time_ms(lambda: chain(attention_core)),
-                bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=ops / PEAK_FP32 * 1e3)
+                bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=ops / PEAK_FP32 * 1e3,
+                tc_ms=tc_ms, exp_ms=exp_ms, simt_ms=simt_ms)
 
 
 def check_flash(name, shape, gen):
@@ -450,9 +522,13 @@ def check_flash(name, shape, gen):
     err = max((a - r).abs().max().item() for a, r in zip(got, ref))
     del got, ref
     nbytes, ops = flash_cost(name, *shape)
-    return dict(err=err, ms=time_ms(kernel), plain_ms=time_ms(plain, 5),
-                library_ms=time_ms(library), baseline_ms=time_ms(baseline, 5),
-                bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=ops / PEAK_FP32 * 1e3)
+    row = dict(err=err, ms=time_ms(kernel), plain_ms=time_ms(plain, 5),
+               library_ms=time_ms(library), baseline_ms=time_ms(baseline, 5),
+               bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=ops / PEAK_FP32 * 1e3)
+    if name == "flash_attention_fwd":  # the 3xTF32 kernel
+        tc_ms, exp_ms, _ = design_bounds(*flash_fwd_work(*shape))
+        row.update(tc_ms=tc_ms, exp_ms=exp_ms)
+    return row
 
 
 def check_gn(shape, eps, film, gen):
@@ -613,13 +689,41 @@ def check_rows(name, shapes, gen, seen=None):
         rows.append(r)
         base = (f" {BASELINE[name][:-3]} {r['baseline_ms']:.5f}"
                 if "baseline_ms" in r else "")
+        design = (f" (tc {r['tc_ms']:.5f} exp {r['exp_ms']:.5f}"
+                  + (f" simt {r['simt_ms']:.5f}" if "simt_ms" in r else "")
+                  + f" bytes {r['bytes_ms']:.5f}; fp32 bound "
+                  f"{max(r['bytes_ms'], r['ops_ms']):.5f})"
+                  if "tc_ms" in r else "")
         print(f"  {name} {key} x{count}: err {r['err']:.2e} "
               f"ms {r['ms']:.5f} plain {r['plain_ms']:.5f} "
               f"library {r['library_ms']:.5f}{base} "
-              f"bound {max(r['bytes_ms'], r['ops_ms']):.5f}"
+              f"bound {bound(r):.5f}{design}"
               + (" (checked in an earlier phase)" if earlier else ""),
               flush=True)
     return rows
+
+
+#: the redesigned kernels' library yardstick at a shape: SDPA for the flash
+#: forward; for fused_attention the faster of its chain and its SDPA chain
+YARDSTICK = {
+    "flash_attention_fwd": ("SDPA", lambda r: r["library_ms"]),
+    "fused_attention": ("min(chain, SDPA chain)",
+                        lambda r: min(r["library_ms"], r["baseline_ms"]))}
+
+
+def print_yardstick(phase_name, rows_by_kernel):
+    """One line per redesigned kernel of ``rows_by_kernel``: at how many of
+    its shapes it is no slower than its yardstick, and the others."""
+    for name, (label, ref) in YARDSTICK.items():
+        rows = rows_by_kernel.get(name)
+        if not rows:
+            continue
+        lost = [r for r in rows if r["ms"] > ref(r)]
+        print(f"  [{phase_name}] yardstick {name}: no slower than {label} at "
+              f"{len(rows) - len(lost)} of {len(rows)} shapes"
+              + ("; slower at " + ", ".join(
+                  f"{r['shape']} {r['ms']:.5f} vs {ref(r):.5f} ms"
+                  for r in lost) if lost else ""), flush=True)
 
 
 def seen_rows(*tables):
@@ -630,14 +734,23 @@ def seen_rows(*tables):
 
 def summed(name, rows):
     """Kernel ``name``'s times summed over the calls of ``rows``."""
-    total = lambda f: sum(r[f] * r["count"] for r in rows)
+    total = lambda f: sum(r.get(f, 0.0) * r["count"] for r in rows)
     bytes_ms, ops_ms = total("bytes_ms"), total("ops_ms")
     out = {"ms": total("ms"), "plain_ms": total("plain_ms"),
-           "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) * r["count"]
-                           for r in rows),
+           "bound_ms": sum(bound(r) * r["count"] for r in rows),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "library_ms": total("library_ms"),
            "max_abs_err": max(r["err"] for r in rows)}
+    if all("tc_ms" in r for r in rows):  # a 3xTF32 kernel: its parts
+        tc_ms, exp_ms = total("tc_ms"), total("exp_ms")
+        out.update(tc_ms=tc_ms, exp_ms=exp_ms,
+                   binds="tensor cores" if tc_ms >= exp_ms else "exponentials",
+                   fp32_bound_ms=sum(max(r["bytes_ms"], r["ops_ms"])
+                                     * r["count"] for r in rows))
+        if any("simt_ms" in r for r in rows):
+            out["simt_ms"] = total("simt_ms")
+        out["bound_by"] = ("bytes" if bytes_ms >= max(
+            tc_ms, exp_ms, out.get("simt_ms", 0.0)) else "operations")
     if all("baseline_ms" in r for r in rows):
         out[BASELINE[name]] = total("baseline_ms")
     return out
@@ -692,8 +805,13 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
+    clock_now, clock_top = sm_clocks_mhz()
+    CARD.update(sms=torch.cuda.get_device_properties(0).multi_processor_count,
+                sm_hz=clock_top * 1e6)
     phase("device", t0, f"{smi} | torch {torch.__version__} "
-          f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
+          f"cuda {torch.version.cuda} | count {torch.cuda.device_count()} | "
+          f"{CARD['sms']} SMs, SM clock {clock_now:.0f} MHz now, "
+          f"{clock_top:.0f} MHz at most (the exponential bound's)")
 
     t0 = time.perf_counter()
     logs = build.build()
@@ -701,6 +819,9 @@ def main() -> int:
         print(f"--- nvcc {name}\n{log}", file=sys.stderr)
     phase("build", t0, f"built {sorted(logs) or 'nothing (cached)'} "
           f"into {build.BUILD_DIR}")
+    if "--kernels-only" in sys.argv[1:]:
+        kernels_only(smi)
+        return 0
 
     # ---- 3: shapes, and the first UNet call, kernel path vs plain path
     t0 = time.perf_counter()
@@ -743,6 +864,7 @@ def main() -> int:
                                    kgen)
                   for name in ("groupnorm_silu", "attention_core",
                                "fused_attention")}
+    print_yardstick("kernels", serve_rows)
     phase("kernels", t0, "each kernel matches its plain version at every "
           f"main-path shape (tol {KERNEL_TOL})")
 
@@ -799,7 +921,8 @@ def main() -> int:
     fserve_rows, fserve_other, fserve_launches, per_fserve = faces_serve_phases(
         smi, seen_rows(serve_rows, train_rows, faces_rows))
 
-    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "tc_ms", "exp_ms", "simt_ms", "binds", "fp32_bound_ms")
     kernels = []
     for name in KERNELS:
         parts = {w: summed(name, rows[name]) for w, rows in (
@@ -837,7 +960,13 @@ def main() -> int:
           "attention_core or attention_core_bwd at the flash kernels' shapes; "
           "chain_ms: nn.Linear x3 + attention_core + nn.Linear at "
           "fused_attention's shapes, whose SDPA form is its library_ms; the "
-          "library backward gives dq, dk and dv together); launches count "
+          "library backward gives dq, dk and dv together); for the 3xTF32 "
+          "kernels (flash_attention_fwd, fused_attention) bound_ms is the "
+          "design's bound, the largest of bytes, tc_ms (three tf32 passes "
+          "of the products at 495 TFLOP/s), exp_ms (the exponentials at 16 "
+          "per SM and clock) and simt_ms (CUDA-core FLOPs at 67 TFLOP/s), "
+          "binds names the larger of tc_ms and exp_ms, and fp32_bound_ms is "
+          "the fp32 CUDA-core bound of the earlier rows; launches count "
           f"the swap request, the {TRAIN_STEPS} train steps, the "
           f"{4 * FACES_UPDATES} faces micro-steps, the faces swap request and "
           "the faces FID sampling", flush=True)
@@ -848,6 +977,40 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+#: --kernels-only: the flash forward's and fused_attention's shapes on the
+#: faces serving paths at B = 16, 32, 64 ((B, H, N, dh); (B, N, C, M, D, H,
+#: dh)) and on flagship serving at B = 160
+PROBE_FLASH = [(b, h, n, dh) for b in (16, 32, 64)
+               for h, n, dh in ((8, 4096, 8), (8, 1024, 16), (1, 4096, 128))]
+PROBE_FUSED = ([(b, n, c, 20, 16, 8, c // 8) for b in (16, 32, 64)
+                for n, c in ((4096, 64), (1024, 128), (256, 256), (64, 256))]
+               + [(160, n, c, 20, 16, 8, c // 8)
+                  for n, c in ((256, 64), (64, 128), (16, 256), (4, 256))])
+
+
+def kernels_only(smi):
+    """The two 3xTF32 kernels at every shape of PROBE_FLASH / PROBE_FUSED
+    against their plain versions, timed beside their yardsticks."""
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(SEED + 5)
+    rows = {"flash_attention_fwd": check_rows("flash_attention_fwd",
+                                              PROBE_FLASH, gen),
+            "fused_attention": check_rows("fused_attention", PROBE_FUSED,
+                                          gen)}
+    print_yardstick("kernels-only", rows)
+    # which kernel the flash forward's yardstick runs in fp32 at dh 128
+    q = torch.randn(32, 4096, 1, 128, generator=gen,
+                    device="cuda").transpose(1, 2)
+    prof = profile(lambda: F.scaled_dot_product_attention(q, q, q), calls=1)
+    if prof is not None:
+        print("  SDPA at (32, 1, 4096, 128) runs: " + "; ".join(
+            f"{kname[:120]} {ms:.3f} ms" for kname, ms, _ in prof[2][:2]),
+            flush=True)
+    phase("kernels-only", t0, "the flash forward and fused_attention match "
+          f"their plain versions at every probed shape (tol {KERNEL_TOL}) "
+          f"| {smi}")
 
 
 def print_profile(name, t0, what, prof):
@@ -1123,6 +1286,7 @@ def faces_phases(smi, seen):
     kgen = torch.Generator("cuda").manual_seed(SEED + 3)
     rows = {name: check_rows(name, per_micro[name], kgen, seen)
             for name in KERNELS if per_micro.get(name)}
+    print_yardstick("faces-kernels", rows)
     phase("faces-kernels", t0, "each kernel matches its plain version at "
           f"every shape of the faces micro-step (tol {KERNEL_TOL}); per "
           "micro-step: " + "; ".join(
@@ -1325,6 +1489,7 @@ def faces_serve_phases(smi, seen):
     kgen = torch.Generator("cuda").manual_seed(SEED + 4)
     rows = {name: check_rows(name, per_call[name], kgen, seen)
             for name in per_call if per_call[name]}
+    print_yardstick(f"faces-serve-kernels B={chunk}", rows)
     other = {b: v for b, v in by_batch.items() if b != chunk}
     print(f"  at B={sorted(other)}:", flush=True)
     seen = {**seen, **seen_rows(rows)}
@@ -1332,6 +1497,7 @@ def faces_serve_phases(smi, seen):
         name, [s for (_, _, _, unet_b, decode_b, _) in other.values()
                for s in unet_b[name] + decode_b[name]], kgen, seen)
         for name in per_call if per_call[name]}
+    print_yardstick(f"faces-serve-kernels B={sorted(other)}", other_rows)
     phase("faces-serve-kernels", t0, "each kernel matches its plain version "
           f"at every shape of one UNet call and one {size} px decode at "
           f"B={sorted(by_batch)} (tol {KERNEL_TOL}); per UNet call + decode "

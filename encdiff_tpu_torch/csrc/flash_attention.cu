@@ -16,142 +16,444 @@
 //   dq = dS k * scale,  dk = dS^T (q * scale),  dv = P^T dO.
 // Inside the kernels the scores are carried in log2 units (the scale times
 // log2(e) is folded into q, or into k) so that every exponential is one
-// exp2f; lse crosses device memory in natural-log units, as the TPU's does.
+// base-2 exponential; lse crosses device memory in natural-log units, as the
+// TPU's does.
 //
 // What is not carried over from the TPU: the wrapper there pads dh to 128
 // lanes, broadcasts lse to 8 lanes and uses blocks of 512 (256 backward).
 // Here dh stays 8, 16 or 128, lse is (B * H, N) fp32, and any N is taken.
-//
-// Work split (blocks run in parallel, in no order, and nothing carries over
-// between them):
-// - forward: one block per (batch * head, tile of query rows). TPR threads
-//   own one query row (TPR = 1 for dh 8 and 16, 4 for dh 128, each holding
-//   dh / TPR dimensions). K and V go through shared memory in tiles of
-//   4096 / dh keys (32 KB for the pair, static); the softmax is the online
-//   form, rescaled once per chunk of 16 keys rather than per key.
-// - dq: query-parallel, one thread per row holding q, dO, its lse and delta
-//   and the dq sum; K and V tiles in shared memory. The row statistics are
-//   read, not recomputed.
-// - dk/dv: key-parallel, one thread per key holding k, v and the two sums;
-//   it loops over every query tile (q, dO, lse and delta in shared memory).
-//   No atomics and a fixed summation order: a run repeats bit for bit.
 // Every tensor is addressed through its own batch, head and row strides with
 // the last dimension contiguous, so the callers' (B, N, H, dh) projections
 // are read in place and o, dq, dk, dv are written into (B, N, H, dh)-backed
 // buffers: merging the heads costs no copy. batch * head is gridDim.x (no
 // 65,535 limit); the row tiles are gridDim.y.
 //
-// Bound on the H100: operations. Per score the forward does 2 dh multiply-
-// adds and one exponential, the backward 4 dh (dk/dv) or 3 dh (dq) and one
-// exponential, all fp32 on the CUDA cores (67 TFLOP/s); q, k, v, o and the
-// gradients cross device memory once, O(N dh) bytes against O(N^2 dh)
-// operations. Only tensor cores (a later change, and then not in fp32)
-// would lift the bound.
+// Forward: the products on the tensor cores in fp32-equivalent precision
+// (3xTF32 on mma.sync).
+// - Tiling: a block of 8 warps takes 128 query rows of one (batch, head);
+//   each warp owns 16 of them. K and V stream through a 3-stage shared ring
+//   of 64 keys (32 at dh 128) by cp.async, 16 bytes a thread, so that two
+//   tiles load while one is used; 128 rows a block halve the K/V traffic
+//   from L2 of 64. A ragged last tile is zero-filled and its keys past N are
+//   masked to -inf; rows past N run on zeros and store nothing. q, k and v
+//   rows must start on 16 bytes (the wrapper checks). q (times scale *
+//   log2 e) sits in registers as split tf32 A operands at dh 8 and 16; at
+//   dh 128, where that would take 128 registers a thread beside the 64 of
+//   the output sum, it sits in shared memory and is split where it is used.
+// - Products: S = q k^T and O += P v on mma.sync.m16n8k8 (tf32 inputs, fp32
+//   accumulators). Each fp32 operand a is split into hi = cvt.rna.tf32(a)
+//   and lo = cvt.rna.tf32(a - hi) (computed on the bits, see split()), and
+//   a product accumulates lo*hi, hi*lo, then hi*hi (small terms first). hi
+//   holds a's leading 11 significant bits and lo the next 11, so what is
+//   dropped (lo*lo and lo's rounding) is about 2^-22 of each product: the
+//   error of an fp32 sum over dh, where one tf32 pass (2^-11) would miss the
+//   1e-4 gate at dh 128 with logits of order 10. Each term runs over four
+//   accumulators before the next (four key groups of S; key and output
+//   groups of O, with 4 or 2 partial sums of O at dh 8 and 16), so that
+//   four mma chains overlap instead of one waiting on the last.
+// - Layouts: the sum over dh runs in a permuted order, chosen so that a
+//   lane's B values of a k-step (of two k-steps at dh >= 16) are neighbours
+//   in a K row: one 8- or 16-byte shared read; q is read in the same order.
+//   The S accumulator gives lane t of a quad keys 2t and 2t + 1 of each
+//   8-key group, where the A operand of P v wants k-slots t and t + 4: P
+//   stays where it is (key 2t is slot t, key 2t + 1 is slot t + 4) and V's
+//   rows are read in that permuted order (row 2t for slot t, row 2t + 1 for
+//   slot t + 4), a permutation of V's rows in place of a shuffle of P. K
+//   rows are padded to 8, 16 or 144 floats, V rows to dh + 4 and q rows to
+//   dh + 16, so that every fragment read is free of bank conflicts.
+// - Softmax: online, in log2 units, on the accumulator registers: the row
+//   maximum by two quad shuffles per tile, the row sum kept per lane and
+//   reduced once at the end; each exponential one ex2.approx.ftz; lse =
+//   (m + log2 l) ln 2.
+// - Bound on the H100: at dh 128 the tensor cores, 4 N^2 dh flops per
+//   (batch, head), three times over, at 495 TFLOP/s of dense TF32; at dh 8
+//   the N^2 exponentials at 16 per SM and clock (the SFU) come first and
+//   the products second. Its instruction count keeps it above both: per
+//   score it also takes the maximum, the subtraction, the row sum and a
+//   four-instruction split of P, and every k and v value is split again by
+//   each of the 8 warps that reads it; mma.sync reaches only part of the
+//   TF32 peak (the rest needs wgmma).
+//
+// Backward (dq, dk/dv): fp32 on the CUDA cores.
+// - dq: query-parallel, one thread per row holding q, dO, its lse and delta
+//   and the dq sum; K and V tiles in shared memory. The row statistics are
+//   read, not recomputed.
+// - dk/dv: key-parallel, one thread per key holding k, v and the two sums;
+//   it loops over every query tile (q, dO, lse and delta in shared memory).
+//   No atomics and a fixed summation order: a run repeats bit for bit.
+// - Bound: operations. Per score 4 dh (dk/dv) or 3 dh (dq) multiply-adds
+//   and one exponential, fp32 on the CUDA cores (67 TFLOP/s).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTileFloats = 4096;  // one K (or q) tile and one V (or dO) tile: 16 KB each
-constexpr int kChunk = 16;         // keys per online-softmax rescale
+constexpr int kThreads = 128;      // backward: threads per block
+constexpr int kTileFloats = 4096;  // backward: one K (or q) tile and one V (or dO) tile, 16 KB each
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int DH, int TPR>
-__global__ void __launch_bounds__(kThreads)
+// ---- forward
+constexpr int kFwdWarps = 8;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr int kFwdRows = 16 * kFwdWarps;  // query rows per block, 16 per warp
+constexpr int kFwdStages = 3;             // K/V tiles in the shared ring
+
+template <int DH>
+struct Fwd {
+  static constexpr int kKeys = DH == 128 ? 32 : 64;      // keys per tile
+  static constexpr int kVec = DH == 8 ? 2 : 4;            // floats per fragment read
+  static constexpr int kChunks = DH / (4 * kVec);         // fragment reads per row
+  static constexpr int kLdk = DH == 128 ? DH + 16 : DH;   // 8 (dh 8) or 16 mod 32
+  static constexpr int kLdv = DH + 4;                     // 4 or 12 mod 16
+  // q: split in registers at dh 8 and 16; at dh 128 (64 more registers a
+  // thread) scaled in shared memory, split where it is used
+  static constexpr bool kQShared = DH == 128;
+  static constexpr int kLdq = DH + 16;                    // 16 mod 32
+  static constexpr int kQFloats = kQShared ? kFwdRows * kLdq : 0;
+  static constexpr int kStage = kKeys * (kLdk + kLdv);    // floats per stage
+  static constexpr int kSmem = (kQFloats + kFwdStages * kStage) * 4;  // bytes
+  // P v runs over kJG key groups x kDG output groups at a time: four
+  // independent accumulators, so that the mma chains overlap (at dh 8 and 16
+  // the key groups go to kJG partial sums of o)
+  static constexpr int kJG = DH == 8 ? 4 : DH == 16 ? 2 : 1;
+  static constexpr int kDG = 4 / kJG;
+};
+
+// a = hi + lo with hi and lo tf32 operands: hi = cvt.rna.tf32(a) and
+// lo = cvt.rna.tf32(a - hi). The rounding (to nearest, ties away from zero)
+// is done on the bits: add half a tf32 ulp (0x1000) and drop the low 13
+// bits. On every finite value that equals cvt.rna.tf32.f32, which the
+// compiler expands to four instructions (with an Inf/NaN guard; no input
+// here is infinite). The tensor cores read only a tf32 operand's top 19
+// bits, so the operands go in unmasked and hi is masked only to form lo:
+// four instructions per split instead of nine.
+__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(a) + 0x1000u;
+  lo = __float_as_uint(a - __uint_as_float(hi & 0xffffe000u)) + 0x1000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU, denormal results flushed to zero (ex2.approx.ftz): one
+// instruction, where exp2f adds a range fix-up around it.
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The A operand of one k-step, split: rows g and g + 8 of the warp's 16 at
+// k-slots t and t + 4 (lane = 4 g + t).
+__device__ __forceinline__ void split_a(float g_t, float g8_t, float g_t4,
+                                        float g8_t4, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split(g_t, hi[0], lo[0]);
+  split(g8_t, hi[1], lo[1]);
+  split(g_t4, hi[2], lo[2]);
+  split(g8_t4, hi[3], lo[3]);
+}
+
+// One 16-byte asynchronous copy into shared memory (zeros where !pred).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
+  const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(saddr), "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float (&out)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    out[0] = x.x; out[1] = x.y;
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kFwdThreads, DH == 128 ? 1 : 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int H, int N,
                  int qsb, int qsh, int qsn, int ksb, int ksh, int ksn,
                  int vsb, int vsh, int vsn, int osb, int osh, int osn,
                  float scale) {
-  constexpr int DPT = DH / TPR;         // dimensions per thread
-  constexpr int KT = kTileFloats / DH;  // keys per tile, a multiple of kChunk
-  static_assert(KT % kChunk == 0, "tile must hold whole chunks");
-  __shared__ float ks[KT * DH];
-  __shared__ float vs[KT * DH];
+  using F = Fwd<DH>;
+  constexpr int KT = F::kKeys, VEC = F::kVec, NCH = F::kChunks, KS = VEC / 2;
+  constexpr int LDK = F::kLdk, LDV = F::kLdv, LDQ = F::kLdq;
+  constexpr int NT = KT / 8;  // 8-key groups of a tile
+  constexpr int DT = DH / 8;  // 8-column groups of the output
+  constexpr int JG = F::kJG, DG = F::kDG;
+  constexpr int CPR = DH / 4;  // 16-byte copies per K or V row
+  static_assert(NT % 4 == 0 && NT % JG == 0 && DT % DG == 0, "whole groups");
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                  // F::kQFloats
+  float* ring = smem + F::kQFloats;  // kFwdStages K/V tiles
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int rows_per_block = kThreads / TPR;
-  const int lane = threadIdx.x % TPR;
-  const int row = blockIdx.y * rows_per_block + threadIdx.x / TPR;
-  const bool active = row < N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * kFwdRows + warp * 16 + g;  // and row0 + 8
 
   const float* qb = q + (long long)b * qsb + (long long)h * qsh;
   const float* kb = k + (long long)b * ksb + (long long)h * ksh;
   const float* vb = v + (long long)b * vsb + (long long)h * vsh;
-
   const float qscale = scale * kLog2e;  // scores in log2 units
-  float qr[DPT], acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    qr[i] = active ? qb[(long long)row * qsn + i * TPR + lane] * qscale : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = -INFINITY;
-  float l = 0.f;
 
-  for (int t0 = 0; t0 < N; t0 += KT) {
-    const int kt = min(KT, N - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < kt * DH; e += kThreads) {
-      const int j = e / DH;
-      const int d = e % DH;
-      ks[e] = kb[(long long)(t0 + j) * ksn + d];
-      vs[e] = vb[(long long)(t0 + j) * vsn + d];
+  // q in the permuted order: read c of a row holds dims c * 4 VEC + VEC t
+  // + i, and (i = 2p, 2p + 1) are slots (t, t + 4) of the read's k-step p
+  uint32_t qhi[KS][4], qlo[KS][4];  // dh 8 and 16: NCH == 1
+  if constexpr (F::kQShared) {
+    for (int e = threadIdx.x; e < kFwdRows * DH / 4; e += kFwdThreads) {
+      const int r = e / (DH / 4), c = 4 * (e % (DH / 4));
+      const int row = blockIdx.y * kFwdRows + r;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < N) x = *reinterpret_cast<const float4*>(qb + (long long)row * qsn + c);
+      *reinterpret_cast<float4*>(qs + r * LDQ + c) =
+          make_float4(x.x * qscale, x.y * qscale, x.z * qscale, x.w * qscale);
+    }  // the first tile's barrier publishes it
+  } else {
+    float qf[2][VEC];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < N) {
+        load_vec<VEC>(qb + (long long)row * qsn + VEC * t, qf[r]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) qf[r][i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) qf[r][i] *= qscale;
     }
-    __syncthreads();
-    // Rows past N run on zeros and store nothing, so that every lane
-    // reaches the shuffles.
-    for (int j0 = 0; j0 < kt; j0 += kChunk) {
-      float s[kChunk];
-      float mc = m;
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const int j = j0 + c;
-        float sc = -INFINITY;
-        if (j < kt) {  // uniform over the block
-          const float* kj = ks + j * DH;
-          sc = 0.f;
+    for (int p = 0; p < KS; ++p)
+      split_a(qf[0][2 * p], qf[1][2 * p], qf[0][2 * p + 1], qf[1][2 * p + 1],
+              qhi[p], qlo[p]);
+  }
+
+  float oacc[JG][DT][4];
 #pragma unroll
-          for (int i = 0; i < DPT; ++i) sc += qr[i] * kj[i * TPR + lane];
+  for (int a = 0; a < JG; ++a)
 #pragma unroll
-          for (int off = TPR / 2; off > 0; off >>= 1)
-            sc += __shfl_xor_sync(0xffffffffu, sc, off);
-        }
-        s[c] = sc;
-        mc = fmaxf(mc, sc);
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[a][d][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  const int ntiles = (N + KT - 1) / KT;
+  auto load_tile = [&](int tile) {
+    float* ks = ring + (tile % kFwdStages) * F::kStage;
+    float* vs = ks + KT * LDK;
+#pragma unroll
+    for (int i = 0; i < (KT * CPR + kFwdThreads - 1) / kFwdThreads; ++i) {
+      const int e = threadIdx.x + i * kFwdThreads;
+      if (KT * CPR % kFwdThreads != 0 && e >= KT * CPR) break;
+      const int r = e / CPR, c = e % CPR;
+      const int key = tile * KT + r;
+      const bool ok = key < N;
+      const long long kr = ok ? key : 0;
+      cp_async16(ks + r * LDK + 4 * c, kb + kr * ksn + 4 * c, ok);
+      cp_async16(vs + r * LDV + 4 * c, vb + kr * vsn + 4 * c, ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kFwdStages - 1; ++s) {
+    if (s < ntiles) load_tile(s);
+    cp_async_commit();
+  }
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<kFwdStages - 2>();  // this thread's copies of the tile landed
+    __syncthreads();                  // everyone's; and tile - 1 is consumed
+    if (tile + kFwdStages - 1 < ntiles) load_tile(tile + kFwdStages - 1);
+    cp_async_commit();
+    const float* ks = ring + (tile % kFwdStages) * F::kStage;
+    const float* vs = ks + KT * LDK;
+
+    // S = q k^T: rows g, g + 8; keys 8 j + 2t, 8 j + 2t + 1 of the tile.
+    // Four key groups at a time, each product term over the four before the
+    // next term, so that four accumulator chains overlap.
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      uint32_t ahi[KS][4], alo[KS][4];
+      if constexpr (F::kQShared) {
+        const float* qr = qs + (warp * 16 + g) * LDQ + c * 4 * VEC + VEC * t;
+        float x0[VEC], x1[VEC];
+        load_vec<VEC>(qr, x0);
+        load_vec<VEC>(qr + 8 * LDQ, x1);
+#pragma unroll
+        for (int p = 0; p < KS; ++p)
+          split_a(x0[2 * p], x1[2 * p], x0[2 * p + 1], x1[2 * p + 1], ahi[p], alo[p]);
+      } else {
+#pragma unroll
+        for (int p = 0; p < KS; ++p)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ahi[p][e] = qhi[p][e];
+            alo[p][e] = qlo[p][e];
+          }
       }
-      if (mc > m) {
-        const float corr = exp2f(m - mc);  // 0 on the first chunk
-        l *= corr;
 #pragma unroll
-        for (int i = 0; i < DPT; ++i) acc[i] *= corr;
-        m = mc;
+      for (int j0 = 0; j0 < NT; j0 += 4) {
+        uint32_t bhi[4][VEC], blo[4][VEC];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float kv[VEC];
+          load_vec<VEC>(ks + ((j0 + jj) * 8 + g) * LDK + c * 4 * VEC + VEC * t, kv);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) split(kv[i], bhi[jj][i], blo[jj][i]);
+        }
+#pragma unroll
+        for (int p = 0; p < KS; ++p) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            mma_tf32(s[j0 + jj], alo[p], bhi[jj][2 * p], bhi[jj][2 * p + 1]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            mma_tf32(s[j0 + jj], ahi[p], blo[jj][2 * p], blo[jj][2 * p + 1]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            mma_tf32(s[j0 + jj], ahi[p], bhi[jj][2 * p], bhi[jj][2 * p + 1]);
+        }
+      }
+    }
+    const int key0 = tile * KT;
+    if (key0 + KT > N) {  // the ragged last tile
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (key0 + j * 8 + 2 * t + (e & 1) >= N) s[j][e] = -INFINITY;
+    }
+
+    // online softmax; every tile holds a key below N, so mx is finite
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2_sfu(m[r] - mx[r]);  // 0 on the first tile
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int a = 0; a < JG; ++a)
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        oacc[a][d][0] *= corr[0];
+        oacc[a][d][1] *= corr[0];
+        oacc[a][d][2] *= corr[1];
+        oacc[a][d][3] *= corr[1];
       }
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const int j = j0 + c;
-        if (j < kt) {
-          const float p = exp2f(s[c] - m);
-          l += p;
-          const float* vj = vs + j * DH;
+    for (int j = 0; j < NT; ++j) {
+      s[j][0] = exp2_sfu(s[j][0] - m[0]);
+      s[j][1] = exp2_sfu(s[j][1] - m[0]);
+      s[j][2] = exp2_sfu(s[j][2] - m[1]);
+      s[j][3] = exp2_sfu(s[j][3] - m[1]);
+      l[0] += s[j][0] + s[j][1];
+      l[1] += s[j][2] + s[j][3];
+    }
+
+    // O += P v: the 8 keys of group j are one k-step, key 2t in slot t and
+    // key 2t + 1 in slot t + 4, so V's rows are read in that order: row
+    // 2t for slot t and row 2t + 1 for slot t + 4
 #pragma unroll
-          for (int i = 0; i < DPT; ++i) acc[i] += p * vj[i * TPR + lane];
+    for (int j0 = 0; j0 < NT; j0 += JG) {
+      uint32_t phi[JG][4], plo[JG][4];
+#pragma unroll
+      for (int jj = 0; jj < JG; ++jj)
+        split_a(s[j0 + jj][0], s[j0 + jj][2], s[j0 + jj][1], s[j0 + jj][3],
+                phi[jj], plo[jj]);
+#pragma unroll
+      for (int d0 = 0; d0 < DT; d0 += DG) {
+        uint32_t vhi[JG][DG][2], vlo[JG][DG][2];
+#pragma unroll
+        for (int jj = 0; jj < JG; ++jj) {
+          const float* v0 = vs + ((j0 + jj) * 8 + 2 * t) * LDV + g;
+#pragma unroll
+          for (int dd = 0; dd < DG; ++dd) {
+            split(v0[(d0 + dd) * 8], vhi[jj][dd][0], vlo[jj][dd][0]);
+            split(v0[LDV + (d0 + dd) * 8], vhi[jj][dd][1], vlo[jj][dd][1]);
+          }
         }
+#pragma unroll
+        for (int jj = 0; jj < JG; ++jj)
+#pragma unroll
+          for (int dd = 0; dd < DG; ++dd)
+            mma_tf32(oacc[jj][d0 + dd], plo[jj], vhi[jj][dd][0], vhi[jj][dd][1]);
+#pragma unroll
+        for (int jj = 0; jj < JG; ++jj)
+#pragma unroll
+          for (int dd = 0; dd < DG; ++dd)
+            mma_tf32(oacc[jj][d0 + dd], phi[jj], vlo[jj][dd][0], vlo[jj][dd][1]);
+#pragma unroll
+        for (int jj = 0; jj < JG; ++jj)
+#pragma unroll
+          for (int dd = 0; dd < DG; ++dd)
+            mma_tf32(oacc[jj][d0 + dd], phi[jj], vhi[jj][dd][0], vhi[jj][dd][1]);
       }
     }
   }
-  if (active) {
-    float* ob = o + (long long)b * osb + (long long)h * osh + (long long)row * osn;
-    const float inv = 1.f / l;
+
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) ob[i * TPR + lane] = acc[i] * inv;
-    if (lane == 0) lse[(long long)bh * N + row] = (m + log2f(l)) * kLn2;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  float* ob = o + (long long)b * osb + (long long)h * osh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < N) {
+      const float inv = 1.f / l[r];
+      float* orow = ob + (long long)row * osn + 2 * t;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        float o0 = 0.f, o1 = 0.f;
+#pragma unroll
+        for (int a = 0; a < JG; ++a) {
+          o0 += oacc[a][d][2 * r];
+          o1 += oacc[a][d][2 * r + 1];
+        }
+        *reinterpret_cast<float2*>(orow + d * 8) = make_float2(o0 * inv, o1 * inv);
+      }
+      if (t == 0) lse[(long long)bh * N + row] = (m[r] + log2f(l[r])) * kLn2;
+    }
   }
 }
 
@@ -302,19 +604,36 @@ flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+
 bool bad_shape(int B, int H, int N, int rows_per_block) {
   if (B <= 0 || H <= 0 || N <= 0) return true;
   if ((long long)B * H > 2147483647LL) return true;
   return (N + rows_per_block - 1) / rows_per_block > 65535;
 }
 
-template <int DH, int TPR>
+// cp.async and the vector reads of q need every q, k, v row on 16 bytes.
+bool rows_aligned(const void* p, const int* s) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && s[0] % 4 == 0 &&
+         s[1] % 4 == 0 && s[2] % 4 == 0;
+}
+
+template <int DH>
 int launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse,
                int B, int H, int N, const int* s, float scale, cudaStream_t st) {
-  constexpr int rows = kThreads / TPR;
-  if (bad_shape(B, H, N, rows)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B * H, (N + rows - 1) / rows);
-  flash_fwd_kernel<DH, TPR><<<grid, kThreads, 0, st>>>(
+  if (bad_shape(B, H, N, kFwdRows)) return (int)cudaErrorInvalidValue;
+  if (!rows_aligned(q, s) || !rows_aligned(k, s + 3) || !rows_aligned(v, s + 6) ||
+      (reinterpret_cast<uintptr_t>(o) & 7) != 0 || s[9] % 2 || s[10] % 2 || s[11] % 2)
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = Fwd<DH>::kSmem;
+  static bool opted_in = false;  // one device
+  if (smem > 48 * 1024 && !opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  const dim3 grid(B * H, (N + kFwdRows - 1) / kFwdRows);
+  flash_fwd_kernel<DH><<<grid, kFwdThreads, smem, st>>>(
       q, k, v, o, lse, H, N, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
       s[8], s[9], s[10], s[11], scale);
   return (int)cudaGetLastError();
@@ -351,7 +670,9 @@ int launch_dkdv(const float* q, const float* k, const float* v, const float* g,
 // cudaGetLastError() of its launch (cudaErrorInvalidValue for a head size
 // or shape it does not take). Strides are in elements, (batch, head, row)
 // for each tensor in argument order; the last dimension of every tensor has
-// stride 1. lse and delta are contiguous (B * H, N) fp32.
+// stride 1. lse and delta are contiguous (B * H, N) fp32. The forward also
+// needs q, k and v on 16 bytes with strides that are multiples of 4, and o
+// on 8 bytes with even strides.
 
 // q, k, v (B, H, N, DH) -> o (B, H, N, DH) and lse; strides of q, k, v, o.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -364,9 +685,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   float* lf = (float*)lse;
   cudaStream_t st = (cudaStream_t)stream;
   switch (DH) {
-    case 8: return launch_fwd<8, 1>(qf, kf, vf, of, lf, B, H, N, strides, scale, st);
-    case 16: return launch_fwd<16, 1>(qf, kf, vf, of, lf, B, H, N, strides, scale, st);
-    case 128: return launch_fwd<128, 4>(qf, kf, vf, of, lf, B, H, N, strides, scale, st);
+    case 8: return launch_fwd<8>(qf, kf, vf, of, lf, B, H, N, strides, scale, st);
+    case 16: return launch_fwd<16>(qf, kf, vf, of, lf, B, H, N, strides, scale, st);
+    case 128: return launch_fwd<128>(qf, kf, vf, of, lf, B, H, N, strides, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,253 +11,325 @@
 //
 // Shapes: x (B, N, C), ctx (B, M, D), wq (C, HD), wk and wv (D, HD),
 // wo (HD, COUT), bo (COUT), y (B, N, COUT), HD = H * DH <= 256 and DH one of
-// 8, 16, 32 (the UNet's head sizes; others are refused). x, ctx and y
-// are addressed through their batch and row strides with the last dimension
-// contiguous; each weight through its own two strides, so the callers'
-// nn.Linear weights (out, in) are read in place as (in, out) views.
+// 8, 16, 32 (the UNet's head sizes; others are refused). x, ctx and y are
+// addressed through their batch and row strides with the last dimension
+// contiguous. Each weight is an (in, out) view whose `in` index is
+// contiguous, as the callers' nn.Linear weights (out, in) are read in place;
+// the wrapper copies a weight that comes in another layout.
 //
 // What is not carried over from the TPU: the TPU kernel holds one batch
 // row's x and ctx and all four weight matrices in VMEM. A Hopper block has at
 // most 227 KB of shared memory, and at C = 256 wq alone is 256 KB. Here:
-// - one block of 256 threads (8 warps) per (batch row, tile of 64 query
-//   rows); the batch row is gridDim.x, so any B up to 2^31 - 1 is taken, and
-//   the row tiles are gridDim.y;
-// - the block projects k and v of its batch row into shared memory
-//   (M x HD each, 40 KB at M = 20, HD = 256) and keeps them there; the
-//   launch is refused where they do not fit (the wrapper raises first);
-// - the three products with weights (ctx wk / ctx wv, x wq, o wo) are one
-//   block-level routine: the weights stream through shared memory in tiles
-//   of 16 rows, the next tile's loads in flight in registers while the
-//   current one is used; each warp owns 8 of the 64 rows and each lane CPT
-//   columns 32 apart (CPT = 1, 2, 4 or 8, by HD), with the sums in
-//   registers; the left operand (x, ctx, o) sits in shared memory and is
-//   read 4 values at a time as a warp-wide broadcast;
-// - attention: one thread per (head, query row) keeps q and its output sum
-//   in registers (DH of each, a template parameter) and takes the softmax in
-//   its online form (fp32, a running maximum subtracted), reading k and v
-//   rows as broadcasts. o overwrites q.
+// - Tiles: the B * N query rows are cut into tiles of up to 64 rows (32 or
+//   16 where 64 would give fewer tiles than the card has SMs). Where N is
+//   below the tile size, one tile packs the rows of several batch rows (as
+//   many as their k and v fit in shared memory), since the weight products
+//   share the weights; the attention stays per batch row. A persistent grid
+//   (blocks up to the card's occupancy) walks the tiles, each block a
+//   contiguous run of them in batch-row order, and projects k and v only
+//   when its batch row changes: once per batch row a block serves.
+// - Weight products (ctx wk, ctx wv, x wq, o wo): 3xTF32 on mma.sync
+//   m16n8k8 (tf32 inputs, fp32 accumulators). Each fp32 operand a is split
+//   into hi = cvt.rna.tf32(a) and lo = cvt.rna.tf32(a - hi) (computed on
+//   the bits, see split()), and a product accumulates lo*hi, hi*lo, then
+//   hi*hi (small terms first), four n-tiles at a time so that four mma
+//   chains overlap: hi holds a's leading 11 significant bits and lo the
+//   next 11, so what is dropped is about 2^-22 of each product, the error
+//   of an fp32 sum. The weights
+//   stream through a 3-stage shared ring of 16-column slices (all output
+//   columns, up to 256, per pass) by cp.async, 16 bytes a thread where the
+//   rows are 16-byte aligned (4 bytes otherwise); the left operand (the x
+//   tile, ctx, o) sits in shared memory, zero-padded to whole slices, so C
+//   and D need not be multiples of 8. The 8 warps split a tile as 4 m-tiles
+//   of 16 rows x 2 column halves (2 x 4 or 1 x 8 for smaller tiles). The
+//   summed dimension runs in a permuted order so that a lane's values for
+//   two k-steps are neighbours: one 16-byte shared read for A (rows g and
+//   g + 8) and one for B; row strides of 16 mod 32 floats keep these reads
+//   free of bank conflicts. q overwrites the x tile in shared memory; y is
+//   written from the accumulators with the bias added.
+// - Attention: on the CUDA cores (4 B N M HD flops against 4 B N C HD in
+//   the two weight products, where C = HD in the UNet): one thread per
+//   (head, query row) keeps q and its output sum in registers (DH of each,
+//   a template parameter) and takes the softmax in its online form (fp32,
+//   in log2 units, a running maximum subtracted, each exponential one
+//   ex2.approx.ftz), reading its batch row's k and v rows from shared
+//   memory as broadcasts; o overwrites q. No permutation of v is needed
+//   here: P never enters a tensor-core product.
+// - Launch: the device's SM count and shared-memory limit are read once,
+//   and the occupancy query is repeated only when the shared memory changes
+//   (the serving path launches thousands of times a request).
 // Nothing but x, ctx, the weights and y crosses device memory.
 //
-// Bound on the H100: operations. 2 B N C HD + 4 B M D HD + 4 B N M HD +
-// 2 B N HD COUT fp32 FLOPs on the CUDA cores (67 TFLOP/s) against bytes of
-// 4 (B N C + B M D + B N COUT) plus the weights at 3.35 TB/s: at the faces
-// 64x64 level (B 32, N 4096, C = HD = 64) 2.8 GFLOP, about 42 us, against
-// 67 MB, about 20 us. The design keeps every intermediate on chip, so the
-// bytes are the least they can be; it reaches the operations only as far as
-// shared-memory reads allow (per 4 k: 8 float4 broadcasts and 4 CPT column
-// loads for 32 CPT multiply-adds), and every block repeats the k and v
-// projections. Tensor cores (a later change, and then not in fp32) would
-// lift the bound.
+// Bound on the H100: the largest of bytes, 4 (B N C + B M D + B N COUT)
+// plus the weights at 3.35 TB/s; the two weight products and the k, v
+// projections three times over at 495 TFLOP/s of dense TF32; the attention
+// (4 B N M HD + 4 B H N M) on the CUDA cores at 67 TFLOP/s; the B H N M
+// exponentials at 16 per SM and clock. At the faces 64x64 level (B 32,
+// N 4096, C = HD = 64) bytes bind: 67 MB, 20 us. mma.sync reaches only part
+// of the TF32 peak, every block splits each weight value again for each of
+// its m-tiles, and the attention's serial chain of M keys per thread, the
+// exposed latency of each tile's x load and weight ring prologue (one or
+// two blocks an SM) and the per-slice barriers keep the kernel above it.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileK = 16;  // weight rows per shared tile
-constexpr int kStages = 3;  // weight tiles in shared memory: 2 in flight
+constexpr int kMaxRows = 64;  // rows of a product's m-tile group: 4 x 16
+constexpr int kKc = 16;       // summed-dimension columns per ring stage
+constexpr int kStages = 3;    // weight slices in shared memory: 2 in flight
 constexpr int kMaxHD = 256;
 
 __host__ __device__ constexpr long long round_up(long long x, long long m) {
   return (x + m - 1) / m * m;
 }
 
-// Query rows a thread sums per column (a block takes 8 times as many): 8,
-// or 4 where a lane holds 8 columns, so that the sums stay in registers.
-__host__ __device__ constexpr int rows_per_thread(int cpt) {
-  return cpt == 8 ? 4 : 8;
+// A row stride for 16-byte fragment reads: whole slices, 16 mod 32 floats.
+__host__ __device__ constexpr long long frag_ld(long long cols) {
+  return round_up(cols, 16) % 32 ? round_up(cols, 16) : round_up(cols, 16) + 16;
 }
 
-// A 2-d operand in device memory: element (i, j) at p[i * si + j * sj].
-struct Mat {
-  const float* p;
-  long long si, sj;
-};
-
-// Where each buffer lies in a block's shared memory (offsets in floats, each
-// a multiple of 4 so that float4 reads are aligned) and its row strides.
-struct Layout {
-  long long ldx, ldc, ldq, ldk;
-  long long ks, vs, qs, xs, cs, wbuf, total;
-};
-
-// k and v (M rows of ldk), q / o (R x ldq), the x tile (R x ldx), ctx
-// (M x ldc) and the weight tiles (R = 8 rows_per_thread(cpt) query rows per
-// block). The left operands of the products (x, ctx, q / o) are zero-padded
-// to a whole number of weight tiles; q / o's rows are 4 floats longer than
-// that, so that neighbouring rows start 4 banks apart. k and v rows are read
-// as float4 broadcasts (ldk a multiple of 4).
-__host__ __device__ inline Layout make_layout(int M, int C, int D, int H,
-                                              int dh, int cpt) {
-  Layout L;
-  const long long hd = (long long)H * dh;
-  const long long R = kWarps * rows_per_thread(cpt);
-  L.ldx = round_up(C, kTileK);
-  L.ldc = round_up(D, kTileK);
-  L.ldq = round_up(hd, kTileK) + 4;
-  L.ldk = round_up(hd, 4);
-  const long long kv = round_up(M * L.ldk, 4);
-  L.ks = 0;
-  L.vs = kv;
-  L.qs = 2 * kv;
-  L.xs = L.qs + R * L.ldq;
-  L.cs = L.xs + R * L.ldx;
-  L.wbuf = L.cs + round_up(M * L.ldc, 4);
-  L.total = L.wbuf + kStages * kTileK * (32LL * cpt + 1);
-  return L;
+// Rows of shared memory a product reads for `n` rows of its left operand:
+// whole m-tile groups (16, 32 or 64 rows).
+__host__ __device__ constexpr long long mrows(long long n) {
+  return n <= 32 ? round_up(n, 16) : round_up(n, kMaxRows);
 }
 
-int cols_per_lane(long long hd) {
-  return hd <= 32 ? 1 : hd <= 64 ? 2 : hd <= 128 ? 4 : hd <= kMaxHD ? 8 : 0;
-}
+// Weight n-tiles (8 output columns) a warp holds in the widest split (4
+// m-tiles x 2 halves): a pass covers 16 NTW output columns.
+int tiles_per_warp(int hd) { return hd <= 64 ? 4 : hd <= 128 ? 8 : 16; }
 
 bool takes_head_size(int dh) { return dh == 8 || dh == 16 || dh == 32; }
 
-// Stage a (rows x cols) block of device memory (row stride ld_src, columns
-// contiguous) into shared memory with row stride ld_dst, zero-filling the
-// columns past cols. Unrolled so that a thread's loads are in flight
-// together.
-__device__ void stage_rows(const float* __restrict__ src, long long ld_src,
-                           int rows, int cols, float* dst, int ld_dst) {
-  const int n = rows * ld_dst;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const int r = e / ld_dst, c = e - r * ld_dst;
-    dst[e] = c < cols ? src[r * ld_src + c] : 0.f;
-  }
+// A weight as its transpose: output column j, summed index k at
+// p[j * ld + k].
+struct Mat {
+  const float* p;
+  long long ld;
+};
+
+// Where each buffer lies in a block's shared memory (offsets in floats, each
+// a multiple of 4) and its row stride: the x / q / o tile (rows x ldxo), ctx
+// of `pack` batch rows (pack M x ldc), their k and v (pack M x ldk each) and
+// the weight ring.
+struct Layout {
+  long long ldxo, ldc, ldk;
+  long long xo, cs, ks, vs, ring, total;
+};
+
+__host__ __device__ inline Layout make_layout(int rows, int pack, int M, int C,
+                                              int D, int HD, int ntw) {
+  Layout L;
+  L.ldxo = frag_ld(C > HD ? C : HD);
+  L.ldc = frag_ld(D);
+  L.ldk = round_up(HD, 4);
+  L.xo = 0;
+  L.cs = L.xo + mrows(rows) * L.ldxo;
+  L.ks = L.cs + mrows((long long)pack * M) * L.ldc;
+  L.vs = L.ks + (long long)pack * M * L.ldk;
+  L.ring = L.vs + (long long)pack * M * L.ldk;
+  L.total = L.ring + kStages * 16LL * ntw * kKc;
+  return L;
 }
 
-// The (k, j) of the t-th weight value a thread stages: neighbouring threads
-// take neighbouring addresses in device memory, columns where the weight's
-// rows are contiguous, rows where its columns are (a transposed nn.Linear
-// weight).
-template <int TN>
-__device__ inline void tile_index(int t, bool rowmajor, int& kk, int& jj) {
-  const int e = threadIdx.x + t * kThreads;
-  if (rowmajor) {
-    kk = e / TN;
-    jj = e % TN;
-  } else {
-    jj = e / kTileK;
-    kk = e % kTileK;
-  }
+// a = hi + lo with hi and lo tf32 operands: hi = cvt.rna.tf32(a) and
+// lo = cvt.rna.tf32(a - hi). The rounding (to nearest, ties away from zero)
+// is done on the bits: add half a tf32 ulp (0x1000) and drop the low 13
+// bits. On every finite value that equals cvt.rna.tf32.f32, which the
+// compiler expands to four instructions (with an Inf/NaN guard; no input
+// here is infinite). The tensor cores read only a tf32 operand's top 19
+// bits, so the operands go in unmasked and hi is masked only to form lo:
+// four instructions per split instead of nine.
+__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(a) + 0x1000u;
+  lo = __float_as_uint(a - __uint_as_float(hi & 0xffffe000u)) + 0x1000u;
 }
 
-// One 4-byte asynchronous copy into shared memory (zeros where !pred).
-__device__ inline void cp_async4(float* dst, const float* src, bool pred) {
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU, denormal results flushed to zero (ex2.approx.ftz): one
+// instruction, where expf adds a range fix-up around it.
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The A operand of one k-step, split: rows g and g + 8 at k-slots t, t + 4.
+__device__ __forceinline__ void split_a(float g_t, float g8_t, float g_t4,
+                                        float g8_t4, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split(g_t, hi[0], lo[0]);
+  split(g8_t, hi[1], lo[1]);
+  split(g_t4, hi[2], lo[2]);
+  split(g8_t4, hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
+  const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(saddr), "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
   const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(saddr), "l"(src), "r"(pred ? 4 : 0));
+               :: "r"(saddr), "l"(src), "r"(pred ? 4 : 0) : "memory");
 }
 
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Start copying weight rows k0 .. k0 + kTileK - 1, columns j0 .. j0 + tn - 1
-// of w into one shared tile (kTileK rows of 32 CPT + 1), zeros past the
-// matrix.
-template <int CPT>
-__device__ inline void fetch_tile(Mat w, int k0, int kdim, int j0, int tn,
-                                  bool rowmajor, float* tile) {
-  constexpr int TN = 32 * CPT;
-  constexpr int PER = kTileK * TN / kThreads;  // weight values per thread
+// Start copying `nrows` rows of `width` floats (a multiple of 4) into
+// shared memory (row stride ld): row r from row_ptr(r), its first `cols`
+// floats, zeros past them and for rows where row_ptr gives nullptr. vec:
+// every source row starts on 16 bytes and cols % 4 == 0 (16-byte copies),
+// else 4-byte copies. `any` is a valid address for the copies that read
+// nothing.
+template <class RowPtr>
+__device__ void stage(float* dst, int ld, int nrows, int width, int cols,
+                      bool vec, const float* any, RowPtr row_ptr) {
+  const int per_row = width / 4;
+  for (int e = threadIdx.x; e < nrows * per_row; e += kThreads) {
+    const int r = e / per_row, c = 4 * (e - r * per_row);
+    const float* src = row_ptr(r);
+    float* d = dst + r * ld + c;
+    if (vec) {
+      const bool ok = src != nullptr && c < cols;
+      cp_async16(d, ok ? src + c : any, ok);
+    } else {
 #pragma unroll
-  for (int t = 0; t < PER; ++t) {
-    int kk, jj;
-    tile_index<TN>(t, rowmajor, kk, jj);
-    const long long k = k0 + kk;
-    const bool ok = jj < tn && k < kdim;
-    cp_async4(tile + kk * (TN + 1) + jj,
-              ok ? w.p + k * w.si + (long long)(j0 + jj) * w.sj : w.p, ok);
+      for (int i = 0; i < 4; ++i) {
+        const bool ok = src != nullptr && c + i < cols;
+        cp_async4(d + i, ok ? src + c + i : any, ok);
+      }
+    }
   }
 }
 
-// dst[r * ldd + j] = sum_k a[r * lda + k] * w(k, j) (+ bias[j]) for r < rows
-// (<= 8 RPT) and j < cols. a lies in shared memory, zero-padded to a whole
-// number of tiles (lda a multiple of 4); w streams through kStages shared
-// tiles (kTileK rows of 32 CPT + 1 floats) by asynchronous copies, two
-// tiles in flight while one is used, in column chunks of 32 CPT. Warp w
-// owns rows w, w + 8, ... and lane l columns l, l + 32, ...; each step
-// reads 4 values of a row as one broadcast float4. Callers sync after
-// writing a and before reading dst.
-template <int CPT, int RPT>
-__device__ void block_gemm(const float* a, int lda, int rows, int kdim, Mat w,
-                           int cols, const float* __restrict__ bias,
-                           float* wbuf, float* dst, long long ldd) {
-  constexpr int TN = 32 * CPT;
-  constexpr int LDW = TN + 1;
-  constexpr int TILE = kTileK * LDW;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const bool rowmajor = w.sj == 1;
-  const int ntiles = (kdim + kTileK - 1) / kTileK;
-  for (int j0 = 0; j0 < cols; j0 += TN) {
-    const int tn = min(TN, cols - j0);
-    float acc[RPT][CPT];
+// acc[i] += A B_i over one 16-column slice of the summed dimension: A is 16
+// rows at a (stride lda), B_i the rows 8 i .. 8 i + 7 of a weight slice at b
+// (stride ldb), i < cnt. The slice's 16 columns are two k-steps taken in a
+// permuted order: lane t of a quad reads columns 4t .. 4t + 3 of its rows,
+// (4t, 4t + 1) are k-step 0's slots (t, t + 4) and (4t + 2, 4t + 3) k-step
+// 1's, the same for A and B. The 3xTF32 terms (lo*hi, hi*lo, hi*hi) run
+// over four n-tiles at a time, so that four accumulator chains overlap.
+template <int NTW>
+__device__ __forceinline__ void mma_slice(float (&acc)[NTW][4], const float* a,
+                                          int lda, const float* b, int ldb,
+                                          int cnt, int g, int t) {
+  const float4 x0 = *reinterpret_cast<const float4*>(a + g * lda + 4 * t);
+  const float4 x1 = *reinterpret_cast<const float4*>(a + (g + 8) * lda + 4 * t);
+  uint32_t ahi[2][4], alo[2][4];
+  split_a(x0.x, x1.x, x0.y, x1.y, ahi[0], alo[0]);
+  split_a(x0.z, x1.z, x0.w, x1.w, ahi[1], alo[1]);
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+  for (int i0 = 0; i0 < NTW; i0 += 4) {
+    if (i0 < cnt) {
+      const int n = cnt - i0 < 4 ? cnt - i0 : 4;  // 1, 2 or 4
+      uint32_t bhi[4][4], blo[4][4];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-    __syncthreads();  // a is written; the tiles' last readers are done
-#pragma unroll
-    for (int st = 0; st < kStages - 1; ++st) {
-      if (st < ntiles)
-        fetch_tile<CPT>(w, st * kTileK, kdim, j0, tn, rowmajor, wbuf + st * TILE);
-      cp_async_commit();
-    }
-    for (int t = 0; t < ntiles; ++t) {
-      cp_async_wait<kStages - 2>();  // this thread's copies of tile t landed
-      __syncthreads();               // everyone's; and tile t - 1 is consumed
-      const int nt = t + kStages - 1;
-      if (nt < ntiles)
-        fetch_tile<CPT>(w, nt * kTileK, kdim, j0, tn, rowmajor,
-                        wbuf + (nt % kStages) * TILE);
-      cp_async_commit();
-      const float* wt = wbuf + (t % kStages) * TILE;
-      const int k0 = t * kTileK;
-#pragma unroll
-      for (int kk = 0; kk < kTileK; kk += 4) {
-        float4 av[RPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const int r = warp + kWarps * i;
-          av[i] = r < rows ? *reinterpret_cast<const float4*>(a + r * lda + k0 + kk)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          float wr[CPT];
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) wr[c] = wt[(kk + q) * LDW + lane + 32 * c];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) {
-            if (warp + kWarps * i < rows) {
-              const float ai = q == 0 ? av[i].x : q == 1 ? av[i].y
-                             : q == 2 ? av[i].z : av[i].w;
-#pragma unroll
-              for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(ai, wr[c], acc[i][c]);
-            }
-          }
+      for (int ii = 0; ii < 4; ++ii) {
+        if (ii < n) {
+          const float4 w = *reinterpret_cast<const float4*>(
+              b + ((i0 + ii) * 8 + g) * ldb + 4 * t);
+          split(w.x, bhi[ii][0], blo[ii][0]);
+          split(w.y, bhi[ii][1], blo[ii][1]);
+          split(w.z, bhi[ii][2], blo[ii][2]);
+          split(w.w, bhi[ii][3], blo[ii][3]);
         }
       }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+          if (ii < n) mma_tf32(acc[i0 + ii], alo[p], bhi[ii][2 * p], bhi[ii][2 * p + 1]);
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+          if (ii < n) mma_tf32(acc[i0 + ii], ahi[p], blo[ii][2 * p], blo[ii][2 * p + 1]);
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+          if (ii < n) mma_tf32(acc[i0 + ii], ahi[p], bhi[ii][2 * p], bhi[ii][2 * p + 1]);
+      }
     }
+  }
+}
+
+// out(r, j) = sum_k a[r * lda + k] w(j, k) for r < rows, j < nout, handed
+// to store(r, j, value, value of j + 1) for even j. a lies in shared
+// memory, zero-padded to whole 16-column slices and to mrows(rows) rows;
+// w streams through the ring in passes of 16 NTW output columns. With
+// alias, store writes over a: every warp finishes reading first. Callers
+// sync after writing a and before reading what store wrote.
+template <int NTW, class Store>
+__device__ void block_gemm(const float* a, int lda, int rows, int kdim, Mat w,
+                           int nout, bool wvec, float* ring, bool alias,
+                           Store store) {
+  constexpr int PW = 16 * NTW;  // weight rows (output columns) per pass
+  constexpr int STAGE = PW * kKc;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nk = (kdim + kKc - 1) / kKc;
+  for (int r0 = 0; r0 < rows; r0 += kMaxRows) {
+    const int rr = min(kMaxRows, rows - r0);
+    const int mt = rr <= 16 ? 1 : rr <= 32 ? 2 : 4;  // m-tiles of 16 rows
+    const int parts = kWarps / mt;
+    const int cnt = 2 * NTW / parts;  // n-tiles per warp per pass
+    const int mtile = warp % mt, part = warp / mt;
+    const float* aw = a + (r0 + 16 * mtile) * lda;
+    for (int j0 = 0; j0 < nout; j0 += PW) {
+      float acc[NTW][4];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = warp + kWarps * i;
-      if (r < rows) {
+      for (int i = 0; i < NTW; ++i)
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const int j = lane + 32 * c;
-          if (j < tn)
-            dst[r * ldd + j0 + j] = acc[i][c] + (bias ? bias[j0 + j] : 0.f);
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+      auto fetch = [&](int kc) {
+        const int k0 = kc * kKc;
+        stage(ring + (kc % kStages) * STAGE, kKc, PW, kKc, min(kKc, kdim - k0),
+              wvec, w.p, [&](int r) -> const float* {
+                return j0 + r < nout ? w.p + (long long)(j0 + r) * w.ld + k0
+                                     : nullptr;
+              });
+      };
+      __syncthreads();  // a is written; the ring's last readers are done
+#pragma unroll
+      for (int s = 0; s < kStages - 1; ++s) {
+        if (s < nk) fetch(s);
+        cp_async_commit();
+      }
+      for (int kc = 0; kc < nk; ++kc) {
+        cp_async_wait<kStages - 2>();  // this thread's copies of slice kc landed
+        __syncthreads();               // everyone's; and slice kc - 1 is consumed
+        if (kc + kStages - 1 < nk) fetch(kc + kStages - 1);
+        cp_async_commit();
+        mma_slice<NTW>(acc, aw + kc * kKc, lda,
+                       ring + (kc % kStages) * STAGE + part * cnt * 8 * kKc, kKc,
+                       cnt, g, t);
+      }
+      if (alias) __syncthreads();
+#pragma unroll
+      for (int i = 0; i < NTW; ++i) {
+        if (i < cnt) {
+          const int col = j0 + (part * cnt + i) * 8 + 2 * t;
+          const int row = r0 + 16 * mtile + g;
+          store(row, col, acc[i][0], acc[i][1]);
+          store(row + 8, col, acc[i][2], acc[i][3]);
         }
       }
     }
@@ -267,14 +339,18 @@ __device__ void block_gemm(const float* a, int lda, int rows, int kdim, Mat w,
 // Attention: one thread per (head, row) pair, q and the output sum in
 // registers, the softmax in its online form (a running maximum and sum, the
 // sum rescaled when the maximum grows). Pairs run head-major, so a warp
-// shares its head and reads each k and v row as a broadcast. o overwrites
-// the pair's own q.
+// mostly shares its head and reads each k and v row as a broadcast. Row r
+// of the tile is query n0 + r of the tile's first batch row's run, so its
+// batch row's k and v are slot (n0 + r) / N. o overwrites the pair's own q.
 template <int DH>
 __device__ void attend_per_head(const float* ks, const float* vs, int ldk,
-                                float* qs, int ldq, int rows, int H, int M,
-                                float scale) {
+                                float* qs, int ldq, int rows, int n0, int N,
+                                int H, int M, float scale) {
   for (int p = threadIdx.x; p < rows * H; p += kThreads) {
     const int h = p / rows, r = p - h * rows;
+    const long long slot = (n0 + r) / N;
+    const float* kb = ks + slot * M * ldk + h * DH;
+    const float* vb = vs + slot * M * ldk + h * DH;
     float* qr = qs + r * ldq + h * DH;
     float q[DH], acc[DH];
 #pragma unroll
@@ -289,8 +365,8 @@ __device__ void attend_per_head(const float* ks, const float* vs, int ldk,
     for (int d = 0; d < DH; ++d) acc[d] = 0.f;
     float mx = -INFINITY, l = 0.f;
     for (int m = 0; m < M; ++m) {
-      const float* km = ks + m * ldk + h * DH;
-      const float* vm = vs + m * ldk + h * DH;
+      const float* km = kb + m * ldk;
+      const float* vm = vb + m * ldk;
       float s = 0.f;
 #pragma unroll
       for (int d = 0; d < DH; d += 4) {
@@ -300,15 +376,15 @@ __device__ void attend_per_head(const float* ks, const float* vs, int ldk,
         s = fmaf(q[d + 2], t.z, s);
         s = fmaf(q[d + 3], t.w, s);
       }
-      s *= scale;
-      if (s > mx) {  // on the first key exp(-inf) = 0 clears l and acc
-        const float corr = expf(mx - s);
+      s *= scale;  // in log2 units: the caller folds log2 e in
+      if (s > mx) {  // on the first key 2^-inf = 0 clears l and acc
+        const float corr = exp2_sfu(mx - s);
         l *= corr;
 #pragma unroll
         for (int d = 0; d < DH; ++d) acc[d] *= corr;
         mx = s;
       }
-      const float pm = expf(s - mx);
+      const float pm = exp2_sfu(s - mx);
       l += pm;
 #pragma unroll
       for (int d = 0; d < DH; d += 4) {
@@ -327,131 +403,261 @@ __device__ void attend_per_head(const float* ks, const float* vs, int ldk,
   }
 }
 
-template <int CPT, int DH>
-__global__ void __launch_bounds__(kThreads)
+// Which inputs take 16-byte copies (bits of Launch::vec).
+enum : int { kVecX = 1, kVecCtx = 2, kVecWq = 4, kVecWk = 8, kVecWv = 16, kVecWo = 32 };
+
+// The tiling of one call: tiles of `rows` query rows within a batch row
+// (pack == 1), or of the N rows of `pack` batch rows each.
+struct Launch {
+  int rows, pack, vec;
+  long long tiles;
+};
+
+template <int NTW, int DH>
+__global__ void __launch_bounds__(kThreads, NTW == 16 ? 1 : 2)
 fused_attention_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
                        Mat wq, Mat wk, Mat wv, Mat wo,
                        const float* __restrict__ bo, float* __restrict__ y,
-                       int N, int M, int C, int D, int H, int COUT,
+                       int B, int N, int M, int C, int D, int H, int COUT,
                        long long xsb, long long xsn, long long csb,
                        long long csm, long long ysb, long long ysn,
-                       float scale) {
+                       float scale, Launch plan) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L = make_layout(M, C, D, H, DH, CPT);
   const int HD = H * DH;
-  const int ldx = (int)L.ldx, ldc = (int)L.ldc, ldq = (int)L.ldq;
-  const int ldk = (int)L.ldk;
+  const int pack = plan.pack;
+  const int alloc_rows = pack > 1 ? pack * N : min(plan.rows, N);
+  const Layout L = make_layout(alloc_rows, pack, M, C, D, HD, NTW);
+  const int ldxo = (int)L.ldxo, ldc = (int)L.ldc, ldk = (int)L.ldk;
+  float* xo = smem + L.xo;
+  float* cs = smem + L.cs;
   float* ks = smem + L.ks;
   float* vs = smem + L.vs;
-  float* qs = smem + L.qs;
-  float* xs = smem + L.xs;
-  float* cs = smem + L.cs;
-  float* wbuf = smem + L.wbuf;
+  float* ring = smem + L.ring;
+  const int xwidth = (int)round_up(C > HD ? C : HD, kKc);
+  const int cwidth = (int)round_up(D, kKc);
 
-  constexpr int RPT = rows_per_thread(CPT);
-  constexpr int R = kWarps * RPT;
-  const long long b = blockIdx.x;
-  const int n0 = blockIdx.y * R;
-  const int rows = min(R, N - n0);
-  stage_rows(x + b * xsb + (long long)n0 * xsn, xsn, rows, C, xs, ldx);
-  stage_rows(ctx + b * csb, csm, M, D, cs, ldc);
-  for (int e = threadIdx.x; e < rows * ldq; e += kThreads) qs[e] = 0.f;
-  // block_gemm syncs before it first reads its left operand
-  for (int m0 = 0; m0 < M; m0 += R) {
-    const int mr = min(R, M - m0);
-    block_gemm<CPT, RPT>(cs + m0 * ldc, ldc, mr, D, wk, HD, nullptr, wbuf,
-                         ks + m0 * ldk, ldk);
-    block_gemm<CPT, RPT>(cs + m0 * ldc, ldc, mr, D, wv, HD, nullptr, wbuf,
-                         vs + m0 * ldk, ldk);
+  const long long t_begin = plan.tiles * blockIdx.x / gridDim.x;
+  const long long t_end = plan.tiles * (blockIdx.x + 1) / gridDim.x;
+  const long long tiles_per_b = (N + plan.rows - 1) / plan.rows;  // pack == 1
+  long long cached = -1;  // the batch row whose k and v are in ks, vs
+  for (long long tile = t_begin; tile < t_end; ++tile) {
+    long long b0;
+    int n0, rows, nb;
+    if (pack == 1) {
+      b0 = tile / tiles_per_b;
+      n0 = (int)(tile - b0 * tiles_per_b) * plan.rows;
+      rows = min(plan.rows, N - n0);
+      nb = 1;
+    } else {
+      b0 = tile * pack;
+      n0 = 0;
+      nb = (int)min((long long)pack, B - b0);
+      rows = nb * N;
+    }
+    const bool new_kv = b0 != cached || pack > 1;
+    __syncthreads();  // the last tile's readers of xo, ks and vs are done
+    stage(xo, ldxo, (int)mrows(rows), xwidth, C, plan.vec & kVecX, x,
+          [&](int r) -> const float* {
+            if (r >= rows) return nullptr;
+            const int f = n0 + r;
+            return x + (b0 + f / N) * xsb + (long long)(f % N) * xsn;
+          });
+    if (new_kv)
+      stage(cs, ldc, (int)mrows((long long)nb * M), cwidth, D,
+            plan.vec & kVecCtx, ctx, [&](int r) -> const float* {
+              return r < nb * M ? ctx + (b0 + r / M) * csb + (long long)(r % M) * csm
+                                : nullptr;
+            });
+    cp_async_commit();
+    cp_async_wait<0>();  // block_gemm syncs before it reads them
+    if (new_kv) {
+      const int kv_rows = nb * M;
+      block_gemm<NTW>(cs, ldc, kv_rows, D, wk, HD, plan.vec & kVecWk, ring, false,
+                      [&](int r, int j, float a0, float a1) {
+                        if (r < kv_rows && j < HD) {
+                          ks[r * ldk + j] = a0;
+                          if (j + 1 < HD) ks[r * ldk + j + 1] = a1;
+                        }
+                      });
+      block_gemm<NTW>(cs, ldc, kv_rows, D, wv, HD, plan.vec & kVecWv, ring, false,
+                      [&](int r, int j, float a0, float a1) {
+                        if (r < kv_rows && j < HD) {
+                          vs[r * ldk + j] = a0;
+                          if (j + 1 < HD) vs[r * ldk + j + 1] = a1;
+                        }
+                      });
+      cached = b0;
+    }
+    // q = x wq over the x tile (HD <= 16 NTW: one pass)
+    block_gemm<NTW>(xo, ldxo, rows, C, wq, HD, plan.vec & kVecWq, ring, true,
+                    [&](int r, int j, float a0, float a1) {
+                      if (j < HD) {
+                        xo[r * ldxo + j] = a0;
+                        xo[r * ldxo + j + 1] = a1;
+                      }
+                    });
+    __syncthreads();
+    attend_per_head<DH>(ks, vs, ldk, xo, ldxo, rows, n0, N, H, M,
+                        scale * 1.4426950408889634f);
+    // y = o wo + bo (block_gemm syncs before it reads o)
+    block_gemm<NTW>(xo, ldxo, rows, HD, wo, COUT, plan.vec & kVecWo, ring, false,
+                    [&](int r, int j, float a0, float a1) {
+                      if (r < rows && j < COUT) {
+                        const int f = n0 + r;  // < 64 N
+                        float* yr = y + (b0 + f / N) * ysb + (long long)(f % N) * ysn;
+                        yr[j] = a0 + bo[j];
+                        if (j + 1 < COUT) yr[j + 1] = a1 + bo[j + 1];
+                      }
+                    });
   }
-  block_gemm<CPT, RPT>(xs, ldx, rows, C, wq, HD, nullptr, wbuf, qs, ldq);
-  __syncthreads();
-  attend_per_head<DH>(ks, vs, ldk, qs, ldq, rows, H, M, scale);
-  __syncthreads();
-  block_gemm<CPT, RPT>(qs, ldq, rows, HD, wo, COUT, bo, wbuf,
-                       y + b * ysb + (long long)n0 * ysn, ysn);
 }
 
-template <int CPT, int DH>
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <int NTW, int DH>
 int launch(const float* x, const float* ctx, Mat wq, Mat wk, Mat wv, Mat wo,
            const float* bo, float* y, int B, int N, int M, int C, int D, int H,
-           int COUT, const long long* s, float scale, size_t smem,
-           cudaStream_t stream) {
+           int COUT, const long long* s, float scale, Launch plan, size_t smem,
+           int sms, cudaStream_t stream) {
+  auto kernel = fused_attention_kernel<NTW, DH>;
   static size_t opted_in = 0;  // the largest size set so far (one device)
   if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_attention_kernel<CPT, DH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     opted_in = smem;
   }
-  constexpr int R = kWarps * rows_per_thread(CPT);
-  const dim3 grid(B, (N + R - 1) / R);
-  fused_attention_kernel<CPT, DH><<<grid, kThreads, smem, stream>>>(
-      x, ctx, wq, wk, wv, wo, bo, y, N, M, C, D, H, COUT, s[0], s[1], s[2],
-      s[3], s[4], s[5], scale);
+  static size_t occupancy_smem = 0;  // the size of the last query (one device)
+  static int per_sm = 0;
+  if (smem != occupancy_smem) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    occupancy_smem = smem;
+  }
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;
+  const long long grid = plan.tiles < (long long)per_sm * sms
+                             ? plan.tiles : (long long)per_sm * sms;
+  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
+      x, ctx, wq, wk, wv, wo, bo, y, B, N, M, C, D, H, COUT, s[0], s[1], s[2],
+      s[3], s[4], s[5], scale, plan);
   return (int)cudaGetLastError();
+}
+
+// The current device's SM count and opt-in shared memory per block, read
+// once per device (the serving path launches thousands of times).
+int device_limits(int* sms, int* optin) {
+  constexpr int kDevices = 64;
+  static int cached[kDevices][2];  // zeros: not read yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kDevices) return (int)cudaErrorInvalidValue;
+  if (cached[dev][0] == 0) {
+    int s = 0, o = 0;
+    err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    cached[dev][1] = o;
+    cached[dev][0] = s;
+  }
+  *sms = cached[dev][0];
+  *optin = cached[dev][1];
+  return 0;
+}
+
+long long smem_bytes(int rows, int pack, int N, int M, int C, int D, int HD) {
+  const int alloc_rows = pack > 1 ? pack * N : (rows < N ? rows : N);
+  return 4 * make_layout(alloc_rows, pack, M, C, D, HD, tiles_per_warp(HD)).total;
+}
+
+// The tiling: the largest tile of 64, 32 or 16 rows that still gives at
+// least one tile per SM (16 if none does), packing as many batch rows as fit
+// where N is below it. rows = 0 where even 16 rows of one batch row do not
+// fit in `limit` bytes.
+Launch plan_tiles(int B, int N, int M, int C, int D, int HD, long long limit,
+                  int sms) {
+  for (int rows = kMaxRows; rows >= 16; rows /= 2) {
+    int pack = N < rows ? rows / N : 1;
+    while (pack > 1 && smem_bytes(rows, pack, N, M, C, D, HD) > limit) --pack;
+    const long long tiles = pack > 1 ? (B + pack - 1) / pack
+                                     : (long long)B * ((N + rows - 1) / rows);
+    if ((tiles >= sms || rows == 16) &&
+        smem_bytes(rows, pack, N, M, C, D, HD) <= limit)
+      return Launch{rows, pack, 0, tiles};
+  }
+  return Launch{0, 0, 0, 0};
 }
 
 }  // namespace
 
-// The dynamic shared memory one block needs (bytes) and the most a block may
-// opt into on the current device; 0 on success, else a CUDA error (or
-// cudaErrorInvalidValue where H * DH exceeds 256 or DH is not 8, 16 or 32).
+// The dynamic shared memory one block needs at the least (bytes: a tile of
+// 16 rows of one batch row) and the most a block may opt into on the
+// current device; 0 on success, else a CUDA error (or cudaErrorInvalidValue
+// where H * DH exceeds 256 or DH is not 8, 16 or 32).
 extern "C" int fused_attention_smem(int M, int C, int D, int H, int DH,
                                     long long* need, long long* limit) {
-  const int cpt = cols_per_lane((long long)H * DH);
-  if (cpt == 0 || !takes_head_size(DH) || M <= 0 || C <= 0 || D <= 0 || H <= 0)
+  const long long hd = (long long)H * DH;
+  if (hd > kMaxHD || !takes_head_size(DH) || M <= 0 || C <= 0 || D <= 0 || H <= 0)
     return (int)cudaErrorInvalidValue;
-  *need = 4 * make_layout(M, C, D, H, DH, cpt).total;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *need = smem_bytes(16, 1, 16, M, C, D, (int)hd);
+  int sms = 0, optin = 0;
+  const int err = device_limits(&sms, &optin);
   *limit = optin;
-  return (int)err;
+  return err;
 }
 
 // strides (elements): x batch, x row, ctx batch, ctx row, y batch, y row,
-// then (row, column) of wq, wk, wv and wo. Runs on `stream`, allocates
-// nothing and returns cudaGetLastError() of the launch
-// (cudaErrorInvalidValue for shapes it does not take).
+// then (row, column) of wq, wk, wv and wo as (in, out) views, whose row
+// stride must be 1. Runs on `stream`, allocates nothing and returns
+// cudaGetLastError() of the launch (cudaErrorInvalidValue for shapes or
+// layouts it does not take).
 extern "C" int fused_attention_fwd(const void* x, const void* ctx, const void* wq,
                                    const void* wk, const void* wv, const void* wo,
                                    const void* bo, void* y, int B, int N, int M,
                                    int C, int D, int H, int DH, int COUT,
                                    const long long* strides, float scale,
                                    void* stream) {
-  const int cpt = cols_per_lane((long long)H * DH);
-  const int rows = kWarps * rows_per_thread(cpt);
-  if (cpt == 0 || B <= 0 || N <= 0 || M <= 0 || C <= 0 || D <= 0 || COUT <= 0
-      || (N + rows - 1) / rows > 65535)
-    return (int)cudaErrorInvalidValue;
-  long long need = 0, limit = 0;
-  int err = fused_attention_smem(M, C, D, H, DH, &need, &limit);
-  if (err != 0) return err;
-  if (need > limit) return (int)cudaErrorInvalidValue;
   const long long* s = strides;
-  const Mat mq{(const float*)wq, s[6], s[7]}, mk{(const float*)wk, s[8], s[9]};
-  const Mat mv{(const float*)wv, s[10], s[11]}, mo{(const float*)wo, s[12], s[13]};
+  if (B <= 0 || N <= 0 || M <= 0 || C <= 0 || D <= 0 || COUT <= 0 ||
+      s[6] != 1 || s[8] != 1 || s[10] != 1 || s[12] != 1)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)H * DH > kMaxHD || !takes_head_size(DH) || H <= 0)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0, optin = 0;
+  const int err = device_limits(&sms, &optin);
+  if (err != 0) return err;
+  const long long limit = optin;
+  const int HD = H * DH;
+  Launch plan = plan_tiles(B, N, M, C, D, HD, limit, sms);
+  if (plan.rows == 0) return (int)cudaErrorInvalidValue;
+  const Mat mq{(const float*)wq, s[7]}, mk{(const float*)wk, s[9]};
+  const Mat mv{(const float*)wv, s[11]}, mo{(const float*)wo, s[13]};
+  auto rows16 = [](const void* p, long long ld, int cols) {
+    return aligned16(p) && ld % 4 == 0 && cols % 4 == 0;
+  };
+  plan.vec = (aligned16(x) && s[0] % 4 == 0 && s[1] % 4 == 0 && C % 4 == 0 ? kVecX : 0) |
+             (aligned16(ctx) && s[2] % 4 == 0 && s[3] % 4 == 0 && D % 4 == 0 ? kVecCtx : 0) |
+             (rows16(wq, s[7], C) ? kVecWq : 0) | (rows16(wk, s[9], D) ? kVecWk : 0) |
+             (rows16(wv, s[11], D) ? kVecWv : 0) | (rows16(wo, s[13], HD) ? kVecWo : 0);
+  const size_t smem = (size_t)smem_bytes(plan.rows, plan.pack, N, M, C, D, HD);
   const float* xf = (const float*)x;
   const float* cf = (const float*)ctx;
   const float* bf = (const float*)bo;
   float* yf = (float*)y;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)need;
-#define FUSED_LAUNCH(CPT, DHT)                                                  \
-  launch<CPT, DHT>(xf, cf, mq, mk, mv, mo, bf, yf, B, N, M, C, D, H, COUT,     \
-                   s, scale, smem, st)
-#define FUSED_BY_DH(CPT)                      \
-  (DH == 8    ? FUSED_LAUNCH(CPT, 8)          \
-   : DH == 16 ? FUSED_LAUNCH(CPT, 16)         \
-              : FUSED_LAUNCH(CPT, 32))
-  switch (cpt) {
-    case 1: return FUSED_BY_DH(1);
-    case 2: return FUSED_BY_DH(2);
+#define FUSED_LAUNCH(NTW, DHT)                                                  \
+  launch<NTW, DHT>(xf, cf, mq, mk, mv, mo, bf, yf, B, N, M, C, D, H, COUT, s,  \
+                   scale, plan, smem, sms, st)
+#define FUSED_BY_DH(NTW)                      \
+  (DH == 8    ? FUSED_LAUNCH(NTW, 8)          \
+   : DH == 16 ? FUSED_LAUNCH(NTW, 16)         \
+              : FUSED_LAUNCH(NTW, 32))
+  switch (tiles_per_warp(HD)) {
     case 4: return FUSED_BY_DH(4);
-    default: return FUSED_BY_DH(8);
+    case 8: return FUSED_BY_DH(8);
+    default: return FUSED_BY_DH(16);
   }
 #undef FUSED_BY_DH
 #undef FUSED_LAUNCH

@@ -104,10 +104,16 @@ def flash_attention_fwd(q, k, v, scale: float):
     """(o, lse) of softmax(q kᵀ·scale) v for self-attention: q, k, v
     (B, H, N, dh), dh in ``FWD_HEAD_SIZES``. CPU tensors take the plain
     version; CUDA tensors launch the forward kernel on the current stream,
-    or raise on an input it does not take."""
+    or raise on an input it does not take (among them rows of q, k or v
+    that do not start on 16 bytes)."""
     if takes_plain(flash_attention_fwd, q):
         return flash_attention_fwd_plain(q, k, v, scale)
     b, h, n, dh = _check("flash_attention_fwd", FWD_HEAD_SIZES, q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        # the kernel copies and reads rows 16 bytes at a time
+        if t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3]):
+            raise ValueError(f"flash_attention_fwd: {name} rows must start "
+                             f"on 16 bytes, strides {t.stride()}")
     o = _heads_view(b, h, n, dh, q.device)
     lse = torch.empty((b, h, n), device=q.device)
     strides = head_strides("flash_attention_fwd",

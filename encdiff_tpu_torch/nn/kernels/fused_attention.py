@@ -5,8 +5,9 @@ Counterpart of ``encdiff_tpu/nn/pallas/attention.py:fused_attention``, with
 its signature: x (B, N, C), ctx (B, M, D), the weights in the JAX (in, out)
 layout (wq (C, H·dh), wk and wv (D, H·dh), wo (H·dh, C_out)), bo (C_out,),
 keywords ``heads`` and ``dim_head``; returns (B, N, C_out). The weights may
-be any strided views, so a caller passes its ``nn.Linear`` weights
-transposed, without a copy.
+be any strided views: the kernel reads a caller's ``nn.Linear`` weights
+transposed (an (in, out) view whose ``in`` index is contiguous) in place,
+and the wrapper copies a weight in any other layout into that one.
 
 Forward only, as the TPU kernel is (it has no VJP): the wrapper raises on
 any input that requires grad rather than give a gradient that is silently
@@ -60,9 +61,12 @@ def _fns():
     return fwd, smem
 
 
-def _shared_memory(m: int, c: int, d: int, heads: int, dim_head: int):
-    """(bytes one block needs, bytes a block may have) on the current CUDA
-    device."""
+@functools.cache
+def _shared_memory(m: int, c: int, d: int, heads: int, dim_head: int,
+                   device: int):
+    """(bytes one block needs at the least, bytes a block may have) on CUDA
+    device ``device`` (the current one), cached: the query is per call on
+    the serving path."""
     need, limit = ctypes.c_longlong(), ctypes.c_longlong()
     rc = _fns()[1](m, c, d, heads, dim_head, ctypes.byref(need),
                    ctypes.byref(limit))
@@ -109,12 +113,17 @@ def fused_attention(x, ctx, wq, wk, wv, wo, bo, *, heads: int,
     if x.stride(2) != 1 or ctx.stride(2) != 1 or bo.stride(0) != 1:
         raise ValueError("fused_attention: x, ctx and bo need a contiguous "
                          "last dimension")
-    need, limit = _shared_memory(m, c, d, heads, dim_head)
+    need, limit = _shared_memory(m, c, d, heads, dim_head, x.device.index)
     if need > limit:
         raise ValueError(
             f"fused_attention: k and v of one batch row (M = {m}, heads * "
             f"dim_head = {inner}) with the x tile (C = {c}) need {need} bytes "
             f"of shared memory, more than the {limit} a block may have")
+    # the kernel reads each weight as its transpose with contiguous rows:
+    # an (in, out) view whose `in` index is contiguous, as the callers'
+    # transposed nn.Linear weights are; others are copied into that layout
+    wq, wk, wv, wo = (w if w.stride(0) == 1 else w.t().contiguous().t()
+                      for w in (wq, wk, wv, wo))
     y = torch.empty((b, n, c_out), device=x.device)
     strides = (*x.stride()[:2], *ctx.stride()[:2], *y.stride()[:2],
                *wq.stride(), *wk.stride(), *wv.stride(), *wo.stride())

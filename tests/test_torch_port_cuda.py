@@ -185,7 +185,7 @@ def _flash_inputs(gen, device, b, h, n, dh):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,n,dh", [
     (2, 2, 256, 8), (1, 4, 1024, 16), (2, 1, 1024, 128), (1, 3, 333, 8),
-    (1, 1, 77, 128), (8, 8, 4096, 8)])
+    (1, 1, 77, 128), (8, 8, 4096, 8), (2, 8, 1000, 16), (1, 1, 4100, 128)])
 def test_flash_attention_fwd_kernel_matches_plain(cuda_device, b, h, n, dh):
     gen = torch.Generator(cuda_device).manual_seed(9)
     q, k, v, _, _, _ = _flash_inputs(gen, cuda_device, b, h, n, dh)
@@ -195,6 +195,26 @@ def test_flash_attention_fwd_kernel_matches_plain(cuda_device, b, h, n, dh):
     assert flash_attention_fwd.launches == before + 1
     assert o.transpose(1, 2).is_contiguous() and lse.is_contiguous()
     o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, dh ** -0.5)
+    torch.testing.assert_close(o, o_ref, **CARD_TOL)
+    torch.testing.assert_close(lse, lse_ref, **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,dh", [(2, 1, 1024, 128), (4, 8, 4096, 8)])
+def test_flash_attention_fwd_holds_logits_of_30(cuda_device, b, h, n, dh):
+    """q and k scaled so that the scaled scores reach ±30: one tf32 pass
+    (11 significant bits) would put errors of order 1e-3 into o; the
+    kernel's 3xTF32 split must stay within CARD_TOL of the fp32 plain
+    version."""
+    gen = torch.Generator(cuda_device).manual_seed(12)
+    q, k, v = (_heads_view(gen, cuda_device, b, n, h, dh) for _ in range(3))
+    q, k = q * 2.5, k * 2.5
+    scale = dh ** -0.5
+    o, lse = flash_attention_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
+    logits = torch.matmul(q[:1, :1] * scale, k[:1, :1].transpose(-1, -2))
+    assert logits.abs().max().item() >= 25.0
     torch.testing.assert_close(o, o_ref, **CARD_TOL)
     torch.testing.assert_close(lse, lse_ref, **CARD_TOL)
 
@@ -259,6 +279,10 @@ def test_flash_wrappers_reject_what_they_do_not_take(cuda_device):
                                    .contiguous().transpose(1, 2), lse, 0.3),
         lambda: flash_attention_dkdv(q, q, q, q, lse, lse[:, :, :128], 0.3),
         lambda: flash_attention_dkdv(q, q, q.cpu(), q, lse, lse, 0.3),
+        # rows that do not start on 16 bytes (the forward copies 16 bytes)
+        lambda: flash_attention_fwd(*(torch.zeros(
+            2 * 256 * 16 + 1, device=cuda_device)[1:].view(1, 2, 256, 16),)
+            * 3, 0.3),
     ]
     for call in bad:
         with pytest.raises(ValueError):
@@ -287,7 +311,10 @@ def _fused_inputs(gen, device, b, n, c, m, d, heads, dim_head, c_out=None):
     (160, 256, 256, 20, 16, 8, 32, False),   # flagship, 16x16 at 256 ch
     (160, 4, 256, 20, 16, 8, 32, False),     # flagship, 2x2 mid block
     (2, 64, 32, 64, 32, 4, 8, True),         # the JAX test's self-attention
-    (3, 45, 40, 7, 12, 3, 16, False)])       # ragged row tile, odd sizes
+    (3, 45, 40, 7, 12, 3, 16, False),        # ragged row tile, odd sizes
+    (64, 256, 256, 20, 16, 8, 32, False),    # faces FID batch, 16x16
+    (64, 1024, 128, 20, 16, 8, 16, False),   # faces FID batch, 32x32
+    (2, 33, 37, 5, 9, 2, 8, False)])         # C and D not multiples of 4
 def test_fused_attention_kernel_matches_plain(cuda_device, b, n, c, m, d,
                                               heads, dim_head, self_attn):
     gen = torch.Generator(cuda_device).manual_seed(6)
@@ -308,6 +335,24 @@ def test_fused_attention_kernel_matches_plain(cuda_device, b, n, c, m, d,
     again = fused_attention(x, ctx, *dense, bo, heads=heads,
                             dim_head=dim_head)
     torch.testing.assert_close(again, out, **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(160, 16), (160, 4)])
+def test_fused_attention_packs_batch_rows(cuda_device, b, n):
+    """The flagship's 4x4 and 2x2 levels, where one tile packs the query
+    rows of several batch rows: against the plain version, and dropping
+    the first batch row (which moves every packing boundary) leaves each
+    remaining row's output as it was."""
+    gen = torch.Generator(cuda_device).manual_seed(9)
+    args = _fused_inputs(gen, cuda_device, b, n, 256, 20, 16, 8, 32)
+    kw = dict(heads=8, dim_head=32)
+    out = fused_attention(*args, **kw)
+    tail = fused_attention(args[0][1:], args[1][1:], *args[2:], **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, fused_attention_plain(*args, **kw),
+                               **CARD_TOL)
+    torch.testing.assert_close(tail, out[1:], **CARD_TOL)
 
 
 @pytest.mark.cuda
