@@ -68,11 +68,10 @@
 // - Bound on the H100: at dh 128 the tensor cores, 4 N^2 dh flops per
 //   (batch, head), three times over, at 495 TFLOP/s of dense TF32; at dh 8
 //   the N^2 exponentials at 16 per SM and clock (the SFU) come first and
-//   the products second. Its instruction count keeps it above both: per
-//   score it also takes the maximum, the subtraction, the row sum and a
-//   four-instruction split of P, and every k and v value is split again by
-//   each of the 8 warps that reads it; mma.sync reaches only part of the
-//   TF32 peak (the rest needs wgmma).
+//   the products second. In practice mma.sync reaches about a third of
+//   the dense TF32 rate (the rest needs wgmma), so the tensor cores set the
+//   time at dh 8 too: 48 m16n8k8 per warp and 64-key tile, beside a loop
+//   of some 550 instructions (half of them the splits of k, P and v).
 //
 // Backward (dq, dk/dv): fp32 on the CUDA cores.
 // - dq: query-parallel, one thread per row holding q, dO, its lse and delta
