@@ -338,6 +338,23 @@ def test_fused_attention_kernel_matches_plain(cuda_device, b, n, c, m, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c_out", [130, 300])
+def test_fused_attention_output_wider_than_one_pass(cuda_device, c_out):
+    """An output projection wider than the kernel's columns per pass (64 at
+    2 heads of 8, 256 at 8 heads of 32) runs in several passes."""
+    heads, dim_head = (2, 8) if c_out == 130 else (8, 32)
+    gen = torch.Generator(cuda_device).manual_seed(10)
+    args = _fused_inputs(gen, cuda_device, 3, 70, 48, 20, 16, heads,
+                         dim_head, c_out)
+    kw = dict(heads=heads, dim_head=dim_head)
+    out = fused_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (3, 70, c_out)
+    torch.testing.assert_close(out, fused_attention_plain(*args, **kw),
+                               **CARD_TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,n", [(160, 16), (160, 4)])
 def test_fused_attention_packs_batch_rows(cuda_device, b, n):
     """The flagship's 4x4 and 2x2 levels, where one tile packs the query
