@@ -68,10 +68,11 @@
 // - Bound on the H100: at dh 128 the tensor cores, 4 N^2 dh flops per
 //   (batch, head), three times over, at 495 TFLOP/s of dense TF32; at dh 8
 //   the N^2 exponentials at 16 per SM and clock (the SFU) come first and
-//   the products second. In practice mma.sync reaches about a third of
-//   the dense TF32 rate (the rest needs wgmma), so the tensor cores set the
-//   time at dh 8 too: 48 m16n8k8 per warp and 64-key tile, beside a loop
-//   of some 550 instructions (half of them the splits of k, P and v).
+//   the products second. mma.sync reaches only part of the dense TF32 rate
+//   (the rest needs wgmma): at dh 128 one m16n8k8 per 12.9 cycles of an SM
+//   sub-partition was measured, a third of the peak; at that rate the 48
+//   per warp and 64-key tile at dh 8 would take most of its time, beside a
+//   loop of some 550 instructions (half of them the splits of k, P and v).
 //
 // Backward (dq, dk/dv): fp32 on the CUDA cores.
 // - dq: query-parallel, one thread per row holding q, dO, its lse and delta

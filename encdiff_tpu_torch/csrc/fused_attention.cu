@@ -36,7 +36,7 @@
 //   chains overlap: hi holds a's leading 11 significant bits and lo the
 //   next 11, so what is dropped is about 2^-22 of each product, the error
 //   of an fp32 sum. The weights
-//   stream through a 3-stage shared ring of 16-column slices (all output
+//   stream through a 2-stage shared ring of 16-column slices (all output
 //   columns, up to 256, per pass) by cp.async, 16 bytes a thread where the
 //   rows are 16-byte aligned (4 bytes otherwise); the left operand (the x
 //   tile, ctx, o) sits in shared memory, zero-padded to whole slices, so C
@@ -55,9 +55,12 @@
 //   ex2.approx.ftz), reading its batch row's k and v rows from shared
 //   memory as broadcasts; o overwrites q. No permutation of v is needed
 //   here: P never enters a tensor-core product.
-// - Launch: the device's SM count and shared-memory limit are read once,
+// - Launch: the device's SM count and shared-memory limits are read once,
 //   and the occupancy query is repeated only when the shared memory changes
-//   (the serving path launches thousands of times a request).
+//   (the serving path launches thousands of times a request). The
+//   256-wide instances (180 registers) run one block an SM; where tiles
+//   outnumber the SMs and a second block fits, an instance held to 128
+//   registers runs two.
 // Nothing but x, ctx, the weights and y crosses device memory.
 //
 // Bound on the H100: the largest of bytes, 4 (B N C + B M D + B N COUT)
@@ -81,7 +84,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 64;  // rows of a product's m-tile group: 4 x 16
 constexpr int kKc = 16;       // summed-dimension columns per ring stage
-constexpr int kStages = 3;    // weight slices in shared memory: 2 in flight
+constexpr int kStages = 2;    // weight slices in shared memory: the next in flight
 constexpr int kMaxHD = 256;
 
 __host__ __device__ constexpr long long round_up(long long x, long long m) {
@@ -413,8 +416,9 @@ struct Launch {
   long long tiles;
 };
 
-template <int NTW, int DH>
-__global__ void __launch_bounds__(kThreads, NTW == 16 ? 1 : 2)
+// MINB: blocks an SM the registers must allow (2 holds a thread to 128).
+template <int NTW, int DH, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
 fused_attention_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
                        Mat wq, Mat wk, Mat wv, Mat wo,
                        const float* __restrict__ bo, float* __restrict__ y,
@@ -514,12 +518,12 @@ fused_attention_kernel(const float* __restrict__ x, const float* __restrict__ ct
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <int NTW, int DH>
+template <int NTW, int DH, int MINB>
 int launch(const float* x, const float* ctx, Mat wq, Mat wk, Mat wv, Mat wo,
            const float* bo, float* y, int B, int N, int M, int C, int D, int H,
            int COUT, const long long* s, float scale, Launch plan, size_t smem,
            int sms, cudaStream_t stream) {
-  auto kernel = fused_attention_kernel<NTW, DH>;
+  auto kernel = fused_attention_kernel<NTW, DH, MINB>;
   static size_t opted_in = 0;  // the largest size set so far (one device)
   if (smem > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -544,26 +548,31 @@ int launch(const float* x, const float* ctx, Mat wq, Mat wk, Mat wv, Mat wo,
   return (int)cudaGetLastError();
 }
 
-// The current device's SM count and opt-in shared memory per block, read
-// once per device (the serving path launches thousands of times).
-int device_limits(int* sms, int* optin) {
+// The current device's SM count, opt-in shared memory per block and shared
+// memory per SM, read once per device (the serving path launches thousands
+// of times).
+int device_limits(int* sms, int* optin, int* per_sm) {
   constexpr int kDevices = 64;
-  static int cached[kDevices][2];  // zeros: not read yet
+  static int cached[kDevices][3];  // zeros: not read yet
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kDevices) return (int)cudaErrorInvalidValue;
   if (cached[dev][0] == 0) {
-    int s = 0, o = 0;
+    int s = 0, o = 0, p = 0;
     err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&p, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
     if (err != cudaSuccess) return (int)err;
     cached[dev][1] = o;
+    cached[dev][2] = p;
     cached[dev][0] = s;
   }
   *sms = cached[dev][0];
   *optin = cached[dev][1];
+  *per_sm = cached[dev][2];
   return 0;
 }
 
@@ -602,8 +611,8 @@ extern "C" int fused_attention_smem(int M, int C, int D, int H, int DH,
   if (hd > kMaxHD || !takes_head_size(DH) || M <= 0 || C <= 0 || D <= 0 || H <= 0)
     return (int)cudaErrorInvalidValue;
   *need = smem_bytes(16, 1, 16, M, C, D, (int)hd);
-  int sms = 0, optin = 0;
-  const int err = device_limits(&sms, &optin);
+  int sms = 0, optin = 0, per_sm = 0;
+  const int err = device_limits(&sms, &optin, &per_sm);
   *limit = optin;
   return err;
 }
@@ -625,8 +634,8 @@ extern "C" int fused_attention_fwd(const void* x, const void* ctx, const void* w
     return (int)cudaErrorInvalidValue;
   if ((long long)H * DH > kMaxHD || !takes_head_size(DH) || H <= 0)
     return (int)cudaErrorInvalidValue;
-  int sms = 0, optin = 0;
-  const int err = device_limits(&sms, &optin);
+  int sms = 0, optin = 0, per_sm = 0;
+  const int err = device_limits(&sms, &optin, &per_sm);
   if (err != 0) return err;
   const long long limit = optin;
   const int HD = H * DH;
@@ -647,17 +656,22 @@ extern "C" int fused_attention_fwd(const void* x, const void* ctx, const void* w
   const float* bf = (const float*)bo;
   float* yf = (float*)y;
   cudaStream_t st = (cudaStream_t)stream;
-#define FUSED_LAUNCH(NTW, DHT)                                                  \
-  launch<NTW, DHT>(xf, cf, mq, mk, mv, mo, bf, yf, B, N, M, C, D, H, COUT, s,  \
-                   scale, plan, smem, sms, st)
-#define FUSED_BY_DH(NTW)                      \
-  (DH == 8    ? FUSED_LAUNCH(NTW, 8)          \
-   : DH == 16 ? FUSED_LAUNCH(NTW, 16)         \
-              : FUSED_LAUNCH(NTW, 32))
+  // At 16 n-tiles a warp (HD above 128) a thread takes about 180
+  // registers: one block an SM. Where a second block fits in shared memory
+  // and the tiles outnumber the SMs, the instance held to 128 registers
+  // (a few spilled) runs two an SM instead; elsewhere its spills only cost.
+  const bool two_blocks = plan.tiles > sms && 2 * ((long long)smem + 1024) <= per_sm;
+#define FUSED_LAUNCH(NTW, DHT, MINB)                                            \
+  launch<NTW, DHT, MINB>(xf, cf, mq, mk, mv, mo, bf, yf, B, N, M, C, D, H,     \
+                         COUT, s, scale, plan, smem, sms, st)
+#define FUSED_BY_DH(NTW, MINB)                      \
+  (DH == 8    ? FUSED_LAUNCH(NTW, 8, MINB)          \
+   : DH == 16 ? FUSED_LAUNCH(NTW, 16, MINB)         \
+              : FUSED_LAUNCH(NTW, 32, MINB))
   switch (tiles_per_warp(HD)) {
-    case 4: return FUSED_BY_DH(4);
-    case 8: return FUSED_BY_DH(8);
-    default: return FUSED_BY_DH(16);
+    case 4: return FUSED_BY_DH(4, 2);
+    case 8: return FUSED_BY_DH(8, 2);
+    default: return two_blocks ? FUSED_BY_DH(16, 2) : FUSED_BY_DH(16, 1);
   }
 #undef FUSED_BY_DH
 #undef FUSED_LAUNCH
