@@ -95,12 +95,6 @@ reads (exp) and, for ``fused_attention``, its attention's CUDA-core FLOPs
 (simt). After each phase that checks them, one line per kernel counts the
 shapes where it is no slower than its library yardstick (SDPA; for
 ``fused_attention`` the faster of its chain and its SDPA chain).
-
-    python3 chip_smoke.py --kernels-only
-
-runs only the device and build phases and those two kernels at every shape
-of the faces serving paths at B = 16, 32 and 64 and of flagship serving,
-against their plain versions, timed beside their yardsticks.
 """
 
 from __future__ import annotations
@@ -165,9 +159,6 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
 EXP_PER_SM_CLOCK = 16
-#: the card's SM count and highest SM clock (Hz), for the exponential bound:
-#: an H100 SXM's until main() reads the card's
-CARD = {"sms": 132, "sm_hz": 1.98e9}
 # the most bytes of scores the plain flash forward holds at once: above it,
 # it runs over slices of the batch (every (b, h) is independent), so that
 # the FID batch's (64, 8, 4096, 8) fits beside its (B, H, N, N) exponentials
@@ -404,13 +395,13 @@ def fused_work(b, n, c, m, d, h, dh):
             4 * b * n * m * hd + 4 * b * h * n * m, b * h * n * m)
 
 
-def design_bounds(products, exps, simt=0):
+def design_bounds(products, exps, sms, sm_hz, simt=0):
     """(tc_ms, exp_ms, simt_ms): the least times of a 3xTF32 kernel's parts
-    on the card: three tf32 passes of its products at the dense TF32 peak,
-    its exponentials at the SFU's rate at the card's highest SM clock, and
-    its CUDA-core FLOPs at the fp32 peak."""
+    on a card of ``sms`` SMs whose highest SM clock is ``sm_hz``: three tf32
+    passes of its products at the dense TF32 peak, its exponentials at the
+    SFU's rate, and its CUDA-core FLOPs at the fp32 peak."""
     return (3 * products / PEAK_TF32 * 1e3,
-            exps / (EXP_PER_SM_CLOCK * CARD["sms"] * CARD["sm_hz"]) * 1e3,
+            exps / (EXP_PER_SM_CLOCK * sms * sm_hz) * 1e3,
             simt / PEAK_FP32 * 1e3)
 
 
@@ -436,11 +427,12 @@ def fused_cost(b, n, c, m, d, h, dh):
     return nbytes, ops
 
 
-def check_fused(shape, gen):
+def check_fused(shape, gen, card):
     """Check and time fused_attention at (B, N, C, M, D, H, dh) on the call
     site's layout (transposed nn.Linear weights), beside its plain version,
     the chain it replaces on the route (nn.Linear x3, attention_core,
-    nn.Linear) and the same chain with SDPA, the library call."""
+    nn.Linear) and the same chain with SDPA, the library call. ``card``
+    holds the SM count and clock of the design bound."""
     b, n, c, m, d, h, dh = shape
     hd = h * dh
     rand = lambda *s: torch.randn(*s, generator=gen, device="cuda")
@@ -464,7 +456,7 @@ def check_fused(shape, gen):
     torch.testing.assert_close(chain(attention_core), ref, **KERNEL_TOL)
     nbytes, ops = fused_cost(*shape)
     products, simt, exps = fused_work(*shape)
-    tc_ms, exp_ms, simt_ms = design_bounds(products, exps, simt)
+    tc_ms, exp_ms, simt_ms = design_bounds(products, exps, simt=simt, **card)
     return dict(err=(out - ref).abs().max().item(), ms=time_ms(kernel),
                 plain_ms=time_ms(plain),
                 library_ms=time_ms(
@@ -474,11 +466,12 @@ def check_fused(shape, gen):
                 tc_ms=tc_ms, exp_ms=exp_ms, simt_ms=simt_ms)
 
 
-def check_flash(name, shape, gen):
+def check_flash(name, shape, gen, card):
     """Check and time one flash kernel at (B, H, N, dh) on the callers'
     layout, beside its plain version, SDPA (forward; its autograd backward,
     which gives dq, dk and dv together, for the two backward kernels) and
-    attention_core / attention_core_bwd at the same shape."""
+    attention_core / attention_core_bwd at the same shape. ``card`` holds
+    the SM count and clock of the forward's design bound."""
     b, h, n, dh = shape
     q, k, v, do = (torch.randn(b, n, h, dh, generator=gen,
                                device="cuda").transpose(1, 2)
@@ -526,7 +519,7 @@ def check_flash(name, shape, gen):
                library_ms=time_ms(library), baseline_ms=time_ms(baseline, 5),
                bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=ops / PEAK_FP32 * 1e3)
     if name == "flash_attention_fwd":  # the 3xTF32 kernel
-        tc_ms, exp_ms, _ = design_bounds(*flash_fwd_work(*shape))
+        tc_ms, exp_ms, _ = design_bounds(*flash_fwd_work(*shape), **card)
         row.update(tc_ms=tc_ms, exp_ms=exp_ms)
     return row
 
@@ -670,16 +663,18 @@ def record_backward_shapes():
             fn.backward = staticmethod(bwd)
 
 
-def check_rows(name, shapes, gen, seen=None):
+def check_rows(name, shapes, gen, card, seen=None):
     """Check and time kernel ``name`` at each distinct shape of ``shapes``;
-    rows carry the shape and its number of calls. ``seen`` maps (name,
-    shape) to the row of an earlier phase, which is reused, not rerun."""
+    rows carry the shape and its number of calls. ``card`` holds the SM
+    count and clock of the 3xTF32 kernels' design bound. ``seen`` maps
+    (name, shape) to the row of an earlier phase, which is reused, not
+    rerun."""
     check = {"groupnorm_silu": lambda key: check_gn(*key, gen),
              "attention_core": lambda key: check_attn(key, gen),
              "gn_silu_bwd": lambda key: check_gn_bwd(*key, gen),
              "attention_core_bwd": lambda key: check_attn_bwd(key, gen),
-             "fused_attention": lambda key: check_fused(key, gen)}.get(
-                 name, lambda key: check_flash(name, key, gen))
+             "fused_attention": lambda key: check_fused(key, gen, card)}.get(
+                 name, lambda key: check_flash(name, key, gen, card))
     seen = {} if seen is None else seen
     rows = []
     for key, count in sorted(collections.Counter(shapes).items(), key=str):
@@ -806,11 +801,11 @@ def main() -> int:
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     clock_now, clock_top = sm_clocks_mhz()
-    CARD.update(sms=torch.cuda.get_device_properties(0).multi_processor_count,
+    card = dict(sms=torch.cuda.get_device_properties(0).multi_processor_count,
                 sm_hz=clock_top * 1e6)
     phase("device", t0, f"{smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | count {torch.cuda.device_count()} | "
-          f"{CARD['sms']} SMs, SM clock {clock_now:.0f} MHz now, "
+          f"{card['sms']} SMs, SM clock {clock_now:.0f} MHz now, "
           f"{clock_top:.0f} MHz at most (the exponential bound's)")
 
     t0 = time.perf_counter()
@@ -819,9 +814,6 @@ def main() -> int:
         print(f"--- nvcc {name}\n{log}", file=sys.stderr)
     phase("build", t0, f"built {sorted(logs) or 'nothing (cached)'} "
           f"into {build.BUILD_DIR}")
-    if "--kernels-only" in sys.argv[1:]:
-        kernels_only(smi)
-        return 0
 
     # ---- 3: shapes, and the first UNet call, kernel path vs plain path
     t0 = time.perf_counter()
@@ -861,7 +853,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kgen = torch.Generator("cuda").manual_seed(SEED + 1)
     serve_rows = {name: check_rows(name, per_unet[name] + per_decode[name],
-                                   kgen)
+                                   kgen, card)
                   for name in ("groupnorm_silu", "attention_core",
                                "fused_attention")}
     print_yardstick("kernels", serve_rows)
@@ -915,11 +907,11 @@ def main() -> int:
                   profile(lambda: model.apply_model(x_T, t_first, tokens)))
     del model
 
-    train_rows, train_launches, per_step = train_phases(smi)
+    train_rows, train_launches, per_step = train_phases(smi, card)
     faces_rows, faces_launches, per_micro = faces_phases(
-        smi, seen_rows(serve_rows, train_rows))
+        smi, card, seen_rows(serve_rows, train_rows))
     fserve_rows, fserve_other, fserve_launches, per_fserve = faces_serve_phases(
-        smi, seen_rows(serve_rows, train_rows, faces_rows))
+        smi, card, seen_rows(serve_rows, train_rows, faces_rows))
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "tc_ms", "exp_ms", "simt_ms", "binds", "fp32_bound_ms")
@@ -977,40 +969,6 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
-
-#: --kernels-only: the flash forward's and fused_attention's shapes on the
-#: faces serving paths at B = 16, 32, 64 ((B, H, N, dh); (B, N, C, M, D, H,
-#: dh)) and on flagship serving at B = 160
-PROBE_FLASH = [(b, h, n, dh) for b in (16, 32, 64)
-               for h, n, dh in ((8, 4096, 8), (8, 1024, 16), (1, 4096, 128))]
-PROBE_FUSED = ([(b, n, c, 20, 16, 8, c // 8) for b in (16, 32, 64)
-                for n, c in ((4096, 64), (1024, 128), (256, 256), (64, 256))]
-               + [(160, n, c, 20, 16, 8, c // 8)
-                  for n, c in ((256, 64), (64, 128), (16, 256), (4, 256))])
-
-
-def kernels_only(smi):
-    """The two 3xTF32 kernels at every shape of PROBE_FLASH / PROBE_FUSED
-    against their plain versions, timed beside their yardsticks."""
-    t0 = time.perf_counter()
-    gen = torch.Generator("cuda").manual_seed(SEED + 5)
-    rows = {"flash_attention_fwd": check_rows("flash_attention_fwd",
-                                              PROBE_FLASH, gen),
-            "fused_attention": check_rows("fused_attention", PROBE_FUSED,
-                                          gen)}
-    print_yardstick("kernels-only", rows)
-    # which kernel the flash forward's yardstick runs in fp32 at dh 128
-    q = torch.randn(32, 4096, 1, 128, generator=gen,
-                    device="cuda").transpose(1, 2)
-    prof = profile(lambda: F.scaled_dot_product_attention(q, q, q), calls=1)
-    if prof is not None:
-        print("  SDPA at (32, 1, 4096, 128) runs: " + "; ".join(
-            f"{kname[:120]} {ms:.3f} ms" for kname, ms, _ in prof[2][:2]),
-            flush=True)
-    phase("kernels-only", t0, "the flash forward and fused_attention match "
-          f"their plain versions at every probed shape (tol {KERNEL_TOL}) "
-          f"| {smi}")
 
 
 def print_profile(name, t0, what, prof):
@@ -1146,7 +1104,7 @@ def reference_check(name, t0, model, state, batch, draws):
           + " | ".join(readings))
 
 
-def train_phases(smi):
+def train_phases(smi, card):
     """Phases 8-12 on the flagship's train step at B = 128. Returns the
     checked rows of every kernel at the train step's shapes, the launches of
     the train run, and the calls of one step by kernel."""
@@ -1166,8 +1124,8 @@ def train_phases(smi):
     # ---- 9: every kernel at every shape of the train step
     t0 = time.perf_counter()
     kgen = torch.Generator("cuda").manual_seed(SEED + 2)
-    rows = {name: check_rows(name, per_step[name], kgen) for name in KERNELS
-            if per_step.get(name)}
+    rows = {name: check_rows(name, per_step[name], kgen, card)
+            for name in KERNELS if per_step.get(name)}
     phase("train-kernels", t0, "each kernel matches its plain version at "
           f"every shape of the B={TRAIN_BATCH} train step (tol {KERNEL_TOL})")
 
@@ -1254,7 +1212,7 @@ def redraw_trainable(model, gen):
                 p.copy_(0.1 * noise)
 
 
-def faces_phases(smi, seen):
+def faces_phases(smi, card, seen):
     """Phases 13-17 on the faces configuration's train step from a fresh
     seeded init. ``seen`` holds the rows checked in earlier phases by
     (kernel, shape). Returns the checked rows of every kernel at the faces
@@ -1284,7 +1242,7 @@ def faces_phases(smi, seen):
     # ---- 14: every kernel at every shape of the micro-step
     t0 = time.perf_counter()
     kgen = torch.Generator("cuda").manual_seed(SEED + 3)
-    rows = {name: check_rows(name, per_micro[name], kgen, seen)
+    rows = {name: check_rows(name, per_micro[name], kgen, card, seen)
             for name in KERNELS if per_micro.get(name)}
     print_yardstick("faces-kernels", rows)
     phase("faces-kernels", t0, "each kernel matches its plain version at "
@@ -1425,7 +1383,7 @@ def record_serve_call(model, x_T, t, tokens):
     return eps, per_unet, per_decode, (unet_peak, decode_peak)
 
 
-def faces_serve_phases(smi, seen):
+def faces_serve_phases(smi, card, seen):
     """Phases 18-23 on the faces configuration's serving paths. ``seen``
     holds the rows checked in earlier phases by (kernel, shape). Returns the
     checked rows of every kernel at one UNet call at the swap's chunk (32)
@@ -1487,7 +1445,7 @@ def faces_serve_phases(smi, seen):
     # ---- 19: every kernel at every shape of the UNet calls and decodes
     t0 = time.perf_counter()
     kgen = torch.Generator("cuda").manual_seed(SEED + 4)
-    rows = {name: check_rows(name, per_call[name], kgen, seen)
+    rows = {name: check_rows(name, per_call[name], kgen, card, seen)
             for name in per_call if per_call[name]}
     print_yardstick(f"faces-serve-kernels B={chunk}", rows)
     other = {b: v for b, v in by_batch.items() if b != chunk}
@@ -1495,7 +1453,7 @@ def faces_serve_phases(smi, seen):
     seen = {**seen, **seen_rows(rows)}
     other_rows = {name: check_rows(
         name, [s for (_, _, _, unet_b, decode_b, _) in other.values()
-               for s in unet_b[name] + decode_b[name]], kgen, seen)
+               for s in unet_b[name] + decode_b[name]], kgen, card, seen)
         for name in per_call if per_call[name]}
     print_yardstick(f"faces-serve-kernels B={sorted(other)}", other_rows)
     phase("faces-serve-kernels", t0, "each kernel matches its plain version "

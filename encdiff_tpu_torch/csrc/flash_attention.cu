@@ -68,11 +68,11 @@
 // - Bound on the H100: at dh 128 the tensor cores, 4 N^2 dh flops per
 //   (batch, head), three times over, at 495 TFLOP/s of dense TF32; at dh 8
 //   the N^2 exponentials at 16 per SM and clock (the SFU) come first and
-//   the products second. mma.sync reaches only part of the dense TF32 rate
-//   (the rest needs wgmma): at dh 128 one m16n8k8 per 12.9 cycles of an SM
-//   sub-partition was measured, a third of the peak; at that rate the 48
-//   per warp and 64-key tile at dh 8 would take most of its time, beside a
-//   loop of some 550 instructions (half of them the splits of k, P and v).
+//   the products second. The kernel stays well above both: at dh 128 it
+//   averages one m16n8k8 per 12.9 cycles of an SM sub-partition (splits and
+//   softmax included), and at dh 8 its loop runs some 550 instructions per
+//   64-key tile (half of them the splits of k, P and v). Whether mma.sync's
+//   own TF32 rate is the limit is not measured.
 //
 // Backward (dq, dk/dv): fp32 on the CUDA cores.
 // - dq: query-parallel, one thread per row holding q, dO, its lse and delta
@@ -87,6 +87,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -625,12 +627,23 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o, float* 
       (reinterpret_cast<uintptr_t>(o) & 7) != 0 || s[9] % 2 || s[10] % 2 || s[11] % 2)
     return (int)cudaErrorInvalidValue;
   constexpr int smem = Fwd<DH>::kSmem;
-  static bool opted_in = false;  // one device
-  if (smem > 48 * 1024 && !opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (smem > 48 * 1024) {
+    // per device, under a lock: ctypes drops the GIL, so threads may launch
+    // at once
+    constexpr int kDevices = 64;
+    static std::mutex lock;
+    static bool opted_in[kDevices];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
-    opted_in = true;
+    if (dev < 0 || dev >= kDevices) return (int)cudaErrorInvalidValue;
+    std::lock_guard<std::mutex> hold(lock);
+    if (!opted_in[dev]) {
+      err = cudaFuncSetAttribute(flash_fwd_kernel<DH>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      opted_in[dev] = true;
+    }
   }
   const dim3 grid(B * H, (N + kFwdRows - 1) / kFwdRows);
   flash_fwd_kernel<DH><<<grid, kFwdThreads, smem, st>>>(

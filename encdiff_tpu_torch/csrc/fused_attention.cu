@@ -78,6 +78,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -518,26 +520,48 @@ fused_attention_kernel(const float* __restrict__ x, const float* __restrict__ ct
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// The most devices the per-device caches below hold.
+constexpr int kDevices = 64;
+
+// What a kernel instance has set up on one device: the dynamic shared
+// memory it is opted into (the largest size so far) and its blocks per SM
+// at the last size queried.
+struct Setup {
+  size_t opted_in, occupancy_smem;
+  int per_sm;
+};
+
 template <int NTW, int DH, int MINB>
 int launch(const float* x, const float* ctx, Mat wq, Mat wk, Mat wv, Mat wo,
            const float* bo, float* y, int B, int N, int M, int C, int D, int H,
            int COUT, const long long* s, float scale, Launch plan, size_t smem,
            int sms, cudaStream_t stream) {
   auto kernel = fused_attention_kernel<NTW, DH, MINB>;
-  static size_t opted_in = 0;  // the largest size set so far (one device)
-  if (smem > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    opted_in = smem;
-  }
-  static size_t occupancy_smem = 0;  // the size of the last query (one device)
-  static int per_sm = 0;
-  if (smem != occupancy_smem) {
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, kThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    occupancy_smem = smem;
+  // per device, under a lock: ctypes drops the GIL, so threads may launch
+  // at once
+  static std::mutex lock;
+  static Setup setup[kDevices];  // zeros: nothing set up yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kDevices) return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    Setup& su = setup[dev];
+    if (smem > su.opted_in) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      su.opted_in = smem;
+    }
+    if (smem != su.occupancy_smem) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&su.per_sm, kernel,
+                                                          kThreads, smem);
+      if (err != cudaSuccess) return (int)err;
+      su.occupancy_smem = smem;
+    }
+    per_sm = su.per_sm;
   }
   if (per_sm < 1) return (int)cudaErrorInvalidValue;
   const long long grid = plan.tiles < (long long)per_sm * sms
@@ -552,12 +576,13 @@ int launch(const float* x, const float* ctx, Mat wq, Mat wk, Mat wv, Mat wo,
 // memory per SM, read once per device (the serving path launches thousands
 // of times).
 int device_limits(int* sms, int* optin, int* per_sm) {
-  constexpr int kDevices = 64;
+  static std::mutex lock;
   static int cached[kDevices][3];  // zeros: not read yet
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kDevices) return (int)cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> hold(lock);
   if (cached[dev][0] == 0) {
     int s = 0, o = 0, p = 0;
     err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);

@@ -61,12 +61,9 @@ def _fns():
     return fwd, smem
 
 
-@functools.cache
-def _shared_memory(m: int, c: int, d: int, heads: int, dim_head: int,
-                   device: int):
-    """(bytes one block needs at the least, bytes a block may have) on CUDA
-    device ``device`` (the current one), cached: the query is per call on
-    the serving path."""
+def _shared_memory(m: int, c: int, d: int, heads: int, dim_head: int):
+    """(bytes one block needs at the least, bytes a block may have) on the
+    current CUDA device; the library reads each device's limit once."""
     need, limit = ctypes.c_longlong(), ctypes.c_longlong()
     rc = _fns()[1](m, c, d, heads, dim_head, ctypes.byref(need),
                    ctypes.byref(limit))
@@ -113,7 +110,7 @@ def fused_attention(x, ctx, wq, wk, wv, wo, bo, *, heads: int,
     if x.stride(2) != 1 or ctx.stride(2) != 1 or bo.stride(0) != 1:
         raise ValueError("fused_attention: x, ctx and bo need a contiguous "
                          "last dimension")
-    need, limit = _shared_memory(m, c, d, heads, dim_head, x.device.index)
+    need, limit = _shared_memory(m, c, d, heads, dim_head)
     if need > limit:
         raise ValueError(
             f"fused_attention: k and v of one batch row (M = {m}, heads * "

@@ -19,13 +19,15 @@ chip_smoke = importlib.util.module_from_spec(_SPEC)
 _SPEC.loader.exec_module(chip_smoke)
 
 REL = 0.01
+#: an H100 SXM's SM count and highest SM clock (Hz)
+H100 = dict(sms=132, sm_hz=1.98e9)
 
 
 def test_flash_forward_at_dh_128_is_bound_by_the_tensor_cores():
     # the faces decode's VQ mid block: (B, H, N, dh) = (32, 1, 4096, 128)
     products, exps = chip_smoke.flash_fwd_work(32, 1, 4096, 128)
     assert products == pytest.approx(2.749e11, rel=REL)
-    tc_ms, exp_ms, _ = chip_smoke.design_bounds(products, exps)
+    tc_ms, exp_ms, _ = chip_smoke.design_bounds(products, exps, **H100)
     assert tc_ms == pytest.approx(1.67, rel=REL)
     assert tc_ms > exp_ms
 
@@ -34,7 +36,7 @@ def test_flash_forward_at_dh_8_is_bound_by_the_exponentials():
     # five UNet sites at the faces 64x64 level: B * H = 256, N 4096, dh 8
     products, exps = chip_smoke.flash_fwd_work(32, 8, 4096, 8)
     assert exps == pytest.approx(4.295e9, rel=REL)
-    tc_ms, exp_ms, _ = chip_smoke.design_bounds(products, exps)
+    tc_ms, exp_ms, _ = chip_smoke.design_bounds(products, exps, **H100)
     assert exp_ms == pytest.approx(1.03, rel=REL)
     assert tc_ms == pytest.approx(0.83, rel=REL)
 
