@@ -80,7 +80,11 @@
 
 #include <mutex>
 
+#include "tf32_mma.cuh"
+
 namespace {
+
+using namespace tf32;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -139,66 +143,6 @@ __host__ __device__ inline Layout make_layout(int rows, int pack, int M, int C,
   L.ring = L.vs + (long long)pack * M * L.ldk;
   L.total = L.ring + kStages * 16LL * ntw * kKc;
   return L;
-}
-
-// a = hi + lo with hi and lo tf32 operands: hi = cvt.rna.tf32(a) and
-// lo = cvt.rna.tf32(a - hi). The rounding (to nearest, ties away from zero)
-// is done on the bits: add half a tf32 ulp (0x1000) and drop the low 13
-// bits. On every finite value that equals cvt.rna.tf32.f32, which the
-// compiler expands to four instructions (with an Inf/NaN guard; no input
-// here is infinite). The tensor cores read only a tf32 operand's top 19
-// bits, so the operands go in unmasked and hi is masked only to form lo:
-// four instructions per split instead of nine.
-__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(a) + 0x1000u;
-  lo = __float_as_uint(a - __uint_as_float(hi & 0xffffe000u)) + 0x1000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the SFU, denormal results flushed to zero (ex2.approx.ftz): one
-// instruction, where expf adds a range fix-up around it.
-__device__ __forceinline__ float exp2_sfu(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The A operand of one k-step, split: rows g and g + 8 at k-slots t, t + 4.
-__device__ __forceinline__ void split_a(float g_t, float g8_t, float g_t4,
-                                        float g8_t4, uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) {
-  split(g_t, hi[0], lo[0]);
-  split(g8_t, hi[1], lo[1]);
-  split(g_t4, hi[2], lo[2]);
-  split(g8_t4, hi[3], lo[3]);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
-  const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(saddr), "l"(src), "r"(pred ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
-  const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(saddr), "l"(src), "r"(pred ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // Start copying `nrows` rows of `width` floats (a multiple of 4) into

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``build/lib<name>-<hash>.so`` at the repo root (``.gitignore`` lists
-``build/``), keyed by a hash of its source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. ``build()`` starts one
+``build/``), keyed by a hash of its source, the ``csrc/*.cuh`` headers it
+includes and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused. ``build()`` starts one
 ``nvcc`` per missing library, all at once, and waits for them. No PyTorch
 header is compiled: a library builds in seconds.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -35,10 +37,28 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes, directly
+    or through another header, in the order first included."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())
+                 if (CSRC / inc.decode()).exists()]
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=NAMES) -> dict[str, str]:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -64,6 +65,72 @@ def groupnorm_silu_bwd_plain(g, x, gamma, beta, scale=None, shift=None, *,
     dx = rstd * (dxn - dxn.mean(dim=2, keepdim=True)
                  - xng * (dxn * xng).mean(dim=2, keepdim=True))
     return dx.reshape(b, c, h, w).to(x.dtype), dgamma, dbeta, dscale, dshift
+
+
+#: the forward kernel's block size, the most floats a thread takes before a
+#: group gets more threads, the largest cluster, and the floats of shared
+#: memory a block holds beside its groups (csrc/groupnorm_silu.cu)
+PLAN_THREADS = 256
+PLAN_FLOATS_PER_THREAD = 16
+PLAN_MAX_CLUSTER = 8
+PLAN_EXTRA_FLOATS = PLAN_THREADS // 32 + 8
+
+
+class GNSiLUPlan(NamedTuple):
+    """How the forward kernel runs one shape: ``team`` threads take a group,
+    ``per_block`` groups share a block, a group spans ``cluster`` blocks of
+    a thread-block cluster, each staging ``slice`` floats of it in ``smem``
+    bytes of shared memory; ``blocks`` is the grid."""
+    team: int
+    per_block: int
+    cluster: int
+    slice: int
+    smem: int
+    blocks: int
+
+
+def gn_silu_plan(B: int, C: int, HW: int, G: int,
+                 smem_bytes: int) -> GNSiLUPlan:
+    """The forward kernel's plan (``plan_fwd`` in csrc/groupnorm_silu.cu,
+    which the card tests hold to this copy) for x (B, C, HW) in G groups and
+    ``smem_bytes`` of shared memory a block may use: the fewest threads a
+    group (32 to 256) that give each at most 16 floats, and the smallest
+    cluster of 1, 2, 4 or 8 blocks whose slices of a group fit. Raises
+    ValueError where even 8 blocks do not."""
+    cg = C // G
+    n = cg * HW
+    team = 32
+    while team < PLAN_THREADS and team * PLAN_FLOATS_PER_THREAD < n:
+        team *= 2
+    per_block = PLAN_THREADS // team
+    cluster = 1
+    while cluster <= PLAN_MAX_CLUSTER:
+        slice_ = (-(-n // cluster) + 3) // 4 * 4
+        smem = 4 * (per_block * (slice_ + 2 * cg) + PLAN_EXTRA_FLOATS)
+        if smem <= smem_bytes:
+            blocks = -(-B * G // per_block) * cluster
+            return GNSiLUPlan(team, per_block, cluster, slice_, smem, blocks)
+        cluster *= 2
+    raise ValueError(f"groupnorm_silu: a group of {n} floats does not fit "
+                     f"{PLAN_MAX_CLUSTER} blocks of {smem_bytes} bytes")
+
+
+@functools.cache
+def _plan_fn():
+    fn = build.load("groupnorm_silu").gn_silu_fwd_plan
+    i = ctypes.c_int
+    fn.argtypes = [i, i, i, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = i
+    return fn
+
+
+def kernel_plan(C: int, HW: int, G: int, smem_bytes: int):
+    """The CUDA source's own plan (team, per_block, cluster, slice, smem)
+    at a shape, for comparison with ``gn_silu_plan`` on the card; None where
+    it refuses the shape."""
+    out = (ctypes.c_longlong * 5)()
+    rc = _plan_fn()(C, HW, G, smem_bytes, out)
+    return None if rc else tuple(out)
 
 
 @functools.cache

@@ -74,3 +74,32 @@ def test_summed_rows_keep_both_bounds():
     assert out["bound_by"] == "operations"
     assert out["ms"] == pytest.approx(11.0)
     assert out["max_abs_err"] == 2e-6
+
+
+#: the flagship's serving shapes of attention_core (B, H, N, M, dh): the
+#: UNet's self-attention at 16², 8², 4², 2² and the VQ decoder's mid block
+SERVING_ATTENTION = [(160, 8, 256, 256, 8), (160, 8, 64, 64, 16),
+                     (160, 8, 16, 16, 32), (160, 8, 4, 4, 32),
+                     (160, 1, 256, 256, 128)]
+
+
+@pytest.mark.parametrize("shape", SERVING_ATTENTION)
+def test_attention_core_design_work_at_the_serving_shapes(shape):
+    b, h, n, m, dh = shape
+    products, exps = chip_smoke.attn_core_work(*shape)
+    assert products == 4 * b * h * n * m * dh
+    assert exps == b * h * n * m
+    nbytes, ops = chip_smoke.attn_cost(*shape)
+    assert nbytes == 4 * b * h * dh * (2 * n + 2 * m)
+    # the fp32 bound's operations are the design's products plus the softmax
+    assert ops == products + 4 * exps
+
+
+def test_attention_core_at_the_vq_mid_block_is_bound_by_the_tensor_cores():
+    products, exps = chip_smoke.attn_core_work(160, 1, 256, 256, 128)
+    assert products == pytest.approx(5.37e9, rel=REL)
+    tc_ms, exp_ms, _ = chip_smoke.design_bounds(products, exps, **H100)
+    assert tc_ms == pytest.approx(0.0325, rel=REL)
+    nbytes, _ = chip_smoke.attn_cost(160, 1, 256, 256, 128)
+    assert nbytes == pytest.approx(83.9e6, rel=REL)
+    assert tc_ms > nbytes / chip_smoke.PEAK_BYTES * 1e3 > exp_ms

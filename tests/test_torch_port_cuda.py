@@ -24,7 +24,8 @@ from encdiff_tpu_torch.nn.kernels.flash_attention import (
 from encdiff_tpu_torch.nn.kernels.fused_attention import (
     fused_attention, fused_attention_plain)
 from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (
-    groupnorm_silu, groupnorm_silu_bwd_plain, gn_silu_bwd)
+    gn_silu_plan, groupnorm_silu, groupnorm_silu_bwd_plain,
+    groupnorm_silu_plain, gn_silu_bwd, kernel_plan)
 
 CARD_TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -89,6 +90,144 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda_device):
     q = torch.zeros(2, 2, 8, 24, device=cuda_device)
     with pytest.raises(ValueError):
         attention_core(q, q, q, 0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("n", [4, 16, 64, 256])
+@pytest.mark.parametrize("m", [4, 16, 20, 64, 256])
+def test_attention_core_tensor_core_forward_at_every_length(cuda_device, m, n,
+                                                           dh):
+    """The 3xTF32 forward at every query and key length the serving and
+    train paths run and every head size, on (B, N, H, dh)-backed views:
+    slices packed a block (N 4, 16), ragged key tiles (M 4, 20) and the
+    K/V ring (M 256)."""
+    gen = torch.Generator(cuda_device).manual_seed(13)
+    q = _heads_view(gen, cuda_device, 3, n, 2, dh)
+    k = _heads_view(gen, cuda_device, 3, m, 2, dh)
+    v = _heads_view(gen, cuda_device, 3, m, 2, dh)
+    before = attention_core.launches
+    out = attention_core(q, k, v, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert attention_core.launches == before + 1
+    torch.testing.assert_close(out, attention_core_plain(q, k, v, dh ** -0.5),
+                               **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,m,dh", [
+    (4, 1, 256, 256, 128), (4, 8, 64, 64, 32), (4, 8, 256, 20, 8),
+    (8, 8, 4, 4, 32)])
+def test_attention_core_holds_logits_of_30(cuda_device, b, h, n, m, dh):
+    """q and k scaled so that the scaled scores reach ±30: one tf32 pass
+    would put errors of order 1e-3 into the output; the 3xTF32 split must
+    stay within CARD_TOL of the fp32 plain version."""
+    gen = torch.Generator(cuda_device).manual_seed(14)
+    q = _heads_view(gen, cuda_device, b, n, h, dh) * 3.0
+    k = _heads_view(gen, cuda_device, b, m, h, dh) * 3.0
+    v = _heads_view(gen, cuda_device, b, m, h, dh)
+    scale = dh ** -0.5
+    logits = torch.matmul(q * scale, k.transpose(-1, -2))
+    assert logits.abs().max().item() >= 25.0
+    out = attention_core(q, k, v, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, attention_core_plain(q, k, v, scale),
+                               **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_attention_core_takes_more_than_65535_slices(cuda_device):
+    """B * H = 70,000 at N = M = 4: the forward puts the slices on
+    gridDim.x (the backward still refuses B * H above 65,535)."""
+    gen = torch.Generator(cuda_device).manual_seed(15)
+    q, k, v = (_heads_view(gen, cuda_device, 8750, 4, 8, 32)
+               for _ in range(3))
+    out = attention_core(q, k, v, 32 ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, attention_core_plain(q, k, v, 32 ** -0.5),
+                               **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,dh", [(64, 64, 32), (256, 20, 8), (16, 16, 128)])
+def test_attention_core_rows_off_16_bytes(cuda_device, n, m, dh):
+    """q, k and v whose rows do not start on 16 bytes (a view one float into
+    its buffer) take the kernel's 4-byte copies, with the same result."""
+    gen = torch.Generator(cuda_device).manual_seed(16)
+
+    def shifted(length):
+        flat = torch.randn(2 * length * 3 * dh + 1, generator=gen,
+                           device=cuda_device)
+        return flat[1:].view(2, length, 3, dh).transpose(1, 2)
+    q, k, v = shifted(n), shifted(m), shifted(m)
+    assert q.data_ptr() % 16 != 0
+    before = attention_core.launches
+    out = attention_core(q, k, v, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert attention_core.launches == before + 1
+    torch.testing.assert_close(out, attention_core_plain(q, k, v, dh ** -0.5),
+                               **CARD_TOL)
+
+
+def _optin(device):
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,eps,film,cluster", [
+    ((2, 32, 256, 256), 1e-6, False, 2),    # a 256 KB group: a cluster of 2
+    ((2, 32, 256, 256), 1e-5, True, 2),
+    ((1, 32, 512, 512), 1e-6, True, 8),     # a 1 MB group: a cluster of 8
+    ((2, 64, 128, 128), 1e-6, False, 1),    # 128 KB: one block
+    ((160, 64, 16, 16), 1e-5, True, 1),     # 2 KB: 8 groups a block
+    ((160, 64, 16, 16), 1e-6, False, 1),
+    ((160, 256, 2, 2), 1e-5, True, 1),      # 128 bytes
+    ((3, 96, 5, 7), 1e-5, False, 1),        # cg * HW = 105: 4-byte copies
+    ((2, 128, 3, 3), 1e-6, True, 1),        # float4s across channels
+    ((70000, 32, 2, 2), 1e-5, True, 1)])    # B above 65,535
+def test_groupnorm_silu_forward_paths(cuda_device, shape, eps, film, cluster):
+    b, c, h, w = shape
+    assert gn_silu_plan(b, c, h * w, 32, _optin(cuda_device)).cluster == cluster
+    gen = torch.Generator(cuda_device).manual_seed(17)
+    args = _gn_inputs(gen, cuda_device, *shape, film)
+    before = groupnorm_silu.launches
+    out = groupnorm_silu(*args, eps=eps)
+    torch.cuda.synchronize()
+    assert groupnorm_silu.launches == before + 1
+    torch.testing.assert_close(out, groupnorm_silu_plain(*args, eps=eps),
+                               **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_groupnorm_silu_input_off_16_bytes(cuda_device):
+    """x one float into its buffer takes the 4-byte copies."""
+    gen = torch.Generator(cuda_device).manual_seed(18)
+    _, gamma, beta, scale, shift = _gn_inputs(gen, cuda_device, 2, 64, 16, 16,
+                                              True)
+    x = torch.randn(2 * 64 * 16 * 16 + 1, generator=gen,
+                    device=cuda_device)[1:].view(2, 64, 16, 16)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    out = groupnorm_silu(x, gamma, beta, scale, shift)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, groupnorm_silu_plain(x, gamma, beta, scale, shift), **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_gn_silu_plan_is_the_kernel_plan(cuda_device):
+    """The Python copy of the forward's plan gives what the CUDA source
+    computes, at the configured shapes' (C, H * W) and at the test shapes,
+    for this card's shared memory and for a smaller limit."""
+    shapes = {(c, hw) for c in (32, 64, 96, 128, 192, 256, 384, 512)
+              for hw in (4, 9, 16, 35, 64, 256, 1024, 4096, 16384, 65536)}
+    shapes.add((32, 262144))
+    for limit in (_optin(cuda_device), 48 * 1024):
+        for c, hw in sorted(shapes):
+            try:
+                want = tuple(gn_silu_plan(1, c, hw, 32, limit))[:5]
+            except ValueError:
+                want = None
+            assert kernel_plan(c, hw, 32, limit) == want, (c, hw, limit)
 
 
 def _heads_view(gen, device, b, length, h, dh):
