@@ -6,7 +6,11 @@
 Phases, one line each with its wall time; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi). No CUDA: fail.
-2. build: the four CUDA sources with nvcc into ``build/``, all at once.
+2. build: the five CUDA sources with nvcc into ``build/``, all at once;
+   then mma-rate: independent chains of mma.sync.m16n8k8 (tf32) on every
+   SM (``csrc/mma_probe.cu``), at 1 to 4 warps a sub-partition: cycles per
+   mma per sub-partition and the TF32 TFLOP/s they imply, the rate the
+   3xTF32 kernels' design bounds assume to be 495 TFLOP/s.
 3. shapes: the flagship checkpoint, 8 rendered inputs folded into the 160
    swap samples; one UNet ε call and one VQ decode at B = 160 record every
    kernel call's shape (the 16 cross-attention sites on ``fused_attention``,
@@ -87,18 +91,21 @@ make ε identically zero):
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
 
-The three 3xTF32 kernels (the flash forward, ``attention_core``'s forward
-and ``fused_attention``) carry, beside the fp32 CUDA-core bound of the
-others, their design's bound: the largest of bytes, three tf32 passes of
-their products at the dense TF32 peak (tc), their exponentials at the SFU's
-rate at the SM clock nvidia-smi reads (exp) and, for ``fused_attention``,
-its attention's CUDA-core FLOPs (simt). ``attention_core`` and
+The five 3xTF32 kernels (the flash forward, dq and dk/dv,
+``attention_core``'s forward and ``fused_attention``) carry, beside the
+fp32 CUDA-core bound of the others, their design's bound: the largest of
+bytes, three tf32 passes of their products at the dense TF32 peak (tc),
+their exponentials at the SFU's rate at the SM clock nvidia-smi reads (exp)
+and, for ``fused_attention``, its attention's CUDA-core FLOPs (simt). ``attention_core`` and
 ``groupnorm_silu`` are also timed on device time, from the replay of a CUDA
 graph of back-to-back calls (the host's share left out), beside their
-library call timed the same way. After each phase that checks them, one line
+library call timed the same way; so are the flash kernels at a shape where
+a launch takes under 0.05 ms. After each phase that checks them, one line
 per redesigned kernel counts the shapes where it is no slower than its
-library yardstick (SDPA; for ``fused_attention`` the faster of its chain and
-its SDPA chain; for ``groupnorm_silu`` the PyTorch GroupNorm chain).
+library yardstick (SDPA; its autograd backward, which gives dq, dk and dv
+together, for each flash backward kernel; for ``fused_attention`` the faster
+of its chain and its SDPA chain; for ``groupnorm_silu`` the PyTorch
+GroupNorm chain).
 """
 
 from __future__ import annotations
@@ -167,6 +174,14 @@ EXP_PER_SM_CLOCK = 16
 # it runs over slices of the batch (every (b, h) is independent), so that
 # the FID batch's (64, 8, 4096, 8) fits beside its (B, H, N, N) exponentials
 PLAIN_SCORE_BYTES = 2 ** 32
+# below this event time a launch is also timed on device time (CUDA-graph
+# replays): under it, back-to-back event timing reads the wrapper's host time
+GRAPH_BELOW_MS = 0.05
+# the mma-rate probe: (warps per SM sub-partition, independent chains a
+# warp) for each run, mma.sync.m16n8k8 per chain, and the FLOPs of one
+MMA_PROBE_RUNS = ((1, 1), (1, 4), (1, 8), (2, 4), (4, 2), (4, 4), (4, 8))
+MMA_PROBE_ITERS = 8192
+MMA_FLOPS = 2 * 16 * 8 * 8
 # kernel vs plain version at one shape: fp32 sums in another order
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
 # a whole UNet call / a 10-step chain / a decode / new batch statistics,
@@ -247,6 +262,50 @@ BASELINE = {"flash_attention_fwd": "attention_core_ms",
 #: kernels every profile lists, in the top 12 or not: the redesigned
 #: forward kernels of attention_core and groupnorm_silu
 PROFILE_ALWAYS = ("attn_core_mma_kernel", "gn_silu_fwd_kernel")
+
+
+def mma_rate(card):
+    """The mma-rate probe (``csrc/mma_probe.cu``): independent chains of
+    mma.sync.m16n8k8 (tf32 in, fp32 accumulators) on register operands, one
+    block on each SM. Returns one row per run of ``MMA_PROBE_RUNS``: warps
+    per SM sub-partition, chains a warp, SM cycles per mma per sub-partition
+    (the median block's clock64 span over the mma one sub-partition
+    issued), the dense TF32 TFLOP/s that rate gives on every sub-partition
+    at ``card``'s highest clock, the TFLOP/s the whole launch reached on
+    event time, and the SM clock (MHz) it ran at (clocks over event
+    time)."""
+    import ctypes
+    fn = build.load("mma_probe").tf32_mma_probe
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    blocks, rows = card["sms"], []
+    stream = torch.cuda.current_stream().cuda_stream
+    for warps, chains in MMA_PROBE_RUNS:
+        threads = 4 * 32 * warps  # four sub-partitions an SM
+        cycles = torch.zeros(blocks, dtype=torch.int64, device="cuda")
+        sink = torch.empty(blocks * threads, device="cuda")
+        run = lambda: fn(blocks, threads, chains, MMA_PROBE_ITERS,
+                         cycles.data_ptr(), sink.data_ptr(), stream)
+        if run():  # warm-up
+            raise RuntimeError("tf32_mma_probe: launch refused")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = run()
+        end.record()
+        end.synchronize()
+        if rc or not torch.isfinite(sink).all():
+            raise RuntimeError(f"tf32_mma_probe: rc {rc} or non-finite sums")
+        ms = start.elapsed_time(end)
+        span = cycles.double().median().item()
+        per_mma = span / (MMA_PROBE_ITERS * chains * warps)
+        total = blocks * threads // 32 * MMA_PROBE_ITERS * chains * MMA_FLOPS
+        rows.append(dict(
+            warps=warps, chains=chains, cycles_per_mma=per_mma,
+            tflops_at_clock=4 * blocks * card["sm_hz"] * MMA_FLOPS / per_mma
+            / 1e12, tflops_events=total / (ms * 1e-3) / 1e12,
+            mhz=span / (ms * 1e3)))
+    return rows
 
 
 def phase(name, t0, msg):
@@ -431,6 +490,16 @@ def flash_fwd_work(b, h, n, dh):
     return 4 * bh * n * n * dh, bh * n * n
 
 
+def flash_bwd_work(name, b, h, n, dh):
+    """(product FLOPs, exponentials) of one flash backward call: per (batch,
+    head) 2 N² dh FLOPs per product, three for dq (q kᵀ, dO vᵀ, dS k) and
+    four for dk/dv (k qᵀ, v dOᵀ, Pᵀ dO, dSᵀ q), and one exponential per
+    score."""
+    products = {"flash_attention_dq": 3, "flash_attention_dkdv": 4}[name]
+    bh = b * h
+    return 2 * products * bh * n * n * dh, bh * n * n
+
+
 def fused_work(b, n, c, m, d, h, dh):
     """(tensor-core FLOPs, CUDA-core FLOPs, exponentials) of one
     fused_attention call (C_out = C): the four weight products (2 B N C HD,
@@ -565,9 +634,12 @@ def check_flash(name, shape, gen, card):
     row = dict(err=err, ms=time_ms(kernel), plain_ms=time_ms(plain, 5),
                library_ms=time_ms(library), baseline_ms=time_ms(baseline, 5),
                bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=ops / PEAK_FP32 * 1e3)
-    if name == "flash_attention_fwd":  # the 3xTF32 kernel
-        tc_ms, exp_ms, _ = design_bounds(*flash_fwd_work(*shape), **card)
-        row.update(tc_ms=tc_ms, exp_ms=exp_ms)
+    work = (flash_fwd_work(*shape) if name == "flash_attention_fwd"
+            else flash_bwd_work(name, *shape))
+    tc_ms, exp_ms, _ = design_bounds(*work, **card)  # all three are 3xTF32
+    row.update(tc_ms=tc_ms, exp_ms=exp_ms)
+    if row["ms"] < GRAPH_BELOW_MS:  # event timing reads the wrapper's host time
+        row["device_ms"] = graph_ms(kernel)
     return row
 
 
@@ -744,8 +816,9 @@ def check_rows(name, shapes, gen, card, seen=None):
                   + f" bytes {r['bytes_ms']:.5f}; fp32 bound "
                   f"{max(r['bytes_ms'], r['ops_ms']):.5f})"
                   if "tc_ms" in r else "")
-        device = (f" device {r['device_ms']:.5f} library device "
-                  f"{r['library_device_ms']:.5f}" if "device_ms" in r else "")
+        device = ((f" device {r['device_ms']:.5f}" if "device_ms" in r else "")
+                  + (f" library device {r['library_device_ms']:.5f}"
+                     if "library_device_ms" in r else ""))
         print(f"  {name} {key} x{count}: err {r['err']:.2e} "
               f"ms {r['ms']:.5f} plain {r['plain_ms']:.5f} "
               f"library {r['library_ms']:.5f}{base}{device} "
@@ -757,7 +830,9 @@ def check_rows(name, shapes, gen, card, seen=None):
 
 
 #: the redesigned kernels' library yardstick at a shape: (label, the
-#: kernel's time, the yardstick's time). SDPA for the flash forward; for
+#: kernel's time, the yardstick's time). SDPA for the flash forward, and its
+#: autograd backward, which gives dq, dk and dv together, for each of the two
+#: flash backward kernels; for
 #: fused_attention the faster of its chain and its SDPA chain (event times
 #: of back-to-back calls); SDPA for attention_core and the PyTorch GroupNorm
 #: chain for groupnorm_silu, on device time (CUDA-graph replays: most of
@@ -765,6 +840,10 @@ def check_rows(name, shapes, gen, card, seen=None):
 YARDSTICK = {
     "flash_attention_fwd": ("SDPA", lambda r: r["ms"],
                             lambda r: r["library_ms"]),
+    "flash_attention_dq": ("SDPA's autograd backward (dq, dk and dv)",
+                           lambda r: r["ms"], lambda r: r["library_ms"]),
+    "flash_attention_dkdv": ("SDPA's autograd backward (dq, dk and dv)",
+                             lambda r: r["ms"], lambda r: r["library_ms"]),
     "fused_attention": ("min(chain, SDPA chain)", lambda r: r["ms"],
                         lambda r: min(r["library_ms"], r["baseline_ms"])),
     "attention_core": ("SDPA on device time", lambda r: r["device_ms"],
@@ -784,7 +863,7 @@ def print_yardstick(phase_name, rows_by_kernel):
             continue
         lost = [r for r in rows if mine(r) > ref(r)]
         events = ""
-        if "device_ms" in rows[0]:
+        if "library_device_ms" in rows[0]:
             won = sum(r["ms"] <= r["library_ms"] for r in rows)
             events = f" (on event times, host included: {won} of {len(rows)})"
         print(f"  [{phase_name}] yardstick {name}: no slower than {label} at "
@@ -820,8 +899,9 @@ def summed(name, rows):
         out["bound_by"] = ("bytes" if bytes_ms >= max(
             tc_ms, exp_ms, out.get("simt_ms", 0.0)) else "operations")
     if all("device_ms" in r for r in rows):
-        out.update(device_ms=total("device_ms"),
-                   library_device_ms=total("library_device_ms"))
+        out["device_ms"] = total("device_ms")
+    if all("library_device_ms" in r for r in rows):
+        out["library_device_ms"] = total("library_device_ms")
     if all("baseline_ms" in r for r in rows):
         out[BASELINE[name]] = total("baseline_ms")
     return out
@@ -890,6 +970,25 @@ def main() -> int:
         print(f"--- nvcc {name}\n{log}", file=sys.stderr)
     phase("build", t0, f"built {sorted(logs) or 'nothing (cached)'} "
           f"into {build.BUILD_DIR}")
+
+    # ---- the rate of mma.sync.m16n8k8 (tf32) that the 3xTF32 kernels use
+    t0 = time.perf_counter()
+    probe = mma_rate(card)
+    for r in probe:
+        print(f"  mma-rate {r['warps']} warp(s) x {r['chains']} chain(s) a "
+              f"sub-partition: {r['cycles_per_mma']:.3f} cycles an mma, "
+              f"{r['tflops_at_clock']:.1f} TFLOP/s at "
+              f"{card['sm_hz'] / 1e6:.0f} MHz, {r['tflops_events']:.1f} "
+              f"TFLOP/s on event time at {r['mhz']:.0f} MHz", flush=True)
+    best = min(probe, key=lambda r: r["cycles_per_mma"])
+    phase("mma-rate", t0, f"mma.sync.m16n8k8 tf32 at best "
+          f"{best['cycles_per_mma']:.3f} cycles a sub-partition "
+          f"({best['warps']} warps x {best['chains']} chains): "
+          f"{best['tflops_at_clock']:.1f} TFLOP/s on {card['sms']} SMs at "
+          f"{card['sm_hz'] / 1e6:.0f} MHz, {best['tflops_at_clock'] / PEAK_TF32 * 1e12:.3f}"
+          f" of the {PEAK_TF32 / 1e12:.0f} TFLOP/s dense TF32 peak the "
+          f"design bounds assume; latency of one chain "
+          f"{probe[0]['cycles_per_mma']:.3f} cycles")
 
     # ---- 3: shapes, and the first UNet call, kernel path vs plain path
     t0 = time.perf_counter()
@@ -1032,8 +1131,9 @@ def main() -> int:
           "library backward gives dq, dk and dv together); device_ms and "
           "library_device_ms (attention_core, groupnorm_silu): the kernel and "
           "its library call on device time, from CUDA-graph replays; for the "
-          "3xTF32 kernels (flash_attention_fwd, attention_core, "
-          "fused_attention) bound_ms is the "
+          "3xTF32 kernels (flash_attention_fwd, flash_attention_dq, "
+          "flash_attention_dkdv, attention_core, fused_attention) bound_ms "
+          "is the "
           "design's bound, the largest of bytes, tc_ms (three tf32 passes "
           "of the products at 495 TFLOP/s), exp_ms (the exponentials at 16 "
           "per SM and clock) and simt_ms (CUDA-core FLOPs at 67 TFLOP/s), "

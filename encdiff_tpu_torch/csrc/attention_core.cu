@@ -554,8 +554,9 @@ extern "C" int attention_core_fwd(const void* q, const void* k, const void* v, v
 // Bound on the H100: the five N x M x DH products (two recomputes of
 // q k^T, dO v^T twice, and the dq, dk, dv sums) and the exps are fp32 on the
 // CUDA cores; at N = M = 256 operations bind, at M = 20 bytes. Only tensor
-// cores, as in the forward, would lift the first (a later change). Its grid
-// keeps B * H on gridDim.y: B * H above 65,535 is refused.
+// cores, as in the forward, would lift the first (a later change). Both
+// kernels put B * H on gridDim.x (any B * H that fits an int) and the row or
+// key tiles on gridDim.y.
 
 namespace {
 
@@ -575,10 +576,10 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __shared__ float ks[KT * DH];
   __shared__ float vs[KT * DH];
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.y * blockDim.x + threadIdx.x;
   const bool active = row < N;
 
   const float* qb = q + (long long)b * qsb + (long long)h * qsh;
@@ -670,12 +671,12 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __shared__ float ls[QT];
   __shared__ float dls[QT];
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
   const int keys_per_block = blockDim.x / S;
   const int sub = threadIdx.x % S;
-  const int key = blockIdx.x * keys_per_block + threadIdx.x / S;
+  const int key = blockIdx.y * keys_per_block + threadIdx.x / S;
   const bool active = key < M;
 
   const float* qb = q + (long long)b * qsb + (long long)h * qsh;
@@ -752,7 +753,11 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* g,
                cudaStream_t stream) {
   int threads = ((N + 31) / 32) * 32;
   if (threads > kBwdThreads) threads = kBwdThreads;
-  const dim3 grid_q((N + threads - 1) / threads, B * H);
+  int keys = 4;  // keys per dk/dv block: the power of two that covers M, 4..128
+  while (keys < M && keys < kBwdThreads) keys <<= 1;
+  const int row_tiles = (N + threads - 1) / threads, key_tiles = (M + keys - 1) / keys;
+  if (row_tiles > 65535 || key_tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid_q(B * H, row_tiles);
   attn_bwd_dq_kernel<DH><<<grid_q, threads, 0, stream>>>(
       q, k, v, g, dq, lse, delta, H, N, M,
       s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
@@ -760,10 +765,8 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* g,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  int keys = 4;  // keys per block: the power of two that covers M, 4..128
-  while (keys < M && keys < kBwdThreads) keys <<= 1;
   const int S = kBwdThreads / keys;  // lanes per key, 1..32
-  const dim3 grid_k((M + keys - 1) / keys, B * H);
+  const dim3 grid_k(B * H, key_tiles);
   attn_bwd_dkdv_kernel<DH><<<grid_k, kBwdThreads, 0, stream>>>(
       q, k, v, g, lse, delta, dk, dv, H, N, M, S,
       s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
@@ -783,7 +786,7 @@ extern "C" int attention_core_bwd(const void* q, const void* k, const void* v,
                                   void* lse, void* delta, int B, int H, int N,
                                   int M, int DH, const int* strides, float scale,
                                   void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || B * H > 65535)
+  if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || (long long)B * H > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const float* qf = (const float*)q;
   const float* kf = (const float*)k;

@@ -74,15 +74,50 @@
 //   64-key tile (half of them the splits of k, P and v). Whether mma.sync's
 //   own TF32 rate is the limit is not measured.
 //
-// Backward (dq, dk/dv): fp32 on the CUDA cores.
-// - dq: query-parallel, one thread per row holding q, dO, its lse and delta
-//   and the dq sum; K and V tiles in shared memory. The row statistics are
-//   read, not recomputed.
-// - dk/dv: key-parallel, one thread per key holding k, v and the two sums;
-//   it loops over every query tile (q, dO, lse and delta in shared memory).
-//   No atomics and a fixed summation order: a run repeats bit for bit.
-// - Bound: operations. Per score 4 dh (dk/dv) or 3 dh (dq) multiply-adds
-//   and one exponential, fp32 on the CUDA cores (67 TFLOP/s).
+// Backward (dq, dk/dv): the products on the tensor cores, 3xTF32 on
+// mma.sync.m16n8k8 as in the forward, from the saved lse and delta (read,
+// not recomputed). Two launches, as on the TPU; no atomics and a fixed order
+// of summation, so a second run repeats bit for bit.
+// - dq, query-parallel: a block of 4 warps takes 128 query rows, a warp 32
+//   (two m16 tiles, so that each B operand read serves both). q (times
+//   scale * log2 e) and dO sit in registers as split A operands. K and V
+//   stream through a 3-stage cp.async ring of 64 keys. Per 8-key group (two
+//   at dh 8, one at dh 16, each with its own accumulators): S - lse = q k^T
+//   - lse and dP - delta = dO v^T - delta on the tensor cores (the first mma
+//   starts from -lse or -delta), P = exp2(S - lse) and dS = P (dP - delta)
+//   on the accumulator registers, dq += dS k with dS left in the S layout
+//   and K's rows read in the permuted order (keys 2t, 2t + 1 as k-slots t,
+//   t + 4: the forward's P v trick, no shuffle). Keys past N are masked to
+//   -inf, so their P and dS are exact zeros against K's zero-filled rows.
+// - dk/dv, key-parallel, the same shape of block over keys: k (times scale
+//   * log2 e) and v sit in registers; q, dO and their rows' lse and delta
+//   stream through the ring (64 query rows a tile). S^T = k q^T and dP^T =
+//   v dO^T put P^T and dS^T in the accumulator layout, where they are the A
+//   operands of dv += P^T dO and dk += dS^T q, with dO's and q's rows read
+//   permuted; lse and delta vary along the columns and come from the tile.
+//   Query rows past N are zero-filled with lse and delta 0: their P^T is 1
+//   and their dS^T 0, against zero rows of dO and q, so they add exact
+//   zeros. dk is scaled once at the end.
+// - The split tile: once a tile has landed, the block splits it once into
+//   hi and lo arrays in shared memory (and, for dk/dv, writes -lse log2 e
+//   and -delta as ready C operands), where split in every warp repeated it
+//   four times over and made most of the loop's instructions. Its rows have
+//   DH + 4 entries, so that both ways a warp reads it (8 rows g at dims t,
+//   t + 4; rows 2t, 2t + 1 at column g) are free of bank conflicts; the sum
+//   over dh runs in the natural order (k-step c holds dims 8c + t and 8c +
+//   t + 4). P and dS, which enter the sums linearly, take the two-
+//   instruction split_trunc; the scores' operands the rounded split, since
+//   the exponential amplifies their error.
+// - q, k, v and dO rows must start on 16 bytes (the wrapper checks); rows
+//   past N store nothing.
+// - Bound on the H100: the tensor cores, three tf32 passes of 3 (dq) or 4
+//   (dk/dv) products of 2 N^2 dh flops per (batch, head) at 495 TFLOP/s; the
+//   N^2 exponentials at 16 per SM and clock come second (dq at dh 8: 0.31
+//   against 0.26 ms at (8, 8, 4096, 8)). mma.sync itself reaches 6.03 cycles
+//   an m16n8k8 per SM sub-partition (355 TFLOP/s, chip_smoke's mma-rate
+//   phase), which puts the loops' 144 (dq) and 192 (dk/dv) mma a tile near
+//   their issue count: the kernels run at about half that pipe's rate,
+//   held back by the mma chains' 24-cycle latency at 12 warps an SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -96,8 +131,6 @@ namespace {
 
 using namespace tf32;
 
-constexpr int kThreads = 128;      // backward: threads per block
-constexpr int kTileFloats = 4096;  // backward: one K (or q) tile and one V (or dO) tile, 16 KB each
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -407,8 +440,253 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- backward: dq (query-parallel) and dk/dv (key-parallel)
+constexpr int kBwdRows = 128;   // query rows (dq) or keys (dk/dv) a block owns
+constexpr int kBwdTile = 64;    // keys (dq) or query rows (dk/dv) a streamed tile holds
+constexpr int kBwdStages = 3;   // tiles in the shared ring
+
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+struct Bwd {
+  // m16 tiles (16 rows each) a warp owns: each B operand read from the
+  // split tile serves both (faster than one at both faces shapes)
+  static constexpr int kTiles = 2;
+  static constexpr int kWarps = kBwdRows / (16 * kTiles);
+  static constexpr int kThreads = 32 * kWarps;
+  // blocks an SM the registers must allow: 3 at dh 8 (at most 170
+  // registers a thread); 2 at dh 16, whose k and v fragments and the
+  // two-level sums do not fit 170 without spills (its 512 blocks take two
+  // rounds of the card at either count)
+  static constexpr int kMinBlocks = DH == 8 ? 3 : 2;
+  // 8-column groups of a tile taken at a time: kTiles * kGroups independent
+  // accumulators per product (4 at dh 8, 2 at dh 16)
+  static constexpr int kGroups = DH == 8 ? 2 : 1;
+  // a ring stage as copied: the rows of two tensors at pitch DH, then (dk/dv)
+  // those rows' lse and delta
+  static constexpr int kStage = 2 * kBwdTile * DH + 2 * kBwdTile;
+  // the split tile: hi and lo of both tensors at pitch DH + 4 (4 or 12 mod
+  // 16, so that a warp's reads are free of bank conflicts both along a row,
+  // 8 rows g at columns t and t + 4, and down a column, rows 2t and 2t + 1
+  // at column g), then (dk/dv) the C quads of the column statistics
+  static constexpr int kLd = DH + 4;
+  static constexpr int kSplit = 4 * kBwdTile * kLd + 4 * kBwdTile;
+  static constexpr int kSmem = (kBwdStages * kStage + kSplit) * 4;  // bytes
+  static_assert(kSmem <= 48 * 1024, "static shared memory");
+};
+
+// Rows [r0, r0 + kBwdTile) of two row-strided (N, DH) tensors a and b into
+// one ring stage at pitch DH, 16 bytes a copy, rows past N zero-filled; with
+// lse and delta (already offset to the (batch, head)), those rows' entries
+// behind them, 4 bytes a copy, zeros past N.
+template <int DH, int THREADS>
+__device__ __forceinline__ void load_rows(float* stage, const float* a, long long a_rs,
+                                          const float* b, long long b_rs,
+                                          const float* lse, const float* delta,
+                                          int r0, int N) {
+  constexpr int CPR = DH / 4, COPIES = kBwdTile * CPR;
+#pragma unroll
+  for (int i = 0; i < (COPIES + THREADS - 1) / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    if (COPIES % THREADS != 0 && e >= COPIES) break;
+    const int r = e / CPR, c = e % CPR;
+    const int row = r0 + r;
+    const bool ok = row < N;
+    const long long rr = ok ? row : 0;
+    cp_async16(stage + r * DH + 4 * c, a + rr * a_rs + 4 * c, ok);
+    cp_async16(stage + (kBwdTile + r) * DH + 4 * c, b + rr * b_rs + 4 * c, ok);
+  }
+  if (lse != nullptr && threadIdx.x < kBwdTile) {
+    const int row = r0 + threadIdx.x;
+    const bool ok = row < N;
+    const int rr = ok ? row : 0;
+    float* stats = stage + 2 * kBwdTile * DH;
+    cp_async4(stats + threadIdx.x, lse + rr, ok);
+    cp_async4(stats + kBwdTile + threadIdx.x, delta + rr, ok);
+  }
+}
+
+// Split a landed stage once for the whole block: hi and lo of every value
+// of both tensors (the rounded split()), and with stats the
+// C operands where the transposed scores start: for query pair p of the
+// tile, (-lse log2 e) of rows 2p, 2p + 1, twice (the accumulator layout of
+// one m16 tile's two rows), and the same of -delta.
+template <int DH, int THREADS>
+__device__ __forceinline__ void split_stage(const float* stage, uint32_t* sp, bool stats) {
+  constexpr int LD = DH + 4, CPR = DH / 4, CHUNKS = 2 * kBwdTile * CPR;
+  static_assert(CHUNKS % THREADS == 0, "whole rounds");
+  uint32_t* hi = sp;
+  uint32_t* lo = sp + 2 * kBwdTile * LD;
+#pragma unroll
+  for (int i = 0; i < CHUNKS / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    const int r = e / CPR, c = e % CPR;  // r: row of both tensors, 0..2 kBwdTile
+    const float4 x = *reinterpret_cast<const float4*>(stage + r * DH + 4 * c);
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + r * LD + 4 * c) = h;
+    *reinterpret_cast<uint4*>(lo + r * LD + 4 * c) = l;
+  }
+  if (stats && threadIdx.x < kBwdTile / 2) {
+    const int p = threadIdx.x;
+    const float* st = stage + 2 * kBwdTile * DH;
+    const float2 l2 = *reinterpret_cast<const float2*>(st + 2 * p);
+    const float2 d2 = *reinterpret_cast<const float2*>(st + kBwdTile + 2 * p);
+    float* quads = reinterpret_cast<float*>(sp + 4 * kBwdTile * LD);
+    const float a = l2.x * -kLog2e, b = l2.y * -kLog2e;
+    *reinterpret_cast<float4*>(quads + 4 * p) = make_float4(a, b, a, b);
+    *reinterpret_cast<float4*>(quads + 2 * kBwdTile + 4 * p) =
+        make_float4(-d2.x, -d2.y, -d2.x, -d2.y);
+  }
+}
+
+// Rows row0 + 16 mt (+ 8) of a row-strided (N, DH) tensor, times mul, as
+// split A operands in the natural order: k-step c holds dims 8c + t (slot t)
+// and 8c + t + 4 (slot t + 4). Rows past N are zeros.
+template <int DH, int MT>
+__device__ __forceinline__ void load_a(const float* x, long long rs, int row0, int N,
+                                       int t, float mul, uint32_t (&hi)[MT][DH / 8][4],
+                                       uint32_t (&lo)[MT][DH / 8][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      float f[2][2];  // [row g, g + 8][dim 8c + t, 8c + t + 4]
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 16 * mt + 8 * r;
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          f[r][s] = row < N ? x[(long long)row * rs + 8 * c + t + 4 * s] * mul : 0.f;
+      }
+      split_a(f[0][0], f[1][0], f[0][1], f[1][1], hi[mt][c], lo[mt][c]);
+    }
+}
+
+// The B operand of a k-step over dh (S = q k^T, dP = dO v^T and their
+// transposes) from a split tile: row 8 j + g at dims 8c + t and 8c + t + 4.
+__device__ __forceinline__ void row_b(const uint32_t* hi, const uint32_t* lo, int off,
+                                      uint32_t (&h)[2], uint32_t (&l)[2]) {
+  h[0] = hi[off];
+  h[1] = hi[off + 4];
+  l[0] = lo[off];
+  l[1] = lo[off + 4];
+}
+
+// The B operand of a k-step over one 8-row group of a split tile (dq += dS
+// k, dv += P^T dO, dk += dS^T q): rows 2t (slot t) and 2t + 1 (slot t + 4)
+// at column g of an 8-column group, the order in which the S accumulator
+// holds the group's columns.
+template <int LD>
+__device__ __forceinline__ void col_b(const uint32_t* hi, const uint32_t* lo, int off,
+                                      uint32_t (&h)[2], uint32_t (&l)[2]) {
+  h[0] = hi[off];
+  h[1] = hi[off + LD];
+  l[0] = lo[off];
+  l[1] = lo[off + LD];
+}
+
+// acc[m][j] += a[m][j] b[j] over MT x G tiles as 3xTF32: the lo-hi, hi-lo,
+// then hi-hi terms, each over all the tiles before the next, so that MT x G
+// mma chains overlap.
+template <int MT, int G>
+__device__ __forceinline__ void mma3(float (&acc)[MT][G][4], const uint32_t (&ahi)[MT][G][4],
+                                     const uint32_t (&alo)[MT][G][4],
+                                     const uint32_t (&bhi)[G][2], const uint32_t (&blo)[G][2]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < G; ++j) mma_tf32(acc[m][j], alo[m][j], bhi[j][0], bhi[j][1]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < G; ++j) mma_tf32(acc[m][j], ahi[m][j], blo[j][0], blo[j][1]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < G; ++j) mma_tf32(acc[m][j], ahi[m][j], bhi[j][0], bhi[j][1]);
+}
+
+// S = q k^T - lse, dP = dO v^T - delta and their transposes, with one A
+// operand per m-tile shared by the G column groups (k-step c of q, dO, k or
+// v in registers). On the first k-step the sums start from init(m, j)
+// (-lse or -delta) instead of zeros, so the subtraction rides on an mma.
+// The hi-hi term goes first, where it meets the bias it mostly cancels
+// (scores near lse are the ones that matter), and the lo terms follow into
+// a small sum: the tensor cores align a sum to its largest addend, so small
+// terms added to a sum near -lse (up to 43 in log2 units at logits of 30)
+// would each lose an ulp of 43.
+template <int MT, int G, int KS, class Init>
+__device__ __forceinline__ void mma3_rows(float (&acc)[MT][G][4], Init init,
+                                          const uint32_t (&ahi)[MT][KS][4],
+                                          const uint32_t (&alo)[MT][KS][4], int c,
+                                          const uint32_t (&bhi)[G][2],
+                                          const uint32_t (&blo)[G][2]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (c == 0)
+        mma_tf32_c(acc[m][j], ahi[m][c], bhi[j][0], bhi[j][1], init(m, j));
+      else
+        mma_tf32(acc[m][j], ahi[m][c], bhi[j][0], bhi[j][1]);
+    }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < G; ++j) mma_tf32(acc[m][j], alo[m][c], bhi[j][0], bhi[j][1]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < G; ++j) mma_tf32(acc[m][j], ahi[m][c], blo[j][0], blo[j][1]);
+}
+
+// The A operands of 8-column groups left in the accumulator layout: lane t
+// holds columns 2t and 2t + 1, which become k-slots t and t + 4. P and dS
+// enter the sums linearly, so they take the two-instruction split_trunc.
+template <int MT, int G>
+__device__ __forceinline__ void split_acc(const float (&x)[MT][G][4], uint32_t (&hi)[MT][G][4],
+                                          uint32_t (&lo)[MT][G][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      split_a_trunc(x[m][j][0], x[m][j][2], x[m][j][1], x[m][j][3], hi[m][j], lo[m][j]);
+}
+
+template <int D, int M, int G>
+__device__ __forceinline__ void zero(float (&x)[D][M][G][4]) {
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[d][m][j][e] = 0.f;
+}
+
+// total += the G partial sums of one tile, in order. The tensor cores
+// truncate each mma's sum, a bias of up to an ulp of the sum per mma: run
+// over all of N (768 mma a sum at N = 4096), it took dk at logits of 30
+// past the 1e-4 gate against an fp32 reference. A tile's sums take 12 mma
+// from zero, and the totals one round-to-nearest add a tile.
+template <int D, int M, int G>
+__device__ __forceinline__ void add_tile(float (&total)[D][M][4],
+                                         const float (&part)[D][M][G][4]) {
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) total[d][m][e] += part[d][m][j][e];
+}
+
+template <int DH>
+__global__ void __launch_bounds__(Bwd<DH>::kThreads, Bwd<DH>::kMinBlocks)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dO,
                 const float* __restrict__ lse, const float* __restrict__ delta,
@@ -416,65 +694,146 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 int qsb, int qsh, int qsn, int ksb, int ksh, int ksn,
                 int vsb, int vsh, int vsn, int gsb, int gsh, int gsn,
                 int dsb, int dsh, int dsn, float scale) {
-  constexpr int KT = kTileFloats / DH;  // keys per tile
-  __shared__ float ks[KT * DH];
-  __shared__ float vs[KT * DH];
+  using C = Bwd<DH>;
+  constexpr int KT = kBwdTile, LD = C::kLd, KS = DH / 8, DT = DH / 8, MT = C::kTiles;
+  constexpr int NT = KT / 8, GB = C::kGroups;
+  static_assert(NT % GB == 0, "whole groups");
+  __shared__ __align__(16) float ring[kBwdStages * C::kStage];
+  __shared__ __align__(16) uint32_t sp[C::kSplit];
+  const uint32_t* khi = sp;                 // the split K and V tiles
+  const uint32_t* vhi = sp + KT * LD;
+  const uint32_t* klo = sp + 2 * KT * LD;
+  const uint32_t* vlo = sp + 3 * KT * LD;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int row = blockIdx.y * kThreads + threadIdx.x;
-  const bool active = row < N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * kBwdRows + warp * 16 * MT + g;  // + 16 mt + 8 r
 
-  const float* qb = q + (long long)b * qsb + (long long)h * qsh;
   const float* kb = k + (long long)b * ksb + (long long)h * ksh;
   const float* vb = v + (long long)b * vsb + (long long)h * vsh;
-  const float* gb = dO + (long long)b * gsb + (long long)h * gsh;
 
-  const float qscale = scale * kLog2e;
-  float qr[DH], gr[DH], acc[DH];
+  // q (times scale log2 e: scores in log2 units) and dO as split A
+  // operands; where S and dP start: -lse log2 e and -delta of rows g, g + 8
+  uint32_t qhi[MT][KS][4], qlo[MT][KS][4], ghi[MT][KS][4], glo[MT][KS][4];
+  load_a<DH, MT>(q + (long long)b * qsb + (long long)h * qsh, qsn, row0, N, t,
+                 scale * kLog2e, qhi, qlo);
+  load_a<DH, MT>(dO + (long long)b * gsb + (long long)h * gsh, gsn, row0, N, t, 1.f,
+                 ghi, glo);
+  float s0[MT][4], dp0[MT][4];
 #pragma unroll
-  for (int i = 0; i < DH; ++i) {
-    qr[i] = active ? qb[(long long)row * qsn + i] * qscale : 0.f;
-    gr[i] = active ? gb[(long long)row * gsn + i] : 0.f;
-    acc[i] = 0.f;
-  }
-  const float L = active ? lse[(long long)bh * N + row] * kLog2e : 0.f;
-  const float dl = active ? delta[(long long)bh * N + row] : 0.f;
-
-  for (int t0 = 0; t0 < N; t0 += KT) {
-    const int kt = min(KT, N - t0);
-    __syncthreads();
-    for (int e = threadIdx.x; e < kt * DH; e += kThreads) {
-      const int j = e / DH;
-      const int d = e % DH;
-      ks[e] = kb[(long long)(t0 + j) * ksn + d];
-      vs[e] = vb[(long long)(t0 + j) * vsn + d];
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 16 * mt + 8 * r;
+      s0[mt][2 * r] = s0[mt][2 * r + 1] =
+          row < N ? lse[(long long)bh * N + row] * -kLog2e : 0.f;
+      dp0[mt][2 * r] = dp0[mt][2 * r + 1] = row < N ? -delta[(long long)bh * N + row] : 0.f;
     }
-    __syncthreads();
-    for (int j = 0; j < kt; ++j) {
-      const float* kj = ks + j * DH;
-      const float* vj = vs + j * DH;
-      float sc = 0.f, dp = 0.f;
+  auto s_init = [&](int m, int) -> const float (&)[4] { return s0[m]; };
+  auto dp_init = [&](int m, int) -> const float (&)[4] { return dp0[m]; };
+
+  // dq: the sum over the tiles so far (see add_tile)
+  float acc[DT][MT][4];
 #pragma unroll
-      for (int i = 0; i < DH; ++i) {
-        sc += qr[i] * kj[i];
-        dp += gr[i] * vj[i];
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d][mt][e] = 0.f;
+
+  const int ntiles = (N + KT - 1) / KT;
+#pragma unroll
+  for (int s = 0; s < kBwdStages - 1; ++s) {
+    if (s < ntiles)
+      load_rows<DH, C::kThreads>(ring + s * C::kStage, kb, ksn, vb, vsn, nullptr,
+                                 nullptr, s * KT, N);
+    cp_async_commit();
+  }
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<kBwdStages - 2>();  // this thread's copies of the tile landed
+    __syncthreads();                  // everyone's; and the split tile - 1 is consumed
+    const int next = tile + kBwdStages - 1;
+    if (next < ntiles)
+      load_rows<DH, C::kThreads>(ring + (next % kBwdStages) * C::kStage, kb, ksn, vb,
+                                 vsn, nullptr, nullptr, next * KT, N);
+    cp_async_commit();
+    split_stage<DH, C::kThreads>(ring + (tile % kBwdStages) * C::kStage, sp, false);
+    __syncthreads();
+    const int key0 = tile * KT;
+    float tacc[DT][MT][GB][4];  // this tile's dq, one partial sum per key group of a pass
+    zero(tacc);
+
+#pragma unroll
+    for (int j0 = 0; j0 < NT; j0 += GB) {
+      // S - lse = q k^T - lse and dP - delta = dO v^T - delta: rows g,
+      // g + 8; keys 8 j + 2t, 8 j + 2t + 1
+      float s[MT][GB][4], dp[MT][GB][4];
+#pragma unroll
+      for (int c = 0; c < KS; ++c) {
+        uint32_t kh[GB][2], kl[GB][2], vh[GB][2], vl[GB][2];
+#pragma unroll
+        for (int j = 0; j < GB; ++j) {
+          const int off = ((j0 + j) * 8 + g) * LD + 8 * c + t;
+          row_b(khi, klo, off, kh[j], kl[j]);
+          row_b(vhi, vlo, off, vh[j], vl[j]);
+        }
+        mma3_rows<MT, GB, KS>(s, s_init, qhi, qlo, c, kh, kl);
+        mma3_rows<MT, GB, KS>(dp, dp_init, ghi, glo, c, vh, vl);
       }
-      const float ds = exp2f(sc - L) * (dp - dl);
+      if (key0 + (j0 + GB) * 8 > N) {  // keys past N (the ragged last tile): P = 0
 #pragma unroll
-      for (int i = 0; i < DH; ++i) acc[i] += ds * kj[i];
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < GB; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (key0 + (j0 + j) * 8 + 2 * t + (e & 1) >= N) s[mt][j][e] = -INFINITY;
+      }
+      // P = exp2(S - lse log2 e) and dS = P (dP - delta), in place
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < GB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][j][e] = exp2_sfu(s[mt][j][e]) * dp[mt][j][e];
+
+      // dq += dS k: the 8 keys of group j are one k-step (key 2t in slot t,
+      // 2t + 1 in slot t + 4), so K's rows are read in that order
+      uint32_t shi[MT][GB][4], slo[MT][GB][4];
+      split_acc<MT, GB>(s, shi, slo);
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        uint32_t bh2[GB][2], bl2[GB][2];
+#pragma unroll
+        for (int j = 0; j < GB; ++j)
+          col_b<LD>(khi, klo, ((j0 + j) * 8 + 2 * t) * LD + 8 * d + g, bh2[j], bl2[j]);
+        mma3<MT, GB>(tacc[d], shi, slo, bh2, bl2);
+      }
     }
+    add_tile(acc, tacc);
   }
-  if (active) {
-    float* db = dq + (long long)b * dsb + (long long)h * dsh + (long long)row * dsn;
+
+  float* db = dq + (long long)b * dsb + (long long)h * dsh;
 #pragma unroll
-    for (int i = 0; i < DH; ++i) db[i] = acc[i] * scale;
-  }
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 16 * mt + 8 * r;
+      if (row >= N) continue;
+      float* out = db + (long long)row * dsn + 2 * t;
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+        *reinterpret_cast<float2*>(out + 8 * d) =
+            make_float2(acc[d][mt][2 * r] * scale, acc[d][mt][2 * r + 1] * scale);
+    }
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Bwd<DH>::kThreads, Bwd<DH>::kMinBlocks)
 flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dO,
                   const float* __restrict__ lse, const float* __restrict__ delta,
@@ -483,75 +842,159 @@ flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   int vsb, int vsh, int vsn, int gsb, int gsh, int gsn,
                   int dksb, int dksh, int dksn, int dvsb, int dvsh, int dvsn,
                   float scale) {
-  constexpr int QT = kTileFloats / DH;  // query rows per tile
-  __shared__ float qs[QT * DH];         // q * scale
-  __shared__ float gs[QT * DH];         // dO
-  __shared__ float ls[QT];              // lse in log2 units
-  __shared__ float dls[QT];             // delta
+  using C = Bwd<DH>;
+  constexpr int QT = kBwdTile, LD = C::kLd, KS = DH / 8, DT = DH / 8, MT = C::kTiles;
+  constexpr int NT = QT / 8, GB = C::kGroups;
+  static_assert(NT % GB == 0, "whole groups");
+  __shared__ __align__(16) float ring[kBwdStages * C::kStage];
+  __shared__ __align__(16) uint32_t sp[C::kSplit];
+  const uint32_t* qhi = sp;                 // the split q and dO tiles
+  const uint32_t* ghi = sp + QT * LD;
+  const uint32_t* qlo = sp + 2 * QT * LD;
+  const uint32_t* glo = sp + 3 * QT * LD;
+  const float* quads = reinterpret_cast<const float*>(sp + 4 * QT * LD);
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int key = blockIdx.y * kThreads + threadIdx.x;
-  const bool active = key < N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = blockIdx.y * kBwdRows + warp * 16 * MT + g;  // + 16 mt + 8 r
 
   const float* qb = q + (long long)b * qsb + (long long)h * qsh;
-  const float* kb = k + (long long)b * ksb + (long long)h * ksh;
-  const float* vb = v + (long long)b * vsb + (long long)h * vsh;
   const float* gb = dO + (long long)b * gsb + (long long)h * gsh;
   const float* lb = lse + (long long)bh * N;
   const float* db = delta + (long long)bh * N;
 
-  float kr[DH], vr[DH], dkr[DH], dvr[DH];
+  // k (times scale log2 e) and v as split A operands
+  uint32_t khi[MT][KS][4], klo[MT][KS][4], vhi[MT][KS][4], vlo[MT][KS][4];
+  load_a<DH, MT>(k + (long long)b * ksb + (long long)h * ksh, ksn, key0, N, t,
+                 scale * kLog2e, khi, klo);
+  load_a<DH, MT>(v + (long long)b * vsb + (long long)h * vsh, vsn, key0, N, t, 1.f,
+                 vhi, vlo);
+
+  // dk and dv: the sums over the tiles so far (see add_tile)
+  float dka[DT][MT][4], dva[DT][MT][4];
 #pragma unroll
-  for (int i = 0; i < DH; ++i) {
-    kr[i] = active ? kb[(long long)key * ksn + i] * kLog2e : 0.f;
-    vr[i] = active ? vb[(long long)key * vsn + i] : 0.f;
-    dkr[i] = 0.f;
-    dvr[i] = 0.f;
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[d][mt][e] = dva[d][mt][e] = 0.f;
+
+  const int ntiles = (N + QT - 1) / QT;
+#pragma unroll
+  for (int s = 0; s < kBwdStages - 1; ++s) {
+    if (s < ntiles)
+      load_rows<DH, C::kThreads>(ring + s * C::kStage, qb, qsn, gb, gsn, lb, db, s * QT, N);
+    cp_async_commit();
   }
 
-  for (int t0 = 0; t0 < N; t0 += QT) {
-    const int nt = min(QT, N - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < nt * DH; e += kThreads) {
-      const int r = e / DH;
-      const int d = e % DH;
-      qs[e] = qb[(long long)(t0 + r) * qsn + d] * scale;
-      gs[e] = gb[(long long)(t0 + r) * gsn + d];
-    }
-    for (int r = threadIdx.x; r < nt; r += kThreads) {
-      ls[r] = lb[t0 + r] * kLog2e;
-      dls[r] = db[t0 + r];
-    }
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<kBwdStages - 2>();
     __syncthreads();
-    for (int r = 0; r < nt; ++r) {
-      const float* qi = qs + r * DH;
-      const float* gi = gs + r * DH;
-      float sc = 0.f, dp = 0.f;
+    const int next = tile + kBwdStages - 1;
+    if (next < ntiles)
+      load_rows<DH, C::kThreads>(ring + (next % kBwdStages) * C::kStage, qb, qsn, gb,
+                                 gsn, lb, db, next * QT, N);
+    cp_async_commit();
+    split_stage<DH, C::kThreads>(ring + (tile % kBwdStages) * C::kStage, sp, true);
+    __syncthreads();
+    // this tile's dk and dv, one partial sum per query group of a pass
+    float tka[DT][MT][GB][4], tva[DT][MT][GB][4];
+    zero(tka);
+    zero(tva);
+
 #pragma unroll
-      for (int i = 0; i < DH; ++i) {
-        sc += qi[i] * kr[i];
-        dp += gi[i] * vr[i];
+    for (int i0 = 0; i0 < NT; i0 += GB) {
+      // S^T - lse = k q^T - lse and dP^T - delta = v dO^T - delta: keys g,
+      // g + 8; queries 8 i + 2t, 8 i + 2t + 1, whose -lse log2 e and -delta
+      // (the split tile's quads) vary along the columns. Query rows past N
+      // are zeros with lse and delta 0: their P^T is 1 and their dS^T 0,
+      // against zero rows of dO and q.
+      float st0[GB][4], dpt0[GB][4];
+#pragma unroll
+      for (int j = 0; j < GB; ++j) {
+        const float4 a = *reinterpret_cast<const float4*>(quads + 4 * (4 * (i0 + j) + t));
+        const float4 c = *reinterpret_cast<const float4*>(quads + 2 * QT + 4 * (4 * (i0 + j) + t));
+        st0[j][0] = a.x; st0[j][1] = a.y; st0[j][2] = a.z; st0[j][3] = a.w;
+        dpt0[j][0] = c.x; dpt0[j][1] = c.y; dpt0[j][2] = c.z; dpt0[j][3] = c.w;
       }
-      const float p = exp2f(sc - ls[r]);
-      const float ds = p * (dp - dls[r]);
+      auto st_init = [&](int, int j) -> const float (&)[4] { return st0[j]; };
+      auto dpt_init = [&](int, int j) -> const float (&)[4] { return dpt0[j]; };
+      float st[MT][GB][4], dpt[MT][GB][4];
 #pragma unroll
-      for (int i = 0; i < DH; ++i) {
-        dvr[i] += p * gi[i];
-        dkr[i] += ds * qi[i];
+      for (int c = 0; c < KS; ++c) {
+        uint32_t qh[GB][2], ql[GB][2], gh[GB][2], gl[GB][2];
+#pragma unroll
+        for (int j = 0; j < GB; ++j) {
+          const int off = ((i0 + j) * 8 + g) * LD + 8 * c + t;
+          row_b(qhi, qlo, off, qh[j], ql[j]);
+          row_b(ghi, glo, off, gh[j], gl[j]);
+        }
+        mma3_rows<MT, GB, KS>(st, st_init, khi, klo, c, qh, ql);
+        mma3_rows<MT, GB, KS>(dpt, dpt_init, vhi, vlo, c, gh, gl);
+      }
+      // P^T = exp2(S^T - lse log2 e) and dS^T = P^T (dP^T - delta)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < GB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            st[mt][j][e] = exp2_sfu(st[mt][j][e]);
+            dpt[mt][j][e] *= st[mt][j][e];
+          }
+
+      // dv += P^T dO, then dk += dS^T q: the 8 queries of group i are one
+      // k-step (query 2t in slot t, 2t + 1 in slot t + 4), so dO's and q's
+      // rows are read in that order
+      {
+        uint32_t phi[MT][GB][4], plo[MT][GB][4];
+        split_acc<MT, GB>(st, phi, plo);
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+          uint32_t bh2[GB][2], bl2[GB][2];
+#pragma unroll
+          for (int j = 0; j < GB; ++j)
+            col_b<LD>(ghi, glo, ((i0 + j) * 8 + 2 * t) * LD + 8 * d + g, bh2[j], bl2[j]);
+          mma3<MT, GB>(tva[d], phi, plo, bh2, bl2);
+        }
+      }
+      {
+        uint32_t shi[MT][GB][4], slo[MT][GB][4];
+        split_acc<MT, GB>(dpt, shi, slo);
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+          uint32_t bh2[GB][2], bl2[GB][2];
+#pragma unroll
+          for (int j = 0; j < GB; ++j)
+            col_b<LD>(qhi, qlo, ((i0 + j) * 8 + 2 * t) * LD + 8 * d + g, bh2[j], bl2[j]);
+          mma3<MT, GB>(tka[d], shi, slo, bh2, bl2);
+        }
       }
     }
+    add_tile(dka, tka);
+    add_tile(dva, tva);
   }
-  if (active) {
-    float* dkb = dk + (long long)b * dksb + (long long)h * dksh + (long long)key * dksn;
-    float* dvb = dv + (long long)b * dvsb + (long long)h * dvsh + (long long)key * dvsn;
+
+  float* dkb = dk + (long long)b * dksb + (long long)h * dksh;
+  float* dvb = dv + (long long)b * dvsb + (long long)h * dvsh;
 #pragma unroll
-    for (int i = 0; i < DH; ++i) {
-      dkb[i] = dkr[i];
-      dvb[i] = dvr[i];
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 16 * mt + 8 * r;
+      if (key >= N) continue;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const int col = 8 * d + 2 * t;
+        *reinterpret_cast<float2*>(dkb + (long long)key * dksn + col) =
+            make_float2(dka[d][mt][2 * r] * scale, dka[d][mt][2 * r + 1] * scale);
+        *reinterpret_cast<float2*>(dvb + (long long)key * dvsn + col) =
+            make_float2(dva[d][mt][2 * r], dva[d][mt][2 * r + 1]);
+      }
     }
-  }
 }
 
 
@@ -600,13 +1043,28 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o, float* 
   return (int)cudaGetLastError();
 }
 
+// The backward's streamed and register operands (q, k, v, dO) need rows on
+// 16 bytes; its outputs are stored 8 bytes at a time.
+bool bwd_aligned(const float* q, const float* k, const float* v, const float* g,
+                 const int* s) {
+  return rows_aligned(q, s) && rows_aligned(k, s + 3) && rows_aligned(v, s + 6) &&
+         rows_aligned(g, s + 9);
+}
+
+bool out_aligned(const float* o, const int* s) {
+  return (reinterpret_cast<uintptr_t>(o) & 7) == 0 && s[0] % 2 == 0 && s[1] % 2 == 0 &&
+         s[2] % 2 == 0;
+}
+
 template <int DH>
 int launch_dq(const float* q, const float* k, const float* v, const float* g,
               const float* lse, const float* delta, float* dq, int B, int H, int N,
               const int* s, float scale, cudaStream_t st) {
-  if (bad_shape(B, H, N, kThreads)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B * H, (N + kThreads - 1) / kThreads);
-  flash_dq_kernel<DH><<<grid, kThreads, 0, st>>>(
+  if (bad_shape(B, H, N, kBwdRows)) return (int)cudaErrorInvalidValue;
+  if (!bwd_aligned(q, k, v, g, s) || !out_aligned(dq, s + 12))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(B * H, (N + kBwdRows - 1) / kBwdRows);
+  flash_dq_kernel<DH><<<grid, Bwd<DH>::kThreads, 0, st>>>(
       q, k, v, g, lse, delta, dq, H, N, s[0], s[1], s[2], s[3], s[4], s[5],
       s[6], s[7], s[8], s[9], s[10], s[11], s[12], s[13], s[14], scale);
   return (int)cudaGetLastError();
@@ -616,9 +1074,11 @@ template <int DH>
 int launch_dkdv(const float* q, const float* k, const float* v, const float* g,
                 const float* lse, const float* delta, float* dk, float* dv, int B,
                 int H, int N, const int* s, float scale, cudaStream_t st) {
-  if (bad_shape(B, H, N, kThreads)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B * H, (N + kThreads - 1) / kThreads);
-  flash_dkdv_kernel<DH><<<grid, kThreads, 0, st>>>(
+  if (bad_shape(B, H, N, kBwdRows)) return (int)cudaErrorInvalidValue;
+  if (!bwd_aligned(q, k, v, g, s) || !out_aligned(dk, s + 12) || !out_aligned(dv, s + 15))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(B * H, (N + kBwdRows - 1) / kBwdRows);
+  flash_dkdv_kernel<DH><<<grid, Bwd<DH>::kThreads, 0, st>>>(
       q, k, v, g, lse, delta, dk, dv, H, N, s[0], s[1], s[2], s[3], s[4], s[5],
       s[6], s[7], s[8], s[9], s[10], s[11], s[12], s[13], s[14], s[15], s[16],
       s[17], scale);
@@ -631,9 +1091,9 @@ int launch_dkdv(const float* q, const float* k, const float* v, const float* g,
 // cudaGetLastError() of its launch (cudaErrorInvalidValue for a head size
 // or shape it does not take). Strides are in elements, (batch, head, row)
 // for each tensor in argument order; the last dimension of every tensor has
-// stride 1. lse and delta are contiguous (B * H, N) fp32. The forward also
-// needs q, k and v on 16 bytes with strides that are multiples of 4, and o
-// on 8 bytes with even strides.
+// stride 1. lse and delta are contiguous (B * H, N) fp32. Every kernel
+// needs its inputs q, k, v (and dO) on 16 bytes with strides that are
+// multiples of 4, and its outputs on 8 bytes with even strides.
 
 // q, k, v (B, H, N, DH) -> o (B, H, N, DH) and lse; strides of q, k, v, o.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,

@@ -369,8 +369,8 @@ extern "C" int gn_silu_fwd(const void* x, const void* gamma, const void* beta,
 // does not spend about fifteen elementwise launches per GN-SiLU site.
 //
 // One block of 256 threads per (sample, group), a contiguous NCHW run, as in
-// the forward. The block recomputes the two-pass mean and rstd, then, per
-// channel of the group, z = (xn * gamma + beta) (1 + scale) + shift and
+// the forward; samples on gridDim.x (any B), groups on gridDim.y. The block
+// recomputes the two-pass mean and rstd, then, per channel of the group, z = (xn * gamma + beta) (1 + scale) + shift and
 // dz = g sigma(z) (1 + z (1 - sigma(z))), and writes
 //   dshift[b, c] = sum dz,  dscale[b, c] = sum dz * y,
 //   dbeta_part[b, c] = sum dy,  dgamma_part[b, c] = sum dy * xn,
@@ -418,8 +418,8 @@ gn_silu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                    float* __restrict__ dshift, float* __restrict__ dgamma_part,
                    float* __restrict__ dbeta_part, int C, int HW, int G, float eps) {
   __shared__ float red[4 * (kThreads / 32)];
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
+  const int b = blockIdx.x;
+  const int g = blockIdx.y;
   const int cg = C / G;
   const long long n = (long long)cg * HW;
   const long long base = ((long long)b * C + (long long)g * cg) * HW;
@@ -517,13 +517,13 @@ extern "C" int gn_silu_bwd(const void* x, const void* gamma, const void* beta,
                            void* dx, void* dgamma, void* dbeta, void* dscale,
                            void* dshift, void* dgamma_part, void* dbeta_part,
                            int B, int C, int HW, int G, float eps, void* stream) {
-  if (B <= 0 || C <= 0 || HW <= 0 || G <= 0 || C % G != 0 || B > 65535)
+  if (B <= 0 || C <= 0 || HW <= 0 || G <= 0 || C % G != 0 || G > 65535)
     return (int)cudaErrorInvalidValue;
   const bool film = scale != nullptr;
   if ((shift != nullptr) != film || (dscale != nullptr) != film || (dshift != nullptr) != film)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  gn_silu_bwd_kernel<<<dim3(G, B), kThreads, 0, st>>>(
+  gn_silu_bwd_kernel<<<dim3(B, G), kThreads, 0, st>>>(
       (const float*)x, (const float*)gamma, (const float*)beta, (const float*)scale,
       (const float*)shift, (const float*)gout, (float*)dx, (float*)dscale,
       (float*)dshift, (float*)dgamma_part, (float*)dbeta_part, C, HW, G, eps);

@@ -28,6 +28,17 @@ __device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(a - __uint_as_float(hi & 0xffffe000u)) + 0x1000u;
 }
 
+// A cheaper split for operands that enter a sum linearly (the flash
+// backward's P and dS): hi is a itself, which the tensor cores truncate to
+// tf32, and lo = a - trunc(a), truncated in turn: two instructions where
+// split() takes four. What is lost is at most 2^-20 of a (lo's
+// truncation), always towards zero, against 2^-22 for split(); not for the
+// scores, whose error the exponential amplifies.
+__device__ __forceinline__ void split_trunc(float a, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(a);
+  lo = __float_as_uint(a - __uint_as_float(hi & 0xffffe000u));
+}
+
 // d += a b on one m16n8k8 tile: a the A fragment (rows g, g + 8 at k-slots
 // t, t + 4 of lane 4 g + t), (b0, b1) the B fragment (k-slots t, t + 4 of
 // column g).
@@ -37,6 +48,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a b + c on one m16n8k8 tile (c in other registers: a chain's first
+// term can start from a bias instead of zeros).
+__device__ __forceinline__ void mma_tf32_c(float (&d)[4], const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1, const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
 }
 
 // 2^x on the SFU, denormal results flushed to zero (ex2.approx.ftz): one
@@ -56,6 +78,16 @@ __device__ __forceinline__ void split_a(float g_t, float g8_t, float g_t4,
   split(g8_t, hi[1], lo[1]);
   split(g_t4, hi[2], lo[2]);
   split(g8_t4, hi[3], lo[3]);
+}
+
+// split_a with split_trunc.
+__device__ __forceinline__ void split_a_trunc(float g_t, float g8_t, float g_t4,
+                                              float g8_t4, uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4]) {
+  split_trunc(g_t, hi[0], lo[0]);
+  split_trunc(g8_t, hi[1], lo[1]);
+  split_trunc(g_t4, hi[2], lo[2]);
+  split_trunc(g8_t4, hi[3], lo[3]);
 }
 
 // One 16-byte asynchronous copy into shared memory (zeros where !pred);

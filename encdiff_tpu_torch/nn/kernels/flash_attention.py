@@ -96,6 +96,15 @@ def _check(name, sizes, q, k, v, *rest):
     return b, h, n, dh
 
 
+def _check_aligned(name, tensors):
+    """Raise unless every (B, H, N) row of each tensor starts on 16 bytes:
+    the kernels copy and read rows 16 bytes at a time."""
+    for tname, t in tensors:
+        if t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3]):
+            raise ValueError(f"{name}: {tname} rows must start on 16 bytes, "
+                             f"strides {t.stride()}")
+
+
 def _heads_view(b, h, n, dh, device):
     return torch.empty((b, n, h, dh), device=device).transpose(1, 2)
 
@@ -109,11 +118,7 @@ def flash_attention_fwd(q, k, v, scale: float):
     if takes_plain(flash_attention_fwd, q):
         return flash_attention_fwd_plain(q, k, v, scale)
     b, h, n, dh = _check("flash_attention_fwd", FWD_HEAD_SIZES, q, k, v)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        # the kernel copies and reads rows 16 bytes at a time
-        if t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3]):
-            raise ValueError(f"flash_attention_fwd: {name} rows must start "
-                             f"on 16 bytes, strides {t.stride()}")
+    _check_aligned("flash_attention_fwd", (("q", q), ("k", k), ("v", v)))
     o = _heads_view(b, h, n, dh, q.device)
     lse = torch.empty((b, h, n), device=q.device)
     strides = head_strides("flash_attention_fwd",
@@ -134,13 +139,16 @@ flash_attention_fwd.plain_calls = 0
 def flash_attention_dq(q, k, v, do, lse, delta, scale: float):
     """dq from q, k, v, dO (B, H, N, dh) and the saved lse and delta
     (B, H, N); dh in ``BWD_HEAD_SIZES``. CPU tensors take the plain version;
-    CUDA tensors launch the dq kernel, or raise."""
+    CUDA tensors launch the dq kernel, or raise on an input it does not take
+    (among them rows of q, k, v or dO that do not start on 16 bytes)."""
     if takes_plain(flash_attention_dq, q):
         return flash_attention_dq_plain(q, k, v, do, lse, delta, scale)
     b, h, n, dh = _check(
         "flash_attention_dq", BWD_HEAD_SIZES, q, k, v,
         ("do", do, q.shape), ("lse", lse, q.shape[:3]),
         ("delta", delta, q.shape[:3]))
+    _check_aligned("flash_attention_dq",
+                   (("q", q), ("k", k), ("v", v), ("do", do)))
     dq = _heads_view(b, h, n, dh, q.device)
     strides = head_strides("flash_attention_dq", (
         ("q", q), ("k", k), ("v", v), ("do", do), ("dq", dq)))
@@ -160,13 +168,15 @@ flash_attention_dq.plain_calls = 0
 def flash_attention_dkdv(q, k, v, do, lse, delta, scale: float):
     """(dk, dv) from the same inputs as ``flash_attention_dq``. CPU tensors
     take the plain version; CUDA tensors launch the key-parallel dk/dv
-    kernel, or raise."""
+    kernel, or raise, as ``flash_attention_dq`` does."""
     if takes_plain(flash_attention_dkdv, q):
         return flash_attention_dkdv_plain(q, k, v, do, lse, delta, scale)
     b, h, n, dh = _check(
         "flash_attention_dkdv", BWD_HEAD_SIZES, q, k, v,
         ("do", do, q.shape), ("lse", lse, q.shape[:3]),
         ("delta", delta, q.shape[:3]))
+    _check_aligned("flash_attention_dkdv",
+                   (("q", q), ("k", k), ("v", v), ("do", do)))
     dk = _heads_view(b, h, n, dh, q.device)
     dv = _heads_view(b, h, n, dh, q.device)
     strides = head_strides("flash_attention_dkdv", (

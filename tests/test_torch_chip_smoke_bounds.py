@@ -2,8 +2,8 @@
 
 ``chip_smoke.py`` reports beside each kernel the least time the card could
 take for its work. These tests hold the counts of work and the bounds of
-the two 3xTF32 kernels (the flash forward and ``fused_attention``) at the
-faces serving shapes, within 1 %, and the way a checked row's bound is
+the 3xTF32 kernels (the flash forward, dq and dk/dv, ``attention_core`` and
+``fused_attention``) at the faces shapes, within 1 %, and the way a checked row's bound is
 chosen and summed. Nothing here needs a card: the arithmetic uses the
 H100 SXM's published peaks and its 132 SMs at 1.98 GHz.
 """
@@ -39,6 +39,38 @@ def test_flash_forward_at_dh_8_is_bound_by_the_exponentials():
     tc_ms, exp_ms, _ = chip_smoke.design_bounds(products, exps, **H100)
     assert exp_ms == pytest.approx(1.03, rel=REL)
     assert tc_ms == pytest.approx(0.83, rel=REL)
+
+
+def test_flash_dq_at_the_faces_64x64_level():
+    # the faces micro-step's 64x64 UNet level: (B, H, N, dh) = (8, 8, 4096, 8)
+    products, exps = chip_smoke.flash_bwd_work("flash_attention_dq",
+                                               8, 8, 4096, 8)
+    assert products == pytest.approx(5.154e10, rel=REL)
+    assert exps == pytest.approx(1.074e9, rel=REL)
+    tc_ms, exp_ms, _ = chip_smoke.design_bounds(products, exps, **H100)
+    assert tc_ms == pytest.approx(0.312, rel=REL)
+    assert exp_ms == pytest.approx(0.257, rel=REL)
+
+
+def test_flash_dkdv_at_the_faces_64x64_level():
+    products, exps = chip_smoke.flash_bwd_work("flash_attention_dkdv",
+                                               8, 8, 4096, 8)
+    assert products == pytest.approx(6.872e10, rel=REL)
+    assert exps == 8 * 8 * 4096 ** 2
+    tc_ms, exp_ms, _ = chip_smoke.design_bounds(products, exps, **H100)
+    assert tc_ms == pytest.approx(0.417, rel=REL)
+    assert tc_ms > exp_ms
+
+
+@pytest.mark.parametrize("name,products", [("flash_attention_dq", 3),
+                                           ("flash_attention_dkdv", 4)])
+def test_flash_backward_products_are_the_fp32_costs_products(name, products):
+    # the fp32 bound's operations are the design's products plus one
+    # exponential a score, at the faces 32x32 level
+    work, exps = chip_smoke.flash_bwd_work(name, 8, 8, 1024, 16)
+    _, ops = chip_smoke.flash_cost(name, 8, 8, 1024, 16)
+    assert work == 2 * products * 64 * 1024 ** 2 * 16
+    assert ops == work + exps
 
 
 def test_fused_attention_cost_at_the_faces_64x64_level():

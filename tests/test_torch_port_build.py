@@ -11,7 +11,7 @@ from encdiff_tpu_torch.nn.kernels import build
 
 #: the sources that include the shared 3xTF32 / cp.async header
 INCLUDERS = ("attention_core", "flash_attention", "fused_attention",
-             "groupnorm_silu")
+             "groupnorm_silu", "mma_probe")
 
 
 def test_every_kernel_source_includes_the_shared_header():

@@ -138,7 +138,7 @@ def test_attention_core_holds_logits_of_30(cuda_device, b, h, n, m, dh):
 @pytest.mark.cuda
 def test_attention_core_takes_more_than_65535_slices(cuda_device):
     """B * H = 70,000 at N = M = 4: the forward puts the slices on
-    gridDim.x (the backward still refuses B * H above 65,535)."""
+    gridDim.x (the backward too: test_attention_core_bwd_takes_more_than_65535_slices)."""
     gen = torch.Generator(cuda_device).manual_seed(15)
     q, k, v = (_heads_view(gen, cuda_device, 8750, 4, 8, 32)
                for _ in range(3))
@@ -258,6 +258,20 @@ def test_attention_core_bwd_kernel_matches_plain(cuda_device, b, h, n, m, dh):
 
 
 @pytest.mark.cuda
+def test_attention_core_bwd_takes_more_than_65535_slices(cuda_device):
+    """B * H = 70,000 at N = M = 4: both backward launches put B * H on
+    gridDim.x."""
+    gen = torch.Generator(cuda_device).manual_seed(19)
+    q, k, v, do = (_heads_view(gen, cuda_device, 8750, 4, 8, 32)
+                   for _ in range(4))
+    grads = attention_core_bwd(q, k, v, do, 32 ** -0.5)
+    torch.cuda.synchronize()
+    for got, ref in zip(grads, attention_core_bwd_plain(q, k, v, do,
+                                                         32 ** -0.5)):
+        torch.testing.assert_close(got, ref, **CARD_TOL)
+
+
+@pytest.mark.cuda
 def test_attention_core_autograd_runs_both_kernels(cuda_device):
     gen = torch.Generator(cuda_device).manual_seed(6)
     q, k, v = (_heads_view(gen, cuda_device, 4, 64, 8, 16).requires_grad_()
@@ -278,7 +292,8 @@ def test_attention_core_autograd_runs_both_kernels(cuda_device):
 @pytest.mark.parametrize("shape,eps,film", [
     ((128, 64, 16, 16), 1e-5, True), ((128, 512, 2, 2), 1e-5, True),
     ((128, 1024, 2, 2), 1e-5, True), ((128, 192, 16, 16), 1e-5, True),
-    ((3, 96, 5, 7), 1e-6, False)])
+    ((3, 96, 5, 7), 1e-6, False),
+    ((70000, 32, 2, 2), 1e-5, True)])    # B above 65,535: B on gridDim.x
 def test_gn_silu_bwd_kernel_matches_plain(cuda_device, shape, eps, film):
     gen = torch.Generator(cuda_device).manual_seed(7)
     args = _gn_inputs(gen, cuda_device, *shape, film)
@@ -312,10 +327,13 @@ def test_groupnorm_silu_autograd_runs_both_kernels(cuda_device):
         torch.testing.assert_close(got, want, **CARD_TOL)
 
 
-def _flash_inputs(gen, device, b, h, n, dh):
-    """q, k, v, dO as the callers' (B, N, H, dh)-backed views, and the
-    saved lse and delta of the plain forward."""
+def _flash_inputs(gen, device, b, h, n, dh, gain=1.0):
+    """q, k, v, dO as the callers' (B, N, H, dh)-backed views (those of
+    CrossAttention's projections, and of the gradient of its head merge),
+    q and k times ``gain``, and the saved lse and delta of the plain
+    forward."""
     q, k, v, do = (_heads_view(gen, device, b, n, h, dh) for _ in range(4))
+    q, k = q * gain, k * gain
     o, lse = flash_attention_fwd_plain(q, k, v, dh ** -0.5)
     delta = (do * o).sum(dim=-1).contiguous()
     return q, k, v, do, lse, delta
@@ -359,12 +377,23 @@ def test_flash_attention_fwd_holds_logits_of_30(cuda_device, b, h, n, dh):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,n,dh", [
-    (2, 2, 256, 8), (1, 4, 1024, 16), (1, 3, 333, 8), (2, 2, 130, 16),
-    (8, 8, 4096, 8)])
-def test_flash_attention_bwd_kernels_match_plain(cuda_device, b, h, n, dh):
+@pytest.mark.parametrize("b,h,n,dh,gain", [
+    (2, 2, 256, 8, 1.0), (1, 4, 1024, 16, 1.0), (1, 3, 333, 8, 1.0),
+    (2, 2, 130, 16, 1.0),
+    (8, 8, 4096, 8, 1.0), (8, 8, 1024, 16, 1.0),   # the faces micro-step's
+    (1, 2, 7, 8, 1.0), (2, 3, 40, 16, 1.0),        # N below one tile
+    (4, 8, 4096, 8, 2.5), (2, 8, 1024, 16, 2.5)])  # logits of ±30
+def test_flash_attention_bwd_kernels_match_plain(cuda_device, b, h, n, dh,
+                                                 gain):
+    """dq and dk/dv against their plain versions on the callers' strided
+    views. At gain 2.5 the scaled logits reach ±30, where one tf32 pass
+    would miss CARD_TOL: the 3xTF32 split must hold it."""
     gen = torch.Generator(cuda_device).manual_seed(10)
-    args = _flash_inputs(gen, cuda_device, b, h, n, dh)
+    args = _flash_inputs(gen, cuda_device, b, h, n, dh, gain)
+    if gain > 1.0:
+        q, k = args[0][:1, :1], args[1][:1, :1]
+        logits = torch.matmul(q * dh ** -0.5, k.transpose(-1, -2))
+        assert logits.abs().max().item() >= 25.0
     before = flash_attention_dq.launches, flash_attention_dkdv.launches
     dq = flash_attention_dq(*args, dh ** -0.5)
     dk, dv = flash_attention_dkdv(*args, dh ** -0.5)
@@ -378,6 +407,23 @@ def test_flash_attention_bwd_kernels_match_plain(cuda_device, b, h, n, dh):
         torch.testing.assert_close(got, want, **CARD_TOL)
     # no atomics: a second run repeats bit for bit
     assert torch.equal(dk, flash_attention_dkdv(*args, dh ** -0.5)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,dh", [(8750, 8, 7, 8), (8750, 8, 20, 16)])
+def test_flash_attention_bwd_takes_more_than_65535_slices(cuda_device, b, h,
+                                                          n, dh):
+    """B * H = 70,000: both backward kernels put B * H on gridDim.x."""
+    gen = torch.Generator(cuda_device).manual_seed(20)
+    args = _flash_inputs(gen, cuda_device, b, h, n, dh)
+    dq = flash_attention_dq(*args, dh ** -0.5)
+    dk, dv = flash_attention_dkdv(*args, dh ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dq, flash_attention_dq_plain(*args, dh ** -0.5),
+                               **CARD_TOL)
+    for got, want in zip((dk, dv),
+                         flash_attention_dkdv_plain(*args, dh ** -0.5)):
+        torch.testing.assert_close(got, want, **CARD_TOL)
 
 
 @pytest.mark.cuda
@@ -403,6 +449,8 @@ def test_flash_attention_autograd_runs_all_three_kernels(cuda_device):
 def test_flash_wrappers_reject_what_they_do_not_take(cuda_device):
     q = torch.zeros(1, 2, 256, 16, device=cuda_device)
     lse = torch.zeros(1, 2, 256, device=cuda_device)
+    shifted = torch.zeros(2 * 256 * 16 + 1,
+                          device=cuda_device)[1:].view(1, 2, 256, 16)
     bad = [
         lambda: flash_attention_fwd(*(torch.zeros(
             1, 2, 16, 256, device=cuda_device).transpose(2, 3),) * 3, 0.3),
@@ -418,10 +466,15 @@ def test_flash_wrappers_reject_what_they_do_not_take(cuda_device):
                                    .contiguous().transpose(1, 2), lse, 0.3),
         lambda: flash_attention_dkdv(q, q, q, q, lse, lse[:, :, :128], 0.3),
         lambda: flash_attention_dkdv(q, q, q.cpu(), q, lse, lse, 0.3),
-        # rows that do not start on 16 bytes (the forward copies 16 bytes)
-        lambda: flash_attention_fwd(*(torch.zeros(
-            2 * 256 * 16 + 1, device=cuda_device)[1:].view(1, 2, 256, 16),)
-            * 3, 0.3),
+        # rows that do not start on 16 bytes (every kernel copies 16 bytes)
+        lambda: flash_attention_fwd(*(shifted,) * 3, 0.3),
+        lambda: flash_attention_dq(q, q, q, shifted, lse, lse, 0.3),
+        lambda: flash_attention_dq(shifted, q, q, q, lse, lse, 0.3),
+        lambda: flash_attention_dkdv(q, shifted, q, q, lse, lse, 0.3),
+        lambda: flash_attention_dkdv(q, q, q, shifted, lse, lse, 0.3),
+        # rows 4 bytes apart from 16: a row stride not a multiple of 4
+        lambda: flash_attention_dkdv(q, q, torch.zeros(
+            1, 2, 256, 18, device=cuda_device)[..., :16], q, lse, lse, 0.3),
     ]
     for call in bad:
         with pytest.raises(ValueError):
