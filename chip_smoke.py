@@ -42,6 +42,13 @@ The flagship's stage-2 train step, B = 128, from the same checkpoint through
     the new batch statistics.
 12. train-profile: one train step's device time by kernel (torch.profiler).
 
+Then vq-backward: the two backward kernels at shapes of the VQ first stage
+that no path runs yet, each against its plain version and timed as in
+train-kernels: ``gn_silu_bwd`` without FiLM at the decoder's 256x256 level
+(B = 32; 65,536 floats a group, on clusters of 4) and ``attention_core_bwd``
+at the mid block's one head of 128 over the flagship's 16x16 latents
+(B = 160).
+
 The faces configuration's stage-2 train step (256 px images, 64x64 latents,
 micro-batch 8, 4-way accumulation) from a fresh seeded init, through the
 same entry points:
@@ -216,6 +223,11 @@ FACES_INPUTS = 4
 FACES_DDIM_STEPS = 50
 FACES_FID_NUM = 64
 FACES_REFERENCE_SAMPLES = 20
+#: the VQ first stage's backward shapes, run by no path yet (ROADMAP queue 1
+#: #10, #12): GN-SiLU without FiLM at the decoder's 256x256 level, and the
+#: mid block's attention (one head of 128) over 16x16 latents
+VQ_BWD_SHAPES = {"gn_silu_bwd": [((32, 32, 256, 256), 1e-6, False)],
+                 "attention_core_bwd": [(160, 1, 256, 256, 128)]}
 KERNELS = {
     "groupnorm_silu": dict(
         source="encdiff_tpu_torch/csrc/groupnorm_silu.cu",
@@ -260,8 +272,10 @@ BASELINE = {"flash_attention_fwd": "attention_core_ms",
 
 
 #: kernels every profile lists, in the top 12 or not: the redesigned
-#: forward kernels of attention_core and groupnorm_silu
-PROFILE_ALWAYS = ("attn_core_mma_kernel", "gn_silu_fwd_kernel")
+#: kernels of attention_core and groupnorm_silu, forward and backward
+PROFILE_ALWAYS = ("attn_core_mma_kernel", "gn_silu_fwd_kernel",
+                  "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
+                  "gn_silu_bwd_kernel")
 
 
 def mma_rate(card):
@@ -345,21 +359,21 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int = 20) -> float:
+def graph_ms(fn, reps: int = 20, stream=None) -> float:
     """Device time per call of ``fn``: CUDA events around one replay of a
     CUDA graph of ``reps`` back-to-back calls, captured after a warm-up
-    call. The host's share (Python, the wrapper, the launch) is left out,
-    which back-to-back event timing (``time_ms``) shows below about 0.05
-    ms a call."""
+    call (on ``stream``, if given). The host's share (Python, the wrapper,
+    the launch) is left out, which back-to-back event timing (``time_ms``)
+    shows below about 0.05 ms a call."""
     fn()
     torch.cuda.synchronize()
-    side = torch.cuda.Stream()
+    side = torch.cuda.Stream() if stream is None else stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -373,6 +387,23 @@ def graph_ms(fn, reps: int = 20) -> float:
     ms = start.elapsed_time(end) / reps
     del graph
     return ms
+
+
+def backward_times(forward, leaves, grad):
+    """(event ms, device ms) of the autograd backward of ``forward(leaves)``
+    for the cotangent ``grad``: a library call's gradients, timed as
+    ``time_ms`` and ``graph_ms`` time a kernel. The backward runs on the
+    stream its forward ran on, so both run on one side stream, which the
+    graph's capture uses."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = forward(*leaves)
+        backward = lambda: torch.autograd.grad(out, leaves, grad,
+                                               retain_graph=True)
+        times = time_ms(backward), graph_ms(backward, stream=side)
+    torch.cuda.current_stream().wait_stream(side)
+    return times
 
 
 def record_shapes(model):
@@ -436,6 +467,15 @@ def attn_cost(b, h, n, m, dh):
     score)."""
     bh = b * h
     return 4 * bh * dh * (2 * n + 2 * m), bh * (4 * n * m * dh + 4 * n * m)
+
+
+def attn_bwd_work(b, h, n, m, dh):
+    """(product FLOPs, exponentials) of one attention_core_bwd call: five
+    products of 2 N M dh FLOPs per (batch, head) (q kᵀ, dO vᵀ, Pᵀ dO, dS k,
+    dSᵀ q) and one exponential per score: what the function needs, not the
+    recomputations of the kernels' design."""
+    bh = b * h
+    return 10 * bh * n * m * dh, bh * n * m
 
 
 def attn_bwd_cost(b, h, n, m, dh):
@@ -697,7 +737,11 @@ def check_attn(shape, gen, card):
                 tc_ms=tc_ms, exp_ms=exp_ms)
 
 
-def check_attn_bwd(shape, gen):
+def check_attn_bwd(shape, gen, card):
+    """Check and time attention_core_bwd at (B, H, N, M, dh) on the callers'
+    layout, beside its plain version and SDPA's autograd backward (which
+    gives dq, dk and dv too), on event time and on device time (CUDA-graph
+    replays), with the design bound on ``card``."""
     b, h, n, m, dh = shape
     # the callers' layout: (B, L, H, dh) buffers viewed as (B, H, L, dh);
     # dO arrives as the gradient of such a view
@@ -707,21 +751,28 @@ def check_attn_bwd(shape, gen):
     scale = dh ** -0.5
     kernel = lambda: attention_core_bwd(q, k, v, do, scale)
     plain = lambda: attention_core_bwd_plain(q, k, v, do, scale)
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, scale=scale)
-    library = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
     for a, r in zip(got, ref):
         torch.testing.assert_close(a, r, **KERNEL_TOL)
+    err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+    del got, ref
     nbytes, ops = attn_bwd_cost(*shape)
-    return dict(err=max((a - r).abs().max().item() for a, r in zip(got, ref)),
-                ms=time_ms(kernel), plain_ms=time_ms(plain),
-                library_ms=time_ms(library),
-                bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=ops / PEAK_FP32 * 1e3)
+    tc_ms, exp_ms, _ = design_bounds(*attn_bwd_work(*shape), **card)
+    library_ms, library_device_ms = backward_times(
+        lambda *a: F.scaled_dot_product_attention(*a, scale=scale),
+        [t.detach().requires_grad_() for t in (q, k, v)], do)
+    return dict(err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
+                library_ms=library_ms, device_ms=graph_ms(kernel),
+                library_device_ms=library_device_ms,
+                bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=ops / PEAK_FP32 * 1e3,
+                tc_ms=tc_ms, exp_ms=exp_ms)
 
 
 def check_gn_bwd(shape, eps, film, gen):
+    """Check and time gn_silu_bwd at x's shape beside its plain version and
+    the autograd backward of the GroupNorm chain (F.group_norm, the FiLM,
+    F.silu), on event time and on device time (CUDA-graph replays)."""
     b, c, h, w = shape
     dev = "cuda"
     x = torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5
@@ -732,23 +783,33 @@ def check_gn_bwd(shape, eps, film, gen):
     g = torch.randn(shape, generator=gen, device=dev)
     kernel = lambda: gn_silu_bwd(g, x, gamma, beta, sc, sh, eps=eps)
     plain = lambda: groupnorm_silu_bwd_plain(g, x, gamma, beta, sc, sh, eps=eps)
-    leaves = [t.detach().requires_grad_() for t in (x, gamma, beta, sc, sh)
-              if t is not None]
-    y = F.group_norm(leaves[0], 32, leaves[1], leaves[2], eps)
-    if film:
-        y = y * (1.0 + leaves[3][:, :, None, None]) + leaves[4][:, :, None, None]
-    out = F.silu(y)
-    library = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+    def library(x_, gamma_, beta_, *film_rows):
+        y = F.group_norm(x_, 32, gamma_, beta_, eps)
+        if film_rows:
+            y = (y * (1.0 + film_rows[0][:, :, None, None])
+                 + film_rows[1][:, :, None, None])
+        return F.silu(y)
+
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
     pairs = [(a, r) for a, r in zip(got, ref) if r is not None]
     for a, r in pairs:
         torch.testing.assert_close(a, r, **KERNEL_TOL)
+    err = max((a - r).abs().max().item() for a, r in pairs)
+    del got, ref, pairs
     nbytes, ops = gn_bwd_cost(shape, film)
-    return dict(err=max((a - r).abs().max().item() for a, r in pairs),
-                ms=time_ms(kernel), plain_ms=time_ms(plain),
-                library_ms=time_ms(library),
-                bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=ops / PEAK_FP32 * 1e3)
+    plan = kgn.gn_silu_bwd_plan(b, c, h * w, 32, torch.cuda.get_device_properties(
+        0).shared_memory_per_block_optin)
+    library_ms, library_device_ms = backward_times(
+        library, [t.detach().requires_grad_() for t in (x, gamma, beta, sc, sh)
+                  if t is not None], g)
+    return dict(err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
+                library_ms=library_ms, device_ms=graph_ms(kernel),
+                library_device_ms=library_device_ms,
+                bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=ops / PEAK_FP32 * 1e3,
+                path=f"{plan.per_block} a block" if plan.cluster == 1
+                else f"cluster of {plan.cluster}")
 
 
 @contextlib.contextmanager
@@ -799,7 +860,7 @@ def check_rows(name, shapes, gen, card, seen=None):
     check = {"groupnorm_silu": lambda key: check_gn(*key, gen),
              "attention_core": lambda key: check_attn(key, gen, card),
              "gn_silu_bwd": lambda key: check_gn_bwd(*key, gen),
-             "attention_core_bwd": lambda key: check_attn_bwd(key, gen),
+             "attention_core_bwd": lambda key: check_attn_bwd(key, gen, card),
              "fused_attention": lambda key: check_fused(key, gen, card)}.get(
                  name, lambda key: check_flash(name, key, gen, card))
     seen = {} if seen is None else seen
@@ -835,8 +896,10 @@ def check_rows(name, shapes, gen, card, seen=None):
 #: flash backward kernels; for
 #: fused_attention the faster of its chain and its SDPA chain (event times
 #: of back-to-back calls); SDPA for attention_core and the PyTorch GroupNorm
-#: chain for groupnorm_silu, on device time (CUDA-graph replays: most of
-#: their shapes take under 0.05 ms, where event timing reads the host)
+#: chain for groupnorm_silu, and their autograd backwards for
+#: attention_core_bwd and gn_silu_bwd, on device time (CUDA-graph replays:
+#: most of their shapes take under 0.05 ms, where event timing reads the
+#: host)
 YARDSTICK = {
     "flash_attention_fwd": ("SDPA", lambda r: r["ms"],
                             lambda r: r["library_ms"]),
@@ -850,7 +913,13 @@ YARDSTICK = {
                        lambda r: r["library_device_ms"]),
     "groupnorm_silu": ("the GroupNorm chain on device time",
                        lambda r: r["device_ms"],
-                       lambda r: r["library_device_ms"])}
+                       lambda r: r["library_device_ms"]),
+    "attention_core_bwd": ("SDPA's autograd backward on device time",
+                           lambda r: r["device_ms"],
+                           lambda r: r["library_device_ms"]),
+    "gn_silu_bwd": ("the GroupNorm chain's autograd backward on device time",
+                    lambda r: r["device_ms"],
+                    lambda r: r["library_device_ms"])}
 
 
 def print_yardstick(phase_name, rows_by_kernel):
@@ -1083,6 +1152,7 @@ def main() -> int:
     del model
 
     train_rows, train_launches, per_step = train_phases(smi, card)
+    vq_rows = vq_backward_phase(card)
     faces_rows, faces_launches, per_micro = faces_phases(
         smi, card, seen_rows(serve_rows, train_rows))
     fserve_rows, fserve_other, fserve_launches, per_fserve = faces_serve_phases(
@@ -1106,7 +1176,8 @@ def main() -> int:
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": max([p["max_abs_err"] for p in parts.values()]
-                               + [r["err"] for r in fserve_other.get(name, ())]),
+                               + [r["err"] for r in fserve_other.get(name, ())]
+                               + [r["err"] for r in vq_rows.get(name, ())]),
             **{k: top[k] for k in (*fields, BASELINE.get(name)) if k in top}}
         for workload, calls in (("train_step", per_step),
                                 ("faces_micro_step", per_micro),
@@ -1124,15 +1195,17 @@ def main() -> int:
           "256 px) for the flash kernels; train_step, faces_micro_step and "
           "faces_serve (one UNet call at B=32 plus one 256 px decode of 32) "
           "hold every kernel's sums over those calls; max_abs_err also "
-          "covers the faces serving shapes at B=16 and B=64 (attention_core_ms: "
+          "covers the faces serving shapes at B=16 and B=64 and the VQ "
+          "backward shapes of vq-backward (attention_core_ms: "
           "attention_core or attention_core_bwd at the flash kernels' shapes; "
           "chain_ms: nn.Linear x3 + attention_core + nn.Linear at "
           "fused_attention's shapes, whose SDPA form is its library_ms; the "
           "library backward gives dq, dk and dv together); device_ms and "
-          "library_device_ms (attention_core, groupnorm_silu): the kernel and "
-          "its library call on device time, from CUDA-graph replays; for the "
-          "3xTF32 kernels (flash_attention_fwd, flash_attention_dq, "
-          "flash_attention_dkdv, attention_core, fused_attention) bound_ms "
+          "library_device_ms (attention_core, groupnorm_silu, "
+          "attention_core_bwd, gn_silu_bwd): the kernel and its library call "
+          "on device time, from CUDA-graph replays; for the 3xTF32 kernels "
+          "(flash_attention_fwd, flash_attention_dq, flash_attention_dkdv, "
+          "attention_core, attention_core_bwd, fused_attention) bound_ms "
           "is the "
           "design's bound, the largest of bytes, tc_ms (three tf32 passes "
           "of the products at 495 TFLOP/s), exp_ms (the exponentials at 16 "
@@ -1372,6 +1445,20 @@ def train_phases(smi, card):
                   profile(lambda: train_step(model, state, batch,
                                              generator=gen), calls=2))
     return rows, launches, per_step
+
+
+def vq_backward_phase(card):
+    """The two backward kernels at ``VQ_BWD_SHAPES``, each against its plain
+    version, timed as in train-kernels. Returns the checked rows."""
+    t0 = time.perf_counter()
+    kgen = torch.Generator("cuda").manual_seed(SEED + 5)
+    rows = {name: check_rows(name, shapes, kgen, card)
+            for name, shapes in VQ_BWD_SHAPES.items()}
+    print_yardstick("vq-backward", rows)
+    phase("vq-backward", t0, "gn_silu_bwd without FiLM and "
+          "attention_core_bwd at dh 128 match their plain versions at "
+          f"{ {k: v for k, v in VQ_BWD_SHAPES.items()} } (tol {KERNEL_TOL})")
+    return rows
 
 
 def redraw_trainable(model, gen):

@@ -529,264 +529,917 @@ extern "C" int attention_core_fwd(const void* q, const void* k, const void* v, v
 // P = softmax(q k^T * scale), dv = P^T dO, dP = dO v^T,
 // dS = P o (dP - rowsum(dP o P)) * scale, dq = dS k, dk = dS^T q.
 //
-// Work split. The TPU kernel runs one program per (batch, head) in order;
-// here blocks run in parallel and nothing carries over between them, and dk
-// and dv sum over every query row. So the backward is two launches, neither
-// of which writes an N x M tensor:
+// The TPU kernel runs one program per (batch, head) in order, with all keys
+// at once. Here blocks run in parallel and nothing carries over between
+// them, and dk and dv sum over every query row, so the backward is two
+// launches (three where dk/dv splits its query rows), none of which writes
+// an N x M tensor. Every product runs on the tensor cores as 3xTF32 on
+// mma.sync.m16n8k8, the flash backward's scheme (flash_attention.cu; the
+// helpers are in tf32_mma.cuh): a block splits each streamed tile once into
+// hi and lo in shared memory; P and dS, linear in the sums, take the
+// two-instruction split; each tile sums into fresh accumulators that are
+// then added to the totals, since the tensor cores truncate each mma's sum.
 //
-// 1. attn_bwd_dq_kernel, row-parallel (one thread per query row, K and V
-//    tiles in shared memory): a first pass over the keys
-//    finds the row's logsumexp L and delta = rowsum(dP o P) with an online
-//    rescale; a second pass recomputes P = exp(s - L) and sums dq. It writes
-//    L and delta to a (B * H, N) scratch.
-// 2. attn_bwd_dkdv_kernel, key-parallel: S consecutive lanes share one key
-//    and split the query rows between them (S = 128 / next_pow2(M), at most
-//    32, so that M = 20 still fills a block); Q, dO, L and delta are staged
-//    in shared memory tile by tile, and the S partial sums of dk and dv are
-//    added with warp shuffles, in a fixed order, before one lane writes them.
+// 1. attn_bwd_dq_kernel, query-parallel: a warp owns 32 query rows (two m16
+//    tiles) at dh 8 and 16, 16 at dh 32 to 128; a block of up to 4 warps
+//    takes 16 to 128 rows of one (batch, head), fewer warps where N is
+//    short (the flagship's 4x4 and 2x2 levels: one warp). K and V stream
+//    through a ring of cp.async stages (3 stages of 64 keys at dh 8 and 16,
+//    2 of 64 at dh 32 and of 32 at dh 64 and 128; M rounded up to 8 or 16
+//    where that is less). The forward saves no logsumexp, and the autograd
+//    Function saves only q, k and v, as the JAX VJP's residuals are; so a
+//    first pass over the keys computes S = q k^T and dP = dO v^T on the
+//    tensor cores and, per lane, a running maximum, the sum of exp2(S - m)
+//    and of exp2(S - m) dP, combined over the quad at the end into the
+//    logsumexp L (log2 units) and delta = rowsum(dP o P). The second pass
+//    recomputes S - L and dP - delta with -L and -delta riding on the first
+//    mma's C operand (hi*hi first), then P = exp2(S - L), dS = P (dP -
+//    delta) and dq += dS k. Where M fits one tile (the cross-attention's
+//    M = 20, and M <= 64 at dh <= 32) both passes run on one split tile,
+//    loaded once. L and delta go to a (2, B * H, N) scratch.
+// 2. attn_bwd_dkdv_kernel, key-parallel, on the transposed scores: a warp
+//    owns 32 (or 16) keys as A operands, and q, dO and their L and delta
+//    stream through the ring (the C operands of S^T - L and dP^T - delta
+//    vary along the columns: the split tile carries them as quads). Where
+//    M is short a block's warps do not all get keys of their own: the
+//    block's 4 warps split each streamed tile's 8-row groups between them
+//    (the cross-attention's M = 20 is one warp's keys, and 4 warps share
+//    every tile), and add their partial dk and dv in shared memory, warp by
+//    warp. Where B * H times the key blocks is below 528 blocks (4 an SM),
+//    the query tiles also split over blocks (gridDim.y): the faces' (8, 8,
+//    4096, 20, 8) runs 64 x 8 blocks of 512 query rows each instead of 64.
+//    Those partial sums go to a (2, B * H, splits, M, dh) scratch, and
+// 3. attn_bwd_sum_kernel adds them in split order. No float atomics: a
+//    second run repeats bit for bit.
+// Keys past M are zero rows whose scores the dq kernel masks to -inf (the
+// running maximum starts at -1e30, so a lane whose keys are all masked, as
+// at M = 4, adds nothing and makes no NaN); rows past N are zero rows with
+// L = delta = 0, whose dS^T is 0.
 //
-// Every tensor is addressed through its own batch, head and row strides with
-// the last dimension contiguous: dO arrives as the gradient of the
-// forward's (B, N, H, DH)-backed view, and dq, dk, dv are written into
-// (B, L, H, DH)-backed buffers so that the callers' head merge costs no copy.
-// Head sizes 8, 16 and 32 (the UNet's at every level), one thread per row.
+// Layout: every tensor is addressed through its own batch, head and row
+// strides with the last dimension contiguous: dO arrives as the gradient of
+// the forward's (B, N, H, DH)-backed view, and dq, dk, dv are written into
+// (B, L, H, DH)-backed buffers so that the callers' head merge costs no
+// copy. q, k, v and dO rows must start on 16 bytes (the cp.async copies;
+// the wrapper checks, and this file returns cudaErrorInvalidValue). Head
+// sizes 8, 16, 32 (the UNet's) and 64, 128 (the VQ mid block's); at 64 and
+// 128 a warp's A rows sit in shared memory and are split where they are
+// used, and at 128 dv and dk run as two launches of the dk/dv kernel (S^T
+// alone for dv, then S^T, dP^T and dk), since both sums and their per-tile
+// parts would take 256 registers. B * H is gridDim.x (any B * H that fits
+// an int).
 //
-// Bound on the H100: the five N x M x DH products (two recomputes of
-// q k^T, dO v^T twice, and the dq, dk, dv sums) and the exps are fp32 on the
-// CUDA cores; at N = M = 256 operations bind, at M = 20 bytes. Only tensor
-// cores, as in the forward, would lift the first (a later change). Both
-// kernels put B * H on gridDim.x (any B * H that fits an int) and the row or
-// key tiles on gridDim.y.
+// Bound on the H100 (chip_smoke.py's attn_bwd_work and design_bounds): five
+// N x M x dh products (q k^T, dO v^T, P^T dO, dS k, dS^T q), three tf32
+// passes each at 495 TFLOP/s; N M exponentials at 16 per SM and clock;
+// q, k, v, dO read and dq, dk, dv written once at 3.35 TB/s. At the
+// flagship's (128, 8, 256, 256, 8) the tensor cores bind (0.033 ms; bytes
+// 0.018, exponentials 0.016 at 1,980 MHz); at M = 20 the bytes do. In fp32
+// on the CUDA cores (67 TFLOP/s) the same products take 10 N M dh FLOPs:
+// the bound of the first design, which ran them there. This design runs
+// nine products, not five (the first pass recomputes S and dP, and the
+// dk/dv kernel S^T and dP^T) and three exponentials a score: the price of
+// saving only q, k and v.
 
 namespace {
 
-constexpr int kTileFloats = 4096;  // one K (or q) tile and one V (or dO) tile: 16 KB each
-constexpr int kBwdThreads = 128;
+using namespace tf32;
+
+constexpr int kBwdWarps = 4;                    // warps a block, at most
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdTargetBlocks = 4 * 132;       // dk/dv splits N below this
+constexpr float kNoScore = -1e30f;              // the running maximum's start
 
 template <int DH>
-__global__ void __launch_bounds__(kBwdThreads)
+struct Bwd {
+  static constexpr int kTiles = DH <= 16 ? 2 : 1;   // m16 tiles a warp
+  static constexpr int kRows = 16 * kTiles;          // rows (or keys) a warp owns
+  static constexpr int kGroups = DH == 8 ? 2 : 1;    // 8-column groups taken at a time
+  static constexpr int kTile = DH >= 64 ? 32 : 64;   // rows of a streamed tile, at most
+  static constexpr int kStages = DH <= 16 ? 3 : 2;   // tiles in the ring
+  static constexpr bool kASmem = DH >= 64;           // A rows in shared memory
+  static constexpr int kLd = DH + 4;                 // pitch of split tiles and A rows
+  // blocks an SM the registers must allow: 4 at dh 8 (128 registers a
+  // thread; faster than 3 at the train shapes), 2 at 16 and 32
+  static constexpr int kMinBlocks = DH == 8 ? 4 : DH <= 32 ? 2 : 1;
+};
+
+// What one backward launch does: `warps` a block; streamed tiles of kt rows,
+// ntiles of them; for dk/dv, kw key groups x qw query parts of the warps and
+// the query tiles split over `splits` blocks of per_split tiles; blocks_y
+// on gridDim.y; smem in bytes.
+struct BwdPlan {
+  int warps, kt, ntiles, kw, qw, splits, per_split, blocks_y;
+  long long smem;
+};
+
+inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+template <int DH>
+long long ring_floats(int kt) {  // the stages, then the split tile
+  return Bwd<DH>::kStages * (2LL * kt * DH + 2 * kt) + 4LL * kt * Bwd<DH>::kLd + 4 * kt;
+}
+
+template <int DH>
+BwdPlan plan_dq(int N, int M) {
+  using C = Bwd<DH>;
+  BwdPlan p{};
+  const int tiles = (N + C::kRows - 1) / C::kRows;
+  p.warps = tiles < kBwdWarps ? tiles : kBwdWarps;
+  const int m = round_up(M, 8 * C::kGroups);
+  p.kt = m < C::kTile ? m : C::kTile;
+  p.ntiles = (M + p.kt - 1) / p.kt;
+  p.kw = p.qw = p.splits = 1;
+  p.per_split = p.ntiles;
+  p.blocks_y = (N + C::kRows * p.warps - 1) / (C::kRows * p.warps);
+  const long long a = C::kASmem ? 2LL * p.warps * C::kRows * C::kLd : 0;
+  p.smem = 4 * (ring_floats<DH>(p.kt) + a);
+  return p;
+}
+
+template <int DH>
+BwdPlan plan_dkdv(long long BH, int N, int M, int outputs) {
+  using C = Bwd<DH>;
+  BwdPlan p{};
+  const int key_tiles = (M + C::kRows - 1) / C::kRows;
+  p.kw = key_tiles < kBwdWarps ? key_tiles : kBwdWarps;
+  const int n = round_up(N, 8 * C::kGroups);
+  p.kt = n < C::kTile ? n : C::kTile;
+  const int chunks = p.kt / (8 * C::kGroups);
+  p.qw = kBwdWarps / p.kw < chunks ? kBwdWarps / p.kw : chunks;
+  p.warps = p.kw * p.qw;
+  p.ntiles = (N + p.kt - 1) / p.kt;
+  const int key_blocks = (M + C::kRows * p.kw - 1) / (C::kRows * p.kw);
+  const long long blocks = BH * key_blocks;
+  p.splits = 1;
+  if (blocks < kBwdTargetBlocks) {
+    const long long want = (kBwdTargetBlocks + blocks - 1) / blocks;
+    p.splits = want < p.ntiles ? (int)want : p.ntiles;
+  }
+  p.per_split = (p.ntiles + p.splits - 1) / p.splits;
+  p.splits = (p.ntiles + p.per_split - 1) / p.per_split;
+  p.blocks_y = key_blocks * p.splits;
+  const long long a = C::kASmem ? 2LL * p.kw * C::kRows * C::kLd : 0;
+  // the qw warps' sums, added in shared memory after the streaming loop
+  const long long sums = p.qw > 1 ? 32LL * p.warps * outputs * (DH / 8) * C::kTiles * 4 : 0;
+  const long long main = ring_floats<DH>(p.kt) + a;
+  p.smem = 4 * (main > sums ? main : sums);
+  return p;
+}
+
+// Floats of the scratch a call needs: L and delta (2, B * H, N), then, on
+// 16 bytes, the dk/dv partial sums (2, B * H, splits, M, DH) where the query
+// rows split over blocks.
+template <int DH>
+long long scratch_floats(long long BH, int N, int M) {
+  const BwdPlan p = plan_dkdv<DH>(BH, N, M, 2);
+  const long long stats = (2 * BH * N + 3) / 4 * 4;
+  return stats + (p.splits > 1 ? 2 * BH * p.splits * M * DH : 0);
+}
+
+// Rows [r0, r0 + kt) of two row-strided (L, DH) tensors a and b into one
+// ring stage at pitch DH, 16 bytes a copy, rows past L zero-filled; with
+// l2 and dl (L and delta of the (batch, head)), those rows' entries behind
+// them, 4 bytes a copy, zeros past L.
+template <int DH>
+__device__ __forceinline__ void bwd_load(float* stage, const float* a, long long a_rs,
+                                         const float* b, long long b_rs, const float* l2,
+                                         const float* dl, int r0, int L, int kt) {
+  constexpr int CPR = DH / 4;
+  for (int e = threadIdx.x; e < kt * CPR; e += blockDim.x) {
+    const int r = e / CPR, c = 4 * (e % CPR);
+    const int row = r0 + r;
+    const bool ok = row < L;
+    const long long rr = ok ? row : 0;
+    cp_async16(stage + r * DH + c, a + rr * a_rs + c, ok);
+    cp_async16(stage + (kt + r) * DH + c, b + rr * b_rs + c, ok);
+  }
+  if (l2 != nullptr) {
+    float* st = stage + 2 * kt * DH;
+    for (int r = threadIdx.x; r < kt; r += blockDim.x) {
+      const int row = r0 + r;
+      const bool ok = row < L;
+      const int rr = ok ? row : 0;
+      cp_async4(st + r, l2 + rr, ok);
+      cp_async4(st + kt + r, dl + rr, ok);
+    }
+  }
+}
+
+// A landed stage split once for the block: hi of a, hi of b, lo of a, lo of
+// b (kt rows each at pitch DH + 4: 4 or 12 mod 16, so that a warp's reads
+// are free of bank conflicts along a row and down a column); with stats,
+// the C operands where the transposed scores start: for query pair p of the
+// tile, -L of rows 2p, 2p + 1, twice (an m16 tile's two rows), and the same
+// of -delta.
+template <int DH>
+__device__ __forceinline__ void bwd_split(const float* stage, uint32_t* sp, int kt, bool stats) {
+  constexpr int LD = DH + 4, CPR = DH / 4;
+  uint32_t* hi = sp;
+  uint32_t* lo = sp + 2 * kt * LD;
+  for (int e = threadIdx.x; e < 2 * kt * CPR; e += blockDim.x) {
+    const int r = e / CPR, c = 4 * (e % CPR);  // r: row of both tensors, 0..2 kt
+    const float4 x = *reinterpret_cast<const float4*>(stage + r * DH + c);
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + r * LD + c) = h;
+    *reinterpret_cast<uint4*>(lo + r * LD + c) = l;
+  }
+  if (stats) {
+    const float* st = stage + 2 * kt * DH;
+    float* quads = reinterpret_cast<float*>(sp + 4 * kt * LD);
+    for (int p = threadIdx.x; p < kt / 2; p += blockDim.x) {
+      const float2 l2 = *reinterpret_cast<const float2*>(st + 2 * p);
+      const float2 d2 = *reinterpret_cast<const float2*>(st + kt + 2 * p);
+      *reinterpret_cast<float4*>(quads + 4 * p) = make_float4(-l2.x, -l2.y, -l2.x, -l2.y);
+      *reinterpret_cast<float4*>(quads + 2 * kt + 4 * p) =
+          make_float4(-d2.x, -d2.y, -d2.x, -d2.y);
+    }
+  }
+}
+
+// Rows [r0, r0 + rows) of two row-strided (L, DH) tensors into shared memory
+// at pitch DH + 4, by cp.async, zeros past L: the A rows at dh 64 and 128.
+template <int DH>
+__device__ __forceinline__ void load_a_rows(float* dst, const float* a, long long a_rs,
+                                            const float* b, long long b_rs, int r0, int rows,
+                                            int L) {
+  constexpr int CPR = DH / 4, LD = DH + 4;
+  for (int e = threadIdx.x; e < 2 * rows * CPR; e += blockDim.x) {
+    const int r = e / CPR, c = 4 * (e % CPR);
+    const int which = r / rows, row = r0 + r % rows;
+    const bool ok = row < L;
+    const long long rr = ok ? row : 0;
+    cp_async16(dst + r * LD + c, (which ? b + rr * b_rs : a + rr * a_rs) + c, ok);
+  }
+}
+
+// The A operand of k-step c of a warp's m16 tiles from rows in shared
+// memory at pitch DH + 4, times mul, split here (lane 4 g + t reads rows g,
+// g + 8 at dims 8c + t, 8c + t + 4); frag_regs (tf32_mma.cuh) takes it from
+// registers split once.
+template <int DH, int MT>
+__device__ __forceinline__ void frag_smem(const float* rows, int c, int g, int t, float mul,
+                                          uint32_t (&hi)[MT][4], uint32_t (&lo)[MT][4]) {
+  constexpr int LD = DH + 4;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const float* a = rows + (16 * m + g) * LD + 8 * c + t;
+    split_a(a[0] * mul, a[8 * LD] * mul, a[4] * mul, a[8 * LD + 4] * mul, hi[m], lo[m]);
+  }
+}
+
+// Tile `step` of the dq kernel's sequence (the key tiles twice over, or one
+// tile once) from the ring into the split buffer, with the next tile but
+// kStages - 1 set loading.
+template <int DH>
+__device__ __forceinline__ void dq_advance(float* ring, uint32_t* sp, int stage_floats,
+                                           int step, int steps, int ntiles, int kt,
+                                           const float* kb, long long ksn, const float* vb,
+                                           long long vsn, int M) {
+  constexpr int kStages = Bwd<DH>::kStages;
+  cp_async_wait<kStages - 2>();  // this thread's copies of the tile landed
+  __syncthreads();               // everyone's; and the split tile before is consumed
+  const int next = step + kStages - 1;
+  if (next < steps)
+    bwd_load<DH>(ring + (next % kStages) * stage_floats, kb, ksn, vb, vsn, nullptr, nullptr,
+                 (next % ntiles) * kt, M, kt);
+  cp_async_commit();
+  bwd_split<DH>(ring + (step % kStages) * stage_floats, sp, kt, false);
+  __syncthreads();
+}
+
+// S (log2 units) and dP of key groups j0 .. j0 + GB of the split K/V tile
+// sp, from s_init and dp_init (zeros, or -L and -delta); q's and dO's A
+// operands from registers (qhi .. glo) or, at dh 64 and 128, from the
+// warp's rows in shared memory (qrows, grows); keys past M masked to -inf.
+template <int DH, int AR, int AK, class SInit, class DInit>
+__device__ __forceinline__ void dq_scores(
+    float (&s)[Bwd<DH>::kTiles][Bwd<DH>::kGroups][4],
+    float (&dp)[Bwd<DH>::kTiles][Bwd<DH>::kGroups][4], SInit s_init, DInit dp_init,
+    const uint32_t (&qhi)[AR][AK][4], const uint32_t (&qlo)[AR][AK][4],
+    const uint32_t (&ghi)[AR][AK][4], const uint32_t (&glo)[AR][AK][4],
+    const float* qrows, const float* grows, float qscale, const uint32_t* sp, int kt,
+    int j0, int key0, int M, int g, int t) {
+  using C = Bwd<DH>;
+  constexpr int LD = C::kLd, KS = DH / 8, MT = C::kTiles, GB = C::kGroups;
+  const uint32_t* khi = sp;
+  const uint32_t* vhi = sp + kt * LD;
+  const uint32_t* klo = sp + 2 * kt * LD;
+  const uint32_t* vlo = sp + 3 * kt * LD;
+#pragma unroll
+  for (int c = 0; c < KS; ++c) {
+    uint32_t ah[MT][4], al[MT][4], gh[MT][4], gl[MT][4];
+    if constexpr (C::kASmem) {
+      frag_smem<DH, MT>(qrows, c, g, t, qscale, ah, al);
+      frag_smem<DH, MT>(grows, c, g, t, 1.f, gh, gl);
+    } else {
+      frag_regs<MT, KS>(qhi, qlo, c, ah, al);
+      frag_regs<MT, KS>(ghi, glo, c, gh, gl);
+    }
+    uint32_t kh[GB][2], kl[GB][2], vh[GB][2], vl[GB][2];
+#pragma unroll
+    for (int j = 0; j < GB; ++j) {
+      const int off = ((j0 + j) * 8 + g) * LD + 8 * c + t;
+      row_b(khi, klo, off, kh[j], kl[j]);
+      row_b(vhi, vlo, off, vh[j], vl[j]);
+    }
+    mma3_step<MT, GB>(s, s_init, c == 0, ah, al, kh, kl);
+    mma3_step<MT, GB>(dp, dp_init, c == 0, gh, gl, vh, vl);
+  }
+  if (key0 + (j0 + GB) * 8 > M) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < GB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (key0 + (j0 + j) * 8 + 2 * t + (e & 1) >= M) s[mt][j][e] = -INFINITY;
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kBwdThreads, Bwd<DH>::kMinBlocks)
 attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ dO,
-                   float* __restrict__ dq, float* __restrict__ lse,
-                   float* __restrict__ delta, int H, int N, int M,
-                   int qsb, int qsh, int qsn, int ksb, int ksh, int ksn,
-                   int vsb, int vsh, int vsn, int gsb, int gsh, int gsn,
+                   float* __restrict__ stats, float* __restrict__ dq, int BH, int H,
+                   int N, int M, int kt, int qsb, int qsh, int qsn, int ksb, int ksh,
+                   int ksn, int vsb, int vsh, int vsn, int gsb, int gsh, int gsn,
                    int dsb, int dsh, int dsn, float scale) {
-  constexpr int KT = kTileFloats / DH;  // keys per tile
-  __shared__ float ks[KT * DH];
-  __shared__ float vs[KT * DH];
+  using C = Bwd<DH>;
+  constexpr int LD = C::kLd, KS = DH / 8, DT = DH / 8, MT = C::kTiles, GB = C::kGroups;
+  constexpr int NT = C::kTile / 8, ROWS = C::kRows, kStages = C::kStages;
+  constexpr int AR = C::kASmem ? 1 : MT, AK = C::kASmem ? 1 : KS;  // register A, if any
+  extern __shared__ __align__(16) float smem[];
+  const int stage_floats = 2 * kt * DH + 2 * kt;
+  float* ring = smem;
+  uint32_t* sp = reinterpret_cast<uint32_t*>(smem + kStages * stage_floats);
+  const uint32_t* khi = sp;  // the split K and V tiles
+  const uint32_t* vhi = sp + kt * LD;
+  const uint32_t* klo = sp + 2 * kt * LD;
+  const uint32_t* vlo = sp + 3 * kt * LD;
+  float* arows = smem + kStages * stage_floats + 4 * kt * LD + 4 * kt;  // q, then dO
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int row = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = row < N;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int block_row0 = blockIdx.y * ROWS * warps;
+  const int row0 = block_row0 + warp * ROWS + g;  // + 16 mt + 8 r
+  const float qscale = scale * kLog2e;            // scores in log2 units
 
   const float* qb = q + (long long)b * qsb + (long long)h * qsh;
   const float* kb = k + (long long)b * ksb + (long long)h * ksh;
   const float* vb = v + (long long)b * vsb + (long long)h * vsh;
   const float* gb = dO + (long long)b * gsb + (long long)h * gsh;
-  float* db = dq + (long long)b * dsb + (long long)h * dsh;
+  const float* qrows = arows + warp * ROWS * LD;
+  const float* grows = arows + (warps + warp) * ROWS * LD;
 
-  float qr[DH], gr[DH], acc[DH];
+  // q (times scale log2 e) and dO as A operands: split in registers, or
+  // (dh 64, 128) the block's rows copied with the first tile. The first
+  // tiles' copies go out before the register loads, so that their latencies
+  // overlap.
+  uint32_t qhi[AR][AK][4], qlo[AR][AK][4], ghi[AR][AK][4], glo[AR][AK][4];
+  if constexpr (C::kASmem)
+    load_a_rows<DH>(arows, qb, qsn, gb, gsn, block_row0, ROWS * warps, N);
+  const int ntiles = (M + kt - 1) / kt;
+  const int steps = ntiles == 1 ? 1 : 2 * ntiles;  // pass 1, then pass 2, over the tiles
+  const int ntr = kt / 8;
 #pragma unroll
-  for (int i = 0; i < DH; ++i) {
-    qr[i] = active ? qb[(long long)row * qsn + i] : 0.f;
-    gr[i] = active ? gb[(long long)row * gsn + i] : 0.f;
-    acc[i] = 0.f;
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps)
+      bwd_load<DH>(ring + s * stage_floats, kb, ksn, vb, vsn, nullptr, nullptr,
+                   (s % ntiles) * kt, M, kt);
+    cp_async_commit();
   }
-
-  const int ntiles = (M + KT - 1) / KT;
-  float m = -INFINITY, l = 0.f, dsum = 0.f;
-  float L = 0.f, dl = 0.f;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int t = 0; t < ntiles; ++t) {
-      const int t0 = t * KT;
-      const int kt = min(KT, M - t0);
-      if (pass == 0 || ntiles > 1) {  // one tile stays resident for pass 1
-        __syncthreads();
-        for (int e = threadIdx.x; e < kt * DH; e += blockDim.x) {
-          const int j = e / DH;
-          const int d = e % DH;
-          ks[e] = kb[(long long)(t0 + j) * ksn + d];
-          vs[e] = vb[(long long)(t0 + j) * vsn + d];
-        }
-        __syncthreads();
-      }
-      for (int j = 0; j < kt; ++j) {
-        const float* kj = ks + j * DH;
-        const float* vj = vs + j * DH;
-        float sc = 0.f, dp = 0.f;
+  if constexpr (!C::kASmem) {
+    load_a<DH, MT>(qb, qsn, row0, N, t, qscale, qhi, qlo);
+    load_a<DH, MT>(gb, gsn, row0, N, t, 1.f, ghi, glo);
+  }
+  // pass 1: per lane and row (g, g + 8 of each m16 tile), the running
+  // maximum of its scores, and the sums of exp2(S - max) and exp2(S - max) dP
+  float zeros[4] = {0.f, 0.f, 0.f, 0.f};
+  auto z_init = [&](int, int) -> const float (&)[4] { return zeros; };
+  float mx[MT][2], sl[MT][2], sd[MT][2];
 #pragma unroll
-        for (int i = 0; i < DH; ++i) {
-          sc += qr[i] * kj[i];
-          dp += gr[i] * vj[i];
-        }
-        sc *= scale;
-        if (pass == 0) {
-          if (sc > m) {
-            const float corr = expf(m - sc);
-            l *= corr;
-            dsum *= corr;
-            m = sc;
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[mt][r] = kNoScore;
+      sl[mt][r] = sd[mt][r] = 0.f;
+    }
+  for (int step = 0; step < ntiles; ++step) {
+    dq_advance<DH>(ring, sp, stage_floats, step, steps, ntiles, kt, kb, ksn, vb, vsn, M);
+    const int key0 = step * kt;
+#pragma unroll
+    for (int j0 = 0; j0 < NT; j0 += GB) {
+      if (j0 < ntr) {
+        float s[MT][GB][4], dp[MT][GB][4];
+        dq_scores<DH, AR, AK>(s, dp, z_init, z_init, qhi, qlo, ghi, glo, qrows, grows,
+                              qscale, sp, kt, j0, key0, M, g, t);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float m = mx[mt][r];
+#pragma unroll
+            for (int j = 0; j < GB; ++j)
+              m = fmaxf(m, fmaxf(s[mt][j][2 * r], s[mt][j][2 * r + 1]));
+            const float corr = exp2_sfu(mx[mt][r] - m);
+            float l = sl[mt][r] * corr, d = sd[mt][r] * corr;
+#pragma unroll
+            for (int j = 0; j < GB; ++j)
+#pragma unroll
+              for (int e = 2 * r; e < 2 * r + 2; ++e) {
+                const float p = exp2_sfu(s[mt][j][e] - m);
+                l += p;
+                d += p * dp[mt][j][e];
+              }
+            mx[mt][r] = m;
+            sl[mt][r] = l;
+            sd[mt][r] = d;
           }
-          const float p = expf(sc - m);
-          l += p;
-          dsum += p * dp;
-        } else {
-          const float p = expf(sc - L);
-          const float ds = p * (dp - dl) * scale;
+      }
+    }
+  }
+  // L = max + log2(sum) and delta over the quad; where pass 2 starts
+  float s0[MT][4], dp0[MT][4];
+  float* lb = stats + (long long)bh * N;
+  float* db = stats + (long long)BH * N + (long long)bh * N;
 #pragma unroll
-          for (int i = 0; i < DH; ++i) acc[i] += ds * kj[i];
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = mx[mt][r];
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const float f = exp2_sfu(mx[mt][r] - m);
+      float l = sl[mt][r] * f, d = sd[mt][r] * f;
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      const float L2 = m + log2f(l), delta = d / l;
+      s0[mt][2 * r] = s0[mt][2 * r + 1] = -L2;
+      dp0[mt][2 * r] = dp0[mt][2 * r + 1] = -delta;
+      const int row = row0 + 16 * mt + 8 * r;
+      if (t == 0 && row < N) {
+        lb[row] = L2;
+        db[row] = delta;
+      }
+    }
+  auto s_init = [&](int m, int) -> const float (&)[4] { return s0[m]; };
+  auto dp_init = [&](int m, int) -> const float (&)[4] { return dp0[m]; };
+
+  // pass 2: dq = sum over the tiles of dS k (see add_tile)
+  float acc[DT][MT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d][mt][e] = 0.f;
+  for (int step = ntiles == 1 ? 0 : ntiles; step < steps; ++step) {
+    if (ntiles > 1)  // one tile: still split from pass 1
+      dq_advance<DH>(ring, sp, stage_floats, step, steps, ntiles, kt, kb, ksn, vb, vsn, M);
+    const int key0 = (step % ntiles) * kt;
+    float tacc[DT][MT][GB][4];
+    zero(tacc);
+#pragma unroll
+    for (int j0 = 0; j0 < NT; j0 += GB) {
+      if (j0 < ntr) {
+        float s[MT][GB][4], dp[MT][GB][4];
+        dq_scores<DH, AR, AK>(s, dp, s_init, dp_init, qhi, qlo, ghi, glo, qrows, grows,
+                              qscale, sp, kt, j0, key0, M, g, t);
+        // dS / scale = P (dP - delta), in place
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < GB; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[mt][j][e] = exp2_sfu(s[mt][j][e]) * dp[mt][j][e];
+        // dq += dS k: the 8 keys of group j are one k-step (key 2t in slot
+        // t, 2t + 1 in slot t + 4), so K's rows are read in that order
+        uint32_t shi[MT][GB][4], slo[MT][GB][4];
+        split_acc<MT, GB>(s, shi, slo);
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+          uint32_t bh2[GB][2], bl2[GB][2];
+#pragma unroll
+          for (int j = 0; j < GB; ++j)
+            col_b<LD>(khi, klo, ((j0 + j) * 8 + 2 * t) * LD + 8 * d + g, bh2[j], bl2[j]);
+          mma3<MT, GB>(tacc[d], shi, slo, bh2, bl2);
         }
       }
     }
-    if (pass == 0) {
-      L = m + logf(l);
-      dl = dsum / l;
-    }
+    add_tile(acc, tacc);
   }
-  if (active) {
+
+  float* dqb = dq + (long long)b * dsb + (long long)h * dsh;
 #pragma unroll
-    for (int i = 0; i < DH; ++i) db[(long long)row * dsn + i] = acc[i];
-    lse[(long long)bh * N + row] = L;
-    delta[(long long)bh * N + row] = dl;
-  }
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 16 * mt + 8 * r;
+      if (row >= N) continue;
+      float* out = dqb + (long long)row * dsn + 2 * t;
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+        *reinterpret_cast<float2*>(out + 8 * d) =
+            make_float2(acc[d][mt][2 * r] * scale, acc[d][mt][2 * r + 1] * scale);
+    }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kBwdThreads)
+// DV: dv = P^T dO; DK: dk = dS^T q * scale. Both in one launch at dh 8 to
+// 64; at dh 128 one launch each.
+template <int DH, bool DV, bool DK>
+__global__ void __launch_bounds__(kBwdThreads, Bwd<DH>::kMinBlocks)
 attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dO,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv,
-                     int H, int N, int M, int S,
+                     const float* __restrict__ stats, float* __restrict__ dk,
+                     float* __restrict__ dv, float* __restrict__ part, int BH, int H,
+                     int N, int M, int kt, int qw, int splits, int per_split,
                      int qsb, int qsh, int qsn, int ksb, int ksh, int ksn,
                      int vsb, int vsh, int vsn, int gsb, int gsh, int gsn,
                      int dksb, int dksh, int dksn, int dvsb, int dvsh, int dvsn,
                      float scale) {
-  constexpr int QT = kTileFloats / DH;  // query rows per tile
-  __shared__ float qs[QT * DH];
-  __shared__ float gs[QT * DH];
-  __shared__ float ls[QT];
-  __shared__ float dls[QT];
+  using C = Bwd<DH>;
+  constexpr int LD = C::kLd, KS = DH / 8, DT = DH / 8, MT = C::kTiles, GB = C::kGroups;
+  constexpr int NT = C::kTile / 8, ROWS = C::kRows, kStages = C::kStages;
+  constexpr int AR = C::kASmem ? 1 : MT, AK = C::kASmem ? 1 : KS;
+  extern __shared__ __align__(16) float smem[];
+  const int stage_floats = 2 * kt * DH + 2 * kt;
+  float* ring = smem;
+  uint32_t* sp = reinterpret_cast<uint32_t*>(smem + kStages * stage_floats);
+  const uint32_t* qhi = sp;  // the split q and dO tiles
+  const uint32_t* ghi = sp + kt * LD;
+  const uint32_t* qlo = sp + 2 * kt * LD;
+  const uint32_t* glo = sp + 3 * kt * LD;
+  const float* quads = reinterpret_cast<const float*>(sp + 4 * kt * LD);
+  float* arows = smem + kStages * stage_floats + 4 * kt * LD + 4 * kt;  // k, then v
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int keys_per_block = blockDim.x / S;
-  const int sub = threadIdx.x % S;
-  const int key = blockIdx.y * keys_per_block + threadIdx.x / S;
-  const bool active = key < M;
+  const int split = blockIdx.y % splits;
+  const int warps = blockDim.x >> 5;
+  const int kw = warps / qw;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kwi = warp / qw, qwi = warp % qw;  // the warp's keys, its part of a tile
+  const int g = lane >> 2, t = lane & 3;
+  const int block_key0 = blockIdx.y / splits * ROWS * kw;
+  const int key0 = block_key0 + kwi * ROWS + g;  // + 16 mt + 8 r
+  const float kscale = scale * kLog2e;
 
   const float* qb = q + (long long)b * qsb + (long long)h * qsh;
   const float* kb = k + (long long)b * ksb + (long long)h * ksh;
   const float* vb = v + (long long)b * vsb + (long long)h * vsh;
   const float* gb = dO + (long long)b * gsb + (long long)h * gsh;
-  const float* lb = lse + (long long)bh * N;
-  const float* db = delta + (long long)bh * N;
+  const float* lb = stats + (long long)bh * N;
+  const float* db = stats + (long long)BH * N + (long long)bh * N;
+  const float* krows = arows + kwi * ROWS * LD;
+  const float* vrows = arows + (kw + kwi) * ROWS * LD;
 
-  float kr[DH], vr[DH], dkr[DH], dvr[DH];
+  // k (times scale log2 e) and v as A operands, as in the dq kernel
+  uint32_t khi[AR][AK][4], klo[AR][AK][4], vhi[AR][AK][4], vlo[AR][AK][4];
+  if constexpr (C::kASmem)
+    load_a_rows<DH>(arows, kb, ksn, vb, vsn, block_key0, ROWS * kw, M);
+
+  // dk and dv: the sums over the tiles so far (see add_tile)
+  float dka[DT][MT][4], dva[DT][MT][4];
 #pragma unroll
-  for (int i = 0; i < DH; ++i) {
-    kr[i] = active ? kb[(long long)key * ksn + i] : 0.f;
-    vr[i] = active ? vb[(long long)key * vsn + i] : 0.f;
-    dkr[i] = 0.f;
-    dvr[i] = 0.f;
-  }
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[d][mt][e] = dva[d][mt][e] = 0.f;
 
-  for (int t0 = 0; t0 < N; t0 += QT) {
-    const int nt = min(QT, N - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < nt * DH; e += blockDim.x) {
-      const int r = e / DH;
-      const int d = e % DH;
-      qs[e] = qb[(long long)(t0 + r) * qsn + d];
-      gs[e] = gb[(long long)(t0 + r) * gsn + d];
-    }
-    for (int r = threadIdx.x; r < nt; r += blockDim.x) {
-      ls[r] = lb[t0 + r];
-      dls[r] = db[t0 + r];
-    }
+  const int ntiles = (N + kt - 1) / kt;
+  const int first = split * per_split;
+  const int last = first + per_split < ntiles ? first + per_split : ntiles;
+  const int ntr = kt / 8;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (first + s < last)
+      bwd_load<DH>(ring + s * stage_floats, qb, qsn, gb, gsn, lb, db, (first + s) * kt, N, kt);
+    cp_async_commit();
+  }
+  if constexpr (!C::kASmem) {
+    load_a<DH, MT>(kb, ksn, key0, M, t, kscale, khi, klo);
+    if constexpr (DK) load_a<DH, MT>(vb, vsn, key0, M, t, 1.f, vhi, vlo);
+  }
+  for (int step = 0; first + step < last; ++step) {
+    cp_async_wait<kStages - 2>();
     __syncthreads();
-    for (int r = sub; r < nt; r += S) {
-      const float* qi = qs + r * DH;
-      const float* gi = gs + r * DH;
-      float sc = 0.f, dp = 0.f;
+    const int next = step + kStages - 1;
+    if (first + next < last)
+      bwd_load<DH>(ring + (next % kStages) * stage_floats, qb, qsn, gb, gsn, lb, db,
+                   (first + next) * kt, N, kt);
+    cp_async_commit();
+    bwd_split<DH>(ring + (step % kStages) * stage_floats, sp, kt, true);
+    __syncthreads();
+    // this tile's dk and dv, one partial sum per query group of a chunk
+    float tka[DT][MT][GB][4], tva[DT][MT][GB][4];
+    zero(tka);
+    zero(tva);
 #pragma unroll
-      for (int i = 0; i < DH; ++i) {
-        sc += qi[i] * kr[i];
-        dp += gi[i] * vr[i];
+    for (int i0 = 0; i0 < NT; i0 += GB) {
+      if (i0 < ntr && (i0 / GB) % qw == qwi) {
+        // S^T - L = k q^T - L and dP^T - delta = v dO^T - delta: keys g,
+        // g + 8; queries 8 i + 2t, 8 i + 2t + 1, whose -L and -delta (the
+        // split tile's quads) vary along the columns
+        float st0[GB][4], dpt0[GB][4];
+#pragma unroll
+        for (int j = 0; j < GB; ++j) {
+          const float4 a = *reinterpret_cast<const float4*>(quads + 4 * (4 * (i0 + j) + t));
+          const float4 c = *reinterpret_cast<const float4*>(quads + 2 * kt + 4 * (4 * (i0 + j) + t));
+          st0[j][0] = a.x; st0[j][1] = a.y; st0[j][2] = a.z; st0[j][3] = a.w;
+          dpt0[j][0] = c.x; dpt0[j][1] = c.y; dpt0[j][2] = c.z; dpt0[j][3] = c.w;
+        }
+        auto st_init = [&](int, int j) -> const float (&)[4] { return st0[j]; };
+        auto dpt_init = [&](int, int j) -> const float (&)[4] { return dpt0[j]; };
+        float st[MT][GB][4], dpt[MT][GB][4];
+#pragma unroll
+        for (int c = 0; c < KS; ++c) {
+          uint32_t ah[MT][4], al[MT][4];
+          if constexpr (C::kASmem)
+            frag_smem<DH, MT>(krows, c, g, t, kscale, ah, al);
+          else
+            frag_regs<MT, KS>(khi, klo, c, ah, al);
+          uint32_t qh[GB][2], ql[GB][2];
+#pragma unroll
+          for (int j = 0; j < GB; ++j)
+            row_b(qhi, qlo, ((i0 + j) * 8 + g) * LD + 8 * c + t, qh[j], ql[j]);
+          mma3_step<MT, GB>(st, st_init, c == 0, ah, al, qh, ql);
+          if constexpr (DK) {
+            if constexpr (C::kASmem)
+              frag_smem<DH, MT>(vrows, c, g, t, 1.f, ah, al);
+            else
+              frag_regs<MT, KS>(vhi, vlo, c, ah, al);
+            uint32_t gh[GB][2], gl[GB][2];
+#pragma unroll
+            for (int j = 0; j < GB; ++j)
+              row_b(ghi, glo, ((i0 + j) * 8 + g) * LD + 8 * c + t, gh[j], gl[j]);
+            mma3_step<MT, GB>(dpt, dpt_init, c == 0, ah, al, gh, gl);
+          }
+        }
+        // P^T = exp2(S^T - L) and dS^T / scale = P^T (dP^T - delta)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < GB; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              st[mt][j][e] = exp2_sfu(st[mt][j][e]);
+              if constexpr (DK) dpt[mt][j][e] *= st[mt][j][e];
+            }
+        // dv += P^T dO, dk += dS^T q: the 8 queries of group i are one
+        // k-step (query 2t in slot t, 2t + 1 in slot t + 4), so dO's and
+        // q's rows are read in that order
+        if constexpr (DV) {
+          uint32_t phi[MT][GB][4], plo[MT][GB][4];
+          split_acc<MT, GB>(st, phi, plo);
+#pragma unroll
+          for (int d = 0; d < DT; ++d) {
+            uint32_t bh2[GB][2], bl2[GB][2];
+#pragma unroll
+            for (int j = 0; j < GB; ++j)
+              col_b<LD>(ghi, glo, ((i0 + j) * 8 + 2 * t) * LD + 8 * d + g, bh2[j], bl2[j]);
+            mma3<MT, GB>(tva[d], phi, plo, bh2, bl2);
+          }
+        }
+        if constexpr (DK) {
+          uint32_t shi[MT][GB][4], slo[MT][GB][4];
+          split_acc<MT, GB>(dpt, shi, slo);
+#pragma unroll
+          for (int d = 0; d < DT; ++d) {
+            uint32_t bh2[GB][2], bl2[GB][2];
+#pragma unroll
+            for (int j = 0; j < GB; ++j)
+              col_b<LD>(qhi, qlo, ((i0 + j) * 8 + 2 * t) * LD + 8 * d + g, bh2[j], bl2[j]);
+            mma3<MT, GB>(tka[d], shi, slo, bh2, bl2);
+          }
+        }
       }
-      const float p = expf(sc * scale - ls[r]);
-      const float ds = p * (dp - dls[r]) * scale;
+    }
+    if constexpr (DK) add_tile(dka, tka);
+    if constexpr (DV) add_tile(dva, tva);
+  }
+
+  // the qw warps of a key group add their sums in shared memory, in warp
+  // order; the first of them stores
+  constexpr int NV = DT * MT * 4, OUTS = (DK ? 1 : 0) + (DV ? 1 : 0);
+  if (qw > 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // the ring and the split tile are free
+    // [warp][dk, dv][value][lane]
+    float* sums = smem + lane;
+    const int wstride = OUTS * NV * 32;
 #pragma unroll
-      for (int i = 0; i < DH; ++i) {
-        dvr[i] += p * gi[i];
-        dkr[i] += ds * qi[i];
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = ((d * MT + mt) * 4 + e) * 32;
+          if constexpr (DK) sums[warp * wstride + i] = dka[d][mt][e];
+          if constexpr (DV) sums[warp * wstride + (OUTS - 1) * NV * 32 + i] = dva[d][mt][e];
+        }
+    __syncthreads();
+    if (qwi != 0) return;
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = ((d * MT + mt) * 4 + e) * 32;
+          float sk = 0.f, sv = 0.f;
+          for (int w = warp; w < warp + qw; ++w) {
+            if constexpr (DK) sk += sums[w * wstride + i];
+            if constexpr (DV) sv += sums[w * wstride + (OUTS - 1) * NV * 32 + i];
+          }
+          dka[d][mt][e] = sk;
+          dva[d][mt][e] = sv;
+        }
+  }
+
+  // the key's rows: into dk and dv, or (query rows split over blocks) into
+  // this split's partial sums
+  const bool whole = splits == 1;
+  float* dkb = whole ? dk + (long long)b * dksb + (long long)h * dksh
+                     : part + ((long long)bh * splits + split) * M * DH;
+  float* dvb = whole ? dv + (long long)b * dvsb + (long long)h * dvsh
+                     : part + (((long long)BH + bh) * splits + split) * M * DH;
+  const long long krs = whole ? dksn : DH, vrs = whole ? dvsn : DH;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 16 * mt + 8 * r;
+      if (key >= M) continue;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const int col = 8 * d + 2 * t;
+        if constexpr (DK)
+          *reinterpret_cast<float2*>(dkb + key * krs + col) =
+              make_float2(dka[d][mt][2 * r] * scale, dka[d][mt][2 * r + 1] * scale);
+        if constexpr (DV)
+          *reinterpret_cast<float2*>(dvb + key * vrs + col) =
+              make_float2(dva[d][mt][2 * r], dva[d][mt][2 * r + 1]);
       }
     }
-  }
-  // add the S partial sums of each key; S consecutive lanes of one warp
-  for (int off = S / 2; off > 0; off >>= 1) {
-#pragma unroll
-    for (int i = 0; i < DH; ++i) {
-      dkr[i] += __shfl_xor_sync(0xffffffffu, dkr[i], off);
-      dvr[i] += __shfl_xor_sync(0xffffffffu, dvr[i], off);
-    }
-  }
-  if (active && sub == 0) {
-    float* dkb = dk + (long long)b * dksb + (long long)h * dksh + (long long)key * dksn;
-    float* dvb = dv + (long long)b * dvsb + (long long)h * dvsh + (long long)key * dvsn;
-#pragma unroll
-    for (int i = 0; i < DH; ++i) {
-      dkb[i] = dkr[i];
-      dvb[i] = dvr[i];
-    }
-  }
 }
 
-template <int DH>
-int launch_bwd(const float* q, const float* k, const float* v, const float* g,
-               float* dq, float* dk, float* dv, float* lse, float* delta,
-               int B, int H, int N, int M, const int* s, float scale,
-               cudaStream_t stream) {
-  int threads = ((N + 31) / 32) * 32;
-  if (threads > kBwdThreads) threads = kBwdThreads;
-  int keys = 4;  // keys per dk/dv block: the power of two that covers M, 4..128
-  while (keys < M && keys < kBwdThreads) keys <<= 1;
-  const int row_tiles = (N + threads - 1) / threads, key_tiles = (M + keys - 1) / keys;
-  if (row_tiles > 65535 || key_tiles > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid_q(B * H, row_tiles);
-  attn_bwd_dq_kernel<DH><<<grid_q, threads, 0, stream>>>(
-      q, k, v, g, dq, lse, delta, H, N, M,
-      s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
-      s[12], s[13], s[14], scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+// dk and dv from the dk/dv kernel's partial sums, added in split order; one
+// thread per two values of both.
+__global__ void attn_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ dk,
+                                    float* __restrict__ dv, int BH, int H, int M, int DH,
+                                    int splits, int dksb, int dksh, int dksn, int dvsb,
+                                    int dvsh, int dvsn) {
+  const long long pairs = (long long)BH * M * (DH / 2);
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= pairs) return;
+  const int col = 2 * (int)(e % (DH / 2));
+  const int key = (int)(e / (DH / 2) % M);
+  const int bh = (int)(e / ((long long)(DH / 2) * M));
+  const int b = bh / H, h = bh % H;
+  float2 sk = make_float2(0.f, 0.f), sv = make_float2(0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const long long off = (long long)s * M * DH + (long long)key * DH + col;
+    const float2 a = *reinterpret_cast<const float2*>(part + (long long)bh * splits * M * DH + off);
+    const float2 c = *reinterpret_cast<const float2*>(
+        part + ((long long)BH + bh) * splits * M * DH + off);
+    sk.x += a.x;
+    sk.y += a.y;
+    sv.x += c.x;
+    sv.y += c.y;
+  }
+  *reinterpret_cast<float2*>(dk + (long long)b * dksb + (long long)h * dksh +
+                             (long long)key * dksn + col) = sk;
+  *reinterpret_cast<float2*>(dv + (long long)b * dvsb + (long long)h * dvsh +
+                             (long long)key * dvsn + col) = sv;
+}
 
-  const int S = kBwdThreads / keys;  // lanes per key, 1..32
-  const dim3 grid_k(B * H, key_tiles);
-  attn_bwd_dkdv_kernel<DH><<<grid_k, kBwdThreads, 0, stream>>>(
-      q, k, v, g, lse, delta, dk, dv, H, N, M, S,
+// The kernel's opt-in to more than 48 KB of shared memory where the plan
+// needs it.
+template <auto Kernel>
+int smem_opt_in(long long smem, int dev, long long optin) {
+  if (smem > optin) return (int)cudaErrorInvalidValue;
+  return smem > 48 * 1024 ? kernel_launch::opt_in<Kernel>(dev, optin) : 0;
+}
+
+template <int DH, bool DV, bool DK>
+int launch_dkdv(const float* q, const float* k, const float* v, const float* g,
+                const float* stats, float* dk, float* dv, float* part, int BH, int H,
+                int N, int M, const int* s, float scale, int dev, long long optin,
+                cudaStream_t st) {
+  const BwdPlan p = plan_dkdv<DH>(BH, N, M, DV && DK ? 2 : 1);
+  const int err = smem_opt_in<attn_bwd_dkdv_kernel<DH, DV, DK>>(p.smem, dev, optin);
+  if (err != 0) return err;
+  if (p.blocks_y > 65535) return (int)cudaErrorInvalidValue;
+  attn_bwd_dkdv_kernel<DH, DV, DK><<<dim3(BH, p.blocks_y), 32 * p.warps, (size_t)p.smem, st>>>(
+      q, k, v, g, stats, dk, dv, part, BH, H, N, M, p.kt, p.qw, p.splits, p.per_split,
       s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
       s[15], s[16], s[17], s[18], s[19], s[20], scale);
   return (int)cudaGetLastError();
 }
 
+// cp.async needs every q, k, v, dO row on 16 bytes; the outputs are stored
+// 8 bytes at a time.
+bool bwd_aligned(const void* const* inputs, const void* const* outputs, const int* s) {
+  for (int i = 0; i < 4; ++i)
+    if ((reinterpret_cast<uintptr_t>(inputs[i]) & 15) != 0 || s[3 * i] % 4 ||
+        s[3 * i + 1] % 4 || s[3 * i + 2] % 4)
+      return false;
+  for (int i = 0; i < 3; ++i)
+    if ((reinterpret_cast<uintptr_t>(outputs[i]) & 7) != 0 || s[12 + 3 * i] % 2 ||
+        s[13 + 3 * i] % 2 || s[14 + 3 * i] % 2)
+      return false;
+  return true;
+}
+
+template <int DH>
+int launch_bwd(const float* q, const float* k, const float* v, const float* g, float* dq,
+               float* dk, float* dv, float* scratch, long long scratch_size, int B, int H,
+               int N, int M, const int* s, float scale, cudaStream_t st) {
+  const int BH = B * H;
+  if (scratch_size < scratch_floats<DH>(BH, N, M)) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  long long optin = 0;
+  int err = kernel_launch::device_optin(&dev, &optin);
+  if (err != 0) return err;
+  const BwdPlan p = plan_dq<DH>(N, M);
+  err = smem_opt_in<attn_bwd_dq_kernel<DH>>(p.smem, dev, optin);
+  if (err != 0) return err;
+  if (p.blocks_y > 65535) return (int)cudaErrorInvalidValue;
+  attn_bwd_dq_kernel<DH><<<dim3(BH, p.blocks_y), 32 * p.warps, (size_t)p.smem, st>>>(
+      q, k, v, g, scratch, dq, BH, H, N, M, p.kt, s[0], s[1], s[2], s[3], s[4], s[5],
+      s[6], s[7], s[8], s[9], s[10], s[11], s[12], s[13], s[14], scale);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  float* part = scratch + (2LL * BH * N + 3) / 4 * 4;
+  if constexpr (DH >= 128) {  // dv, then dk
+    err = launch_dkdv<DH, true, false>(q, k, v, g, scratch, dk, dv, part, BH, H, N, M, s,
+                                       scale, dev, optin, st);
+    if (err == 0)
+      err = launch_dkdv<DH, false, true>(q, k, v, g, scratch, dk, dv, part, BH, H, N, M, s,
+                                         scale, dev, optin, st);
+  } else {
+    err = launch_dkdv<DH, true, true>(q, k, v, g, scratch, dk, dv, part, BH, H, N, M, s,
+                                      scale, dev, optin, st);
+  }
+  if (err != 0 || plan_dkdv<DH>(BH, N, M, 2).splits == 1) return err;
+  const long long pairs = (long long)BH * M * (DH / 2);
+  attn_bwd_sum_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0, st>>>(
+      part, dk, dv, BH, H, M, DH, plan_dkdv<DH>(BH, N, M, 2).splits, s[15], s[16], s[17],
+      s[18], s[19], s[20]);
+  return (int)cudaGetLastError();
+}
+
+bool bwd_shape_ok(int B, int H, int N, int M) {
+  return B > 0 && H > 0 && N > 0 && M > 0 && (long long)B * H <= 2147483647LL;
+}
+
 }  // namespace
 
+// Floats of the scratch attention_core_bwd needs at a shape; -1 for a head
+// size or shape it does not take.
+extern "C" long long attention_core_bwd_scratch(int B, int H, int N, int M, int DH) {
+  if (!bwd_shape_ok(B, H, N, M)) return -1;
+  const long long BH = (long long)B * H;
+  switch (DH) {
+    case 8: return scratch_floats<8>(BH, N, M);
+    case 16: return scratch_floats<16>(BH, N, M);
+    case 32: return scratch_floats<32>(BH, N, M);
+    case 64: return scratch_floats<64>(BH, N, M);
+    case 128: return scratch_floats<128>(BH, N, M);
+    default: return -1;
+  }
+}
+
 // Strides are in elements, in the order q, k, v, dO, dq, dk, dv (batch,
-// head, row each); the last dimension of every tensor has stride 1. lse and
-// delta are (B * H, N) fp32 scratch the caller allocates. Runs two kernels
-// on `stream`, allocates nothing and returns the first launch error
-// (cudaErrorInvalidValue for a head size it does not take).
+// head, row each); the last dimension of every tensor has stride 1; q, k, v
+// and dO rows start on 16 bytes, dq, dk and dv on 8 with even strides.
+// scratch holds attention_core_bwd_scratch() floats (scratch_size), on 16
+// bytes. Runs two to four kernels on `stream`, allocates nothing and returns
+// the first launch error (cudaErrorInvalidValue for a head size, shape or
+// layout it does not take).
 extern "C" int attention_core_bwd(const void* q, const void* k, const void* v,
                                   const void* dO, void* dq, void* dk, void* dv,
-                                  void* lse, void* delta, int B, int H, int N,
-                                  int M, int DH, const int* strides, float scale,
+                                  void* scratch, long long scratch_size, int B, int H,
+                                  int N, int M, int DH, const int* strides, float scale,
                                   void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || (long long)B * H > 2147483647LL)
+  if (!bwd_shape_ok(B, H, N, M)) return (int)cudaErrorInvalidValue;
+  const void* inputs[4] = {q, k, v, dO};
+  const void* outputs[3] = {dq, dk, dv};
+  if (!bwd_aligned(inputs, outputs, strides) ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const float* qf = (const float*)q;
   const float* kf = (const float*)k;
@@ -795,16 +1448,24 @@ extern "C" int attention_core_bwd(const void* q, const void* k, const void* v,
   float* dqf = (float*)dq;
   float* dkf = (float*)dk;
   float* dvf = (float*)dv;
-  float* lf = (float*)lse;
-  float* df = (float*)delta;
+  float* sf = (float*)scratch;
   cudaStream_t st = (cudaStream_t)stream;
   switch (DH) {
     case 8:
-      return launch_bwd<8>(qf, kf, vf, gf, dqf, dkf, dvf, lf, df, B, H, N, M, strides, scale, st);
+      return launch_bwd<8>(qf, kf, vf, gf, dqf, dkf, dvf, sf, scratch_size, B, H, N, M,
+                           strides, scale, st);
     case 16:
-      return launch_bwd<16>(qf, kf, vf, gf, dqf, dkf, dvf, lf, df, B, H, N, M, strides, scale, st);
+      return launch_bwd<16>(qf, kf, vf, gf, dqf, dkf, dvf, sf, scratch_size, B, H, N, M,
+                            strides, scale, st);
     case 32:
-      return launch_bwd<32>(qf, kf, vf, gf, dqf, dkf, dvf, lf, df, B, H, N, M, strides, scale, st);
+      return launch_bwd<32>(qf, kf, vf, gf, dqf, dkf, dvf, sf, scratch_size, B, H, N, M,
+                            strides, scale, st);
+    case 64:
+      return launch_bwd<64>(qf, kf, vf, gf, dqf, dkf, dvf, sf, scratch_size, B, H, N, M,
+                            strides, scale, st);
+    case 128:
+      return launch_bwd<128>(qf, kf, vf, gf, dqf, dkf, dvf, sf, scratch_size, B, H, N, M,
+                             strides, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -115,4 +115,181 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// ---- 3xTF32 products of the attention backward kernels (flash_attention.cu,
+// attention_core.cu): the A operand of a warp's m16 tiles, the B operands
+// read from a tile split once into hi and lo in shared memory, and the
+// per-tile partial sums.
+
+// Rows row0 + 16 mt (+ 8) of a row-strided (N, DH) tensor, times mul, as
+// split A operands in the natural order: k-step c holds dims 8c + t (slot t)
+// and 8c + t + 4 (slot t + 4). Rows past N are zeros.
+template <int DH, int MT>
+__device__ __forceinline__ void load_a(const float* x, long long rs, int row0, int N,
+                                       int t, float mul, uint32_t (&hi)[MT][DH / 8][4],
+                                       uint32_t (&lo)[MT][DH / 8][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      float f[2][2];  // [row g, g + 8][dim 8c + t, 8c + t + 4]
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 16 * mt + 8 * r;
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          f[r][s] = row < N ? x[(long long)row * rs + 8 * c + t + 4 * s] * mul : 0.f;
+      }
+      split_a(f[0][0], f[1][0], f[0][1], f[1][1], hi[mt][c], lo[mt][c]);
+    }
+}
+
+// The B operand of a k-step over dh (S = q k^T, dP = dO v^T and their
+// transposes) from a split tile: row 8 j + g at dims 8c + t and 8c + t + 4.
+__device__ __forceinline__ void row_b(const uint32_t* hi, const uint32_t* lo, int off,
+                                      uint32_t (&h)[2], uint32_t (&l)[2]) {
+  h[0] = hi[off];
+  h[1] = hi[off + 4];
+  l[0] = lo[off];
+  l[1] = lo[off + 4];
+}
+
+// The B operand of a k-step over one 8-row group of a split tile (dq += dS
+// k, dv += P^T dO, dk += dS^T q): rows 2t (slot t) and 2t + 1 (slot t + 4)
+// at column g of an 8-column group, the order in which the S accumulator
+// holds the group's columns.
+template <int LD>
+__device__ __forceinline__ void col_b(const uint32_t* hi, const uint32_t* lo, int off,
+                                      uint32_t (&h)[2], uint32_t (&l)[2]) {
+  h[0] = hi[off];
+  h[1] = hi[off + LD];
+  l[0] = lo[off];
+  l[1] = lo[off + LD];
+}
+
+// acc[m][j] += a[m][j] b[j] over MT x G tiles as 3xTF32: the lo-hi, hi-lo,
+// then hi-hi terms, each over all the tiles before the next, so that MT x G
+// mma chains overlap.
+template <int MT, int G>
+__device__ __forceinline__ void mma3(float (&acc)[MT][G][4], const uint32_t (&ahi)[MT][G][4],
+                                     const uint32_t (&alo)[MT][G][4],
+                                     const uint32_t (&bhi)[G][2], const uint32_t (&blo)[G][2]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < G; ++j) mma_tf32(acc[m][j], alo[m][j], bhi[j][0], bhi[j][1]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < G; ++j) mma_tf32(acc[m][j], ahi[m][j], blo[j][0], blo[j][1]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < G; ++j) mma_tf32(acc[m][j], ahi[m][j], bhi[j][0], bhi[j][1]);
+}
+
+// The A operand of k-step c of a warp's m16 tiles, from registers that hold
+// every k-step split once.
+template <int MT, int KS>
+__device__ __forceinline__ void frag_regs(const uint32_t (&h)[MT][KS][4],
+                                          const uint32_t (&l)[MT][KS][4], int c,
+                                          uint32_t (&hi)[MT][4], uint32_t (&lo)[MT][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      hi[m][e] = h[m][c][e];
+      lo[m][e] = l[m][c][e];
+    }
+}
+
+// acc (+)= a b for one k-step of S = q k^T - lse, dP = dO v^T - delta or
+// their transposes, over MT x G tiles, with one A operand per m-tile shared
+// by the G column groups. On the first k-step the sums start from init(m,
+// j) (-lse or -delta, or zeros) instead of acc, so the subtraction rides on
+// an mma. The hi-hi term goes first, where it meets the bias it mostly
+// cancels (scores near lse are the ones that matter), and the lo terms
+// follow into a small sum: the tensor cores align a sum to its largest
+// addend, so small terms added to a sum near -lse (up to 43 in log2 units
+// at logits of 30) would each lose an ulp of 43.
+template <int MT, int G, class Init>
+__device__ __forceinline__ void mma3_step(float (&acc)[MT][G][4], Init init, bool first,
+                                          const uint32_t (&ahi)[MT][4],
+                                          const uint32_t (&alo)[MT][4],
+                                          const uint32_t (&bhi)[G][2],
+                                          const uint32_t (&blo)[G][2]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (first)
+        mma_tf32_c(acc[m][j], ahi[m], bhi[j][0], bhi[j][1], init(m, j));
+      else
+        mma_tf32(acc[m][j], ahi[m], bhi[j][0], bhi[j][1]);
+    }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < G; ++j) mma_tf32(acc[m][j], alo[m], bhi[j][0], bhi[j][1]);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < G; ++j) mma_tf32(acc[m][j], ahi[m], blo[j][0], blo[j][1]);
+}
+
+// mma3_step with the A operand of k-step c from registers (the flash
+// backward's q, dO, k and v).
+template <int MT, int G, int KS, class Init>
+__device__ __forceinline__ void mma3_rows(float (&acc)[MT][G][4], Init init,
+                                          const uint32_t (&ahi)[MT][KS][4],
+                                          const uint32_t (&alo)[MT][KS][4], int c,
+                                          const uint32_t (&bhi)[G][2],
+                                          const uint32_t (&blo)[G][2]) {
+  uint32_t h[MT][4], l[MT][4];
+  frag_regs<MT, KS>(ahi, alo, c, h, l);
+  mma3_step<MT, G>(acc, init, c == 0, h, l, bhi, blo);
+}
+
+// The A operands of 8-column groups left in the accumulator layout: lane t
+// holds columns 2t and 2t + 1, which become k-slots t and t + 4. P and dS
+// enter the sums linearly, so they take the two-instruction split_trunc.
+template <int MT, int G>
+__device__ __forceinline__ void split_acc(const float (&x)[MT][G][4], uint32_t (&hi)[MT][G][4],
+                                          uint32_t (&lo)[MT][G][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      split_a_trunc(x[m][j][0], x[m][j][2], x[m][j][1], x[m][j][3], hi[m][j], lo[m][j]);
+}
+
+template <int D, int M, int G>
+__device__ __forceinline__ void zero(float (&x)[D][M][G][4]) {
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[d][m][j][e] = 0.f;
+}
+
+// total += the G partial sums of one tile, in order. The tensor cores
+// truncate each mma's sum, a bias of up to an ulp of the sum per mma: run
+// over all of N (768 mma a sum at N = 4096), it took dk at logits of 30
+// past the 1e-4 gate against an fp32 reference. A tile's sums take 12 mma
+// from zero, and the totals one round-to-nearest add a tile.
+template <int D, int M, int G>
+__device__ __forceinline__ void add_tile(float (&total)[D][M][4],
+                                         const float (&part)[D][M][G][4]) {
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) total[d][m][e] += part[d][m][j][e];
+}
+
 }  // namespace tf32

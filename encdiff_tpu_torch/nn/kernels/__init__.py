@@ -66,6 +66,26 @@ def head_strides(name, tensors):
     return out
 
 
+def check_rows_aligned(name, tensors):
+    """Raise unless every (B, H, L) row of each tensor starts on 16 bytes:
+    the kernels copy and read rows 16 bytes at a time."""
+    for tname, t in tensors:
+        if t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3]):
+            raise ValueError(f"{name}: {tname} rows must start on 16 bytes, "
+                             f"strides {t.stride()}")
+
+
+def kernel_rows(t):
+    """``t`` itself where its last dimension is contiguous and its rows start
+    on 16 bytes, as the attention backward kernels read them (the callers'
+    head-strided views), else a contiguous copy: a backward's cotangent may
+    be anything autograd hands it, e.g. the expanded all-stride-0 gradient of
+    ``out.sum()``."""
+    aligned = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+               and all(st % 4 == 0 for st in t.stride()[:-1]))
+    return t if aligned else t.contiguous()
+
+
 def launch_stream(device) -> int:
     """The handle of PyTorch's current stream on ``device``, which must be
     the current CUDA device (a kernel launches on the current device)."""

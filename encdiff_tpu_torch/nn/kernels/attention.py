@@ -15,12 +15,13 @@ import functools
 import torch
 
 from encdiff_tpu_torch.nn.kernels import (build, check_cuda_tensor,
-                                          head_strides, launch_stream,
+                                          check_rows_aligned, head_strides,
+                                          kernel_rows, launch_stream,
                                           raise_on_error, takes_plain)
 
-#: head sizes the kernels take (csrc/attention_core.cu): forward, backward
+#: head sizes the kernels take (csrc/attention_core.cu), forward and backward
 HEAD_SIZES = (8, 16, 32, 64, 128)
-BWD_HEAD_SIZES = (8, 16, 32)
+BWD_HEAD_SIZES = HEAD_SIZES
 
 
 def attention_core_plain(q, k, v, scale: float):
@@ -61,8 +62,17 @@ def _fn():
 def _bwd_fn():
     fn = build.load("attention_core").attention_core_bwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 9 + [i] * 5 + [ctypes.POINTER(i), ctypes.c_float, p]
+    fn.argtypes = ([p] * 8 + [ctypes.c_longlong] + [i] * 5
+                   + [ctypes.POINTER(i), ctypes.c_float, p])
     fn.restype = i
+    return fn
+
+
+@functools.cache
+def _scratch_fn():
+    fn = build.load("attention_core").attention_core_bwd_scratch
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
     return fn
 
 
@@ -78,7 +88,9 @@ class _AttentionCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
+        # the backward kernels read rows 16 bytes at a time; the forward
+        # took any rows, and the cotangent is whatever autograd hands over
+        q, k, v, do = (kernel_rows(t) for t in (*ctx.saved_tensors, do))
         dq, dk, dv = attention_core_bwd(q, k, v, do, ctx.scale)
         return dq, dk, dv, None
 
@@ -125,12 +137,13 @@ attention_core.plain_calls = 0
 
 def attention_core_bwd(q, k, v, do, scale: float):
     """(dq, dk, dv) of ``attention_core`` for the cotangent ``do`` (B, H, N,
-    dh). Same layout rules as the forward; on CUDA the gradients are views
-    of (B, L, H, dh) buffers, like the forward's output.
+    dh). Same layout rules as the forward, and on CUDA the rows of q, k, v
+    and do must start on 16 bytes; on CUDA the gradients are views of
+    (B, L, H, dh) buffers, like the forward's output.
 
-    CPU tensors take the plain version; CUDA tensors launch the two kernels
-    of ``attention_core_bwd`` on the current stream, or raise on an input
-    they do not take."""
+    CPU tensors take the plain version; CUDA tensors launch the kernels of
+    ``attention_core_bwd`` on the current stream, or raise on an input they
+    do not take."""
     if takes_plain(attention_core_bwd, q):
         return attention_core_bwd_plain(q, k, v, do, scale)
     if any(t.dim() != 4 for t in (q, k, v, do)):
@@ -147,15 +160,23 @@ def attention_core_bwd(q, k, v, do, scale: float):
     dq = torch.empty((b, n, h, dh), device=q.device).transpose(1, 2)
     dk = torch.empty((b, m, h, dh), device=q.device).transpose(1, 2)
     dv = torch.empty((b, m, h, dh), device=q.device).transpose(1, 2)
-    stats = torch.empty((2, b * h, n), device=q.device)  # logsumexp, delta
     strides = head_strides("attention_core_bwd", (
         ("q", q), ("k", k), ("v", v), ("do", do), ("dq", dq), ("dk", dk),
         ("dv", dv)))
+    check_rows_aligned("attention_core_bwd", (("q", q), ("k", k), ("v", v),
+                                              ("do", do)))
+    # the logsumexp and delta of every row, and where dk/dv splits its
+    # query rows over blocks, their partial sums
+    size = _scratch_fn()(b, h, n, m, dh)
+    if size < 0:
+        raise ValueError(f"attention_core_bwd: shape {(b, h, n, m, dh)} "
+                         "not taken")
+    scratch = torch.empty(size, device=q.device)
     c_strides = (ctypes.c_int * len(strides))(*strides)
     rc = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                   stats[0].data_ptr(), stats[1].data_ptr(), b, h, n, m, dh,
-                   c_strides, scale, launch_stream(q.device))
+                   scratch.data_ptr(), size, b, h, n, m, dh, c_strides, scale,
+                   launch_stream(q.device))
     raise_on_error("attention_core_bwd", rc)
     attention_core_bwd.launches += 1
     return dq, dk, dv

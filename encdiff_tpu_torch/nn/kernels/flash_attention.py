@@ -21,7 +21,8 @@ import functools
 import torch
 
 from encdiff_tpu_torch.nn.kernels import (build, check_cuda_tensor,
-                                          head_strides, launch_stream,
+                                          check_rows_aligned, head_strides,
+                                          kernel_rows, launch_stream,
                                           raise_on_error, takes_plain)
 
 #: head sizes the kernels take (csrc/flash_attention.cu)
@@ -96,15 +97,6 @@ def _check(name, sizes, q, k, v, *rest):
     return b, h, n, dh
 
 
-def _check_aligned(name, tensors):
-    """Raise unless every (B, H, N) row of each tensor starts on 16 bytes:
-    the kernels copy and read rows 16 bytes at a time."""
-    for tname, t in tensors:
-        if t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3]):
-            raise ValueError(f"{name}: {tname} rows must start on 16 bytes, "
-                             f"strides {t.stride()}")
-
-
 def _heads_view(b, h, n, dh, device):
     return torch.empty((b, n, h, dh), device=device).transpose(1, 2)
 
@@ -118,7 +110,7 @@ def flash_attention_fwd(q, k, v, scale: float):
     if takes_plain(flash_attention_fwd, q):
         return flash_attention_fwd_plain(q, k, v, scale)
     b, h, n, dh = _check("flash_attention_fwd", FWD_HEAD_SIZES, q, k, v)
-    _check_aligned("flash_attention_fwd", (("q", q), ("k", k), ("v", v)))
+    check_rows_aligned("flash_attention_fwd", (("q", q), ("k", k), ("v", v)))
     o = _heads_view(b, h, n, dh, q.device)
     lse = torch.empty((b, h, n), device=q.device)
     strides = head_strides("flash_attention_fwd",
@@ -147,8 +139,8 @@ def flash_attention_dq(q, k, v, do, lse, delta, scale: float):
         "flash_attention_dq", BWD_HEAD_SIZES, q, k, v,
         ("do", do, q.shape), ("lse", lse, q.shape[:3]),
         ("delta", delta, q.shape[:3]))
-    _check_aligned("flash_attention_dq",
-                   (("q", q), ("k", k), ("v", v), ("do", do)))
+    check_rows_aligned("flash_attention_dq",
+                       (("q", q), ("k", k), ("v", v), ("do", do)))
     dq = _heads_view(b, h, n, dh, q.device)
     strides = head_strides("flash_attention_dq", (
         ("q", q), ("k", k), ("v", v), ("do", do), ("dq", dq)))
@@ -175,8 +167,8 @@ def flash_attention_dkdv(q, k, v, do, lse, delta, scale: float):
         "flash_attention_dkdv", BWD_HEAD_SIZES, q, k, v,
         ("do", do, q.shape), ("lse", lse, q.shape[:3]),
         ("delta", delta, q.shape[:3]))
-    _check_aligned("flash_attention_dkdv",
-                   (("q", q), ("k", k), ("v", v), ("do", do)))
+    check_rows_aligned("flash_attention_dkdv",
+                       (("q", q), ("k", k), ("v", v), ("do", do)))
     dk = _heads_view(b, h, n, dh, q.device)
     dv = _heads_view(b, h, n, dh, q.device)
     strides = head_strides("flash_attention_dkdv", (
@@ -208,6 +200,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        do = kernel_rows(do)
         delta = (do.float() * o.float()).sum(dim=-1).contiguous()
         dq = flash_attention_dq(q, k, v, do, lse, delta, ctx.scale)
         dk, dv = flash_attention_dkdv(q, k, v, do, lse, delta, ctx.scale)

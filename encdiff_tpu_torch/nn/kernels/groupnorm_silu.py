@@ -67,20 +67,23 @@ def groupnorm_silu_bwd_plain(g, x, gamma, beta, scale=None, shift=None, *,
     return dx.reshape(b, c, h, w).to(x.dtype), dgamma, dbeta, dscale, dshift
 
 
-#: the forward kernel's block size, the most floats a thread takes before a
-#: group gets more threads, the largest cluster, and the floats of shared
-#: memory a block holds beside its groups (csrc/groupnorm_silu.cu)
+#: the kernels' block size, the most floats a thread takes before a group
+#: gets more threads, the largest cluster, and the floats of shared memory a
+#: block holds beside its groups, forward and backward
+#: (csrc/groupnorm_silu.cu)
 PLAN_THREADS = 256
 PLAN_FLOATS_PER_THREAD = 16
 PLAN_MAX_CLUSTER = 8
 PLAN_EXTRA_FLOATS = PLAN_THREADS // 32 + 8
+PLAN_BWD_EXTRA_FLOATS = PLAN_THREADS + 66
 
 
 class GNSiLUPlan(NamedTuple):
-    """How the forward kernel runs one shape: ``team`` threads take a group,
+    """How a kernel runs one shape: ``team`` threads take a group,
     ``per_block`` groups share a block, a group spans ``cluster`` blocks of
-    a thread-block cluster, each staging ``slice`` floats of it in ``smem``
-    bytes of shared memory; ``blocks`` is the grid."""
+    a thread-block cluster, each staging ``slice`` floats of it (of x, and
+    in the backward of the gradient too) in ``smem`` bytes of shared memory;
+    ``blocks`` is the grid."""
     team: int
     per_block: int
     cluster: int
@@ -91,45 +94,67 @@ class GNSiLUPlan(NamedTuple):
 
 def gn_silu_plan(B: int, C: int, HW: int, G: int,
                  smem_bytes: int) -> GNSiLUPlan:
-    """The forward kernel's plan (``plan_fwd`` in csrc/groupnorm_silu.cu,
-    which the card tests hold to this copy) for x (B, C, HW) in G groups and
-    ``smem_bytes`` of shared memory a block may use: the fewest threads a
-    group (32 to 256) that give each at most 16 floats, and the smallest
-    cluster of 1, 2, 4 or 8 blocks whose slices of a group fit. Raises
-    ValueError where even 8 blocks do not."""
+    """The forward kernel's plan (``gn_silu_fwd_plan`` in
+    csrc/groupnorm_silu.cu, which the card tests hold to this copy) for x
+    (B, C, HW) in G groups and ``smem_bytes`` of shared memory a block may
+    use: the fewest threads a group (32 to 256) that give each at most 16
+    floats, and the smallest cluster of 1, 2, 4 or 8 blocks whose slices of
+    a group fit. Raises ValueError where even 8 blocks do not."""
+    return _plan(B, C, HW, G, smem_bytes, bwd=False)
+
+
+def gn_silu_bwd_plan(B: int, C: int, HW: int, G: int,
+                     smem_bytes: int) -> GNSiLUPlan:
+    """The backward kernel's plan (``gn_silu_bwd_plan`` in
+    csrc/groupnorm_silu.cu): the forward's team rule, with x and the
+    gradient both staged, and the smallest cluster whose blocks fit two an
+    SM (``smem_bytes // 2`` each); only where none does, the smallest that
+    fits ``smem_bytes``. The VQ decoder's 65,536-float groups (512 KB of
+    x + g) run on clusters of 8 blocks of 64 KB."""
+    return _plan(B, C, HW, G, smem_bytes, bwd=True)
+
+
+def _plan(B, C, HW, G, smem_bytes, bwd):
     cg = C // G
     n = cg * HW
     team = 32
     while team < PLAN_THREADS and team * PLAN_FLOATS_PER_THREAD < n:
         team *= 2
     per_block = PLAN_THREADS // team
-    cluster = 1
-    while cluster <= PLAN_MAX_CLUSTER:
-        slice_ = (-(-n // cluster) + 3) // 4 * 4
-        smem = 4 * (per_block * (slice_ + 2 * cg) + PLAN_EXTRA_FLOATS)
-        if smem <= smem_bytes:
-            blocks = -(-B * G // per_block) * cluster
-            return GNSiLUPlan(team, per_block, cluster, slice_, smem, blocks)
-        cluster *= 2
+    for target in ((smem_bytes // 2, smem_bytes) if bwd else (smem_bytes,)):
+        cluster = 1
+        while cluster <= PLAN_MAX_CLUSTER:
+            slice_ = (-(-n // cluster) + 3) // 4 * 4
+            if bwd:
+                smem = 4 * (per_block * 2 * slice_ + PLAN_BWD_EXTRA_FLOATS)
+            else:
+                smem = 4 * (per_block * (slice_ + 2 * cg) + PLAN_EXTRA_FLOATS)
+            if smem <= target:
+                blocks = -(-B * G // per_block) * cluster
+                return GNSiLUPlan(team, per_block, cluster, slice_, smem,
+                                  blocks)
+            cluster *= 2
     raise ValueError(f"groupnorm_silu: a group of {n} floats does not fit "
                      f"{PLAN_MAX_CLUSTER} blocks of {smem_bytes} bytes")
 
 
 @functools.cache
-def _plan_fn():
-    fn = build.load("groupnorm_silu").gn_silu_fwd_plan
+def _plan_fn(name: str):
+    fn = getattr(build.load("groupnorm_silu"), name)
     i = ctypes.c_int
     fn.argtypes = [i, i, i, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = i
     return fn
 
 
-def kernel_plan(C: int, HW: int, G: int, smem_bytes: int):
-    """The CUDA source's own plan (team, per_block, cluster, slice, smem)
-    at a shape, for comparison with ``gn_silu_plan`` on the card; None where
-    it refuses the shape."""
+def kernel_plan(C: int, HW: int, G: int, smem_bytes: int, bwd: bool = False):
+    """The CUDA source's own plan (team, per_block, cluster, slice, smem) of
+    the forward (or with ``bwd`` the backward) at a shape, for comparison
+    with ``gn_silu_plan`` (``gn_silu_bwd_plan``) on the card; None where it
+    refuses the shape."""
     out = (ctypes.c_longlong * 5)()
-    rc = _plan_fn()(C, HW, G, smem_bytes, out)
+    name = "gn_silu_bwd_plan" if bwd else "gn_silu_fwd_plan"
+    rc = _plan_fn(name)(C, HW, G, smem_bytes, out)
     return None if rc else tuple(out)
 
 
@@ -164,7 +189,9 @@ class _GNSiLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, gamma, beta, scale, shift = ctx.saved_tensors
-        grads = gn_silu_bwd(g, x, gamma, beta, scale, shift,
+        # the kernel reads g contiguous; autograd may hand over any layout
+        # (the expanded all-stride-0 gradient of out.sum())
+        grads = gn_silu_bwd(g.contiguous(), x, gamma, beta, scale, shift,
                             groups=ctx.groups, eps=ctx.eps)
         return (*grads, None, None)
 

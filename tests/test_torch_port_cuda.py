@@ -24,7 +24,7 @@ from encdiff_tpu_torch.nn.kernels.flash_attention import (
 from encdiff_tpu_torch.nn.kernels.fused_attention import (
     fused_attention, fused_attention_plain)
 from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (
-    gn_silu_plan, groupnorm_silu, groupnorm_silu_bwd_plain,
+    gn_silu_bwd_plan, gn_silu_plan, groupnorm_silu, groupnorm_silu_bwd_plain,
     groupnorm_silu_plain, gn_silu_bwd, kernel_plan)
 
 CARD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -241,7 +241,14 @@ def _heads_view(gen, device, b, length, h, dh):
     (128, 8, 256, 256, 8), (128, 8, 256, 20, 8), (128, 8, 64, 64, 16),
     (128, 8, 64, 20, 16), (128, 8, 16, 16, 32), (128, 8, 16, 20, 32),
     (128, 8, 4, 4, 32), (128, 8, 4, 20, 32), (2, 3, 600, 45, 8),
-    (2, 3, 33, 700, 16)])
+    (2, 3, 33, 700, 16),
+    # the faces micro-step's: M = 20 with N = 4,096 splits dk/dv's query
+    # rows over blocks
+    (8, 8, 4096, 20, 8), (8, 8, 1024, 20, 16), (8, 8, 256, 256, 32),
+    (8, 8, 256, 20, 32), (8, 8, 64, 64, 32), (8, 8, 64, 20, 32),
+    # dh 64 and 128 (the VQ mid block's one head of 128 at N = M = 256)
+    (4, 2, 256, 256, 64), (3, 2, 37, 53, 64), (16, 1, 256, 256, 128),
+    (2, 2, 70, 23, 128), (2, 1, 5, 300, 128)])
 def test_attention_core_bwd_kernel_matches_plain(cuda_device, b, h, n, m, dh):
     gen = torch.Generator(cuda_device).manual_seed(5)
     q = _heads_view(gen, cuda_device, b, n, h, dh)
@@ -255,6 +262,57 @@ def test_attention_core_bwd_kernel_matches_plain(cuda_device, b, h, n, m, dh):
     for got, ref in zip(grads, attention_core_bwd_plain(q, k, v, do,
                                                          dh ** -0.5)):
         torch.testing.assert_close(got, ref, **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,m,dh", [
+    (4, 8, 256, 256, 8), (4, 8, 256, 20, 8), (4, 8, 64, 64, 16),
+    (4, 8, 4096, 20, 8), (4, 2, 256, 256, 64), (4, 1, 256, 256, 128)])
+def test_attention_core_bwd_holds_logits_of_30(cuda_device, b, h, n, m, dh):
+    """q and k scaled so that the scaled scores reach ±30: the 3xTF32 split
+    and the per-tile partial sums must hold CARD_TOL against the fp32 plain
+    version."""
+    gen = torch.Generator(cuda_device).manual_seed(21)
+    q = _heads_view(gen, cuda_device, b, n, h, dh) * 3.0
+    k = _heads_view(gen, cuda_device, b, m, h, dh) * 3.0
+    v = _heads_view(gen, cuda_device, b, m, h, dh)
+    do = _heads_view(gen, cuda_device, b, n, h, dh)
+    scale = dh ** -0.5
+    logits = torch.matmul(q[:1, :1] * scale, k[:1, :1].transpose(-1, -2))
+    assert logits.abs().max().item() >= 25.0
+    grads = attention_core_bwd(q, k, v, do, scale)
+    torch.cuda.synchronize()
+    for got, ref in zip(grads, attention_core_bwd_plain(q, k, v, do, scale)):
+        torch.testing.assert_close(got, ref, **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,m,dh", [
+    (8, 8, 4096, 20, 8), (128, 8, 256, 256, 8), (2, 1, 256, 256, 128)])
+def test_attention_core_bwd_repeats_bit_for_bit(cuda_device, b, h, n, m, dh):
+    """No atomics: two identical calls give identical bits, also where the
+    dk/dv query rows split over blocks (M = 20, N = 4,096)."""
+    gen = torch.Generator(cuda_device).manual_seed(22)
+    q, do = (_heads_view(gen, cuda_device, b, n, h, dh) for _ in range(2))
+    k, v = (_heads_view(gen, cuda_device, b, m, h, dh) for _ in range(2))
+    first = attention_core_bwd(q, k, v, do, dh ** -0.5)
+    second = attention_core_bwd(q, k, v, do, dh ** -0.5)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_attention_core_bwd_refuses_rows_off_16_bytes(cuda_device):
+    """The backward copies rows 16 bytes at a time: a q, k, v or do whose
+    rows do not start on 16 bytes is refused, not quietly copied."""
+    q = torch.zeros(1, 2, 64, 16, device=cuda_device)
+    shifted = torch.zeros(2 * 64 * 16 + 1,
+                          device=cuda_device)[1:].view(1, 2, 64, 16)
+    for args in ((shifted, q, q, q), (q, shifted, q, q), (q, q, shifted, q),
+                 (q, q, q, shifted)):
+        with pytest.raises(ValueError, match="16 bytes"):
+            attention_core_bwd(*args, 0.25)
 
 
 @pytest.mark.cuda
@@ -293,7 +351,13 @@ def test_attention_core_autograd_runs_both_kernels(cuda_device):
     ((128, 64, 16, 16), 1e-5, True), ((128, 512, 2, 2), 1e-5, True),
     ((128, 1024, 2, 2), 1e-5, True), ((128, 192, 16, 16), 1e-5, True),
     ((3, 96, 5, 7), 1e-6, False),
-    ((70000, 32, 2, 2), 1e-5, True)])    # B above 65,535: B on gridDim.x
+    ((70000, 32, 2, 2), 1e-5, True),     # B above 65,535: B on gridDim.x
+    # faces-sized groups: 32 KB to 192 KB of x + g in one block, 6 channels
+    # a group
+    ((8, 64, 64, 64), 1e-5, True), ((8, 128, 64, 64), 1e-5, False),
+    ((8, 192, 64, 64), 1e-5, True), ((8, 512, 8, 8), 1e-6, False),
+    # more than 8 channels a group: two register passes
+    ((2, 320, 4, 4), 1e-5, True)])
 def test_gn_silu_bwd_kernel_matches_plain(cuda_device, shape, eps, film):
     gen = torch.Generator(cuda_device).manual_seed(7)
     args = _gn_inputs(gen, cuda_device, *shape, film)
@@ -308,6 +372,68 @@ def test_gn_silu_bwd_kernel_matches_plain(cuda_device, shape, eps, film):
             assert got is None
         else:
             torch.testing.assert_close(got, want, **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,eps,film,cluster", [
+    ((32, 32, 256, 256), 1e-6, False, 8),   # the VQ decoder's 256x256 level
+    ((2, 384, 32, 32), 1e-5, True, 1),      # 96 KB of x + g: one block
+    ((2, 32, 128, 128), 1e-6, True, 2),     # 128 KB: two blocks of 64 KB
+    ((2, 64, 128, 128), 1e-6, False, 4),    # 256 KB: a cluster of 4
+    ((2, 64, 256, 256), 1e-6, False, 8),    # 1 MB: 8 blocks of 128 KB
+    ((1, 32, 256, 512), 1e-6, True, 8)])
+def test_gn_silu_bwd_on_clusters(cuda_device, shape, eps, film, cluster):
+    """Groups whose x + g exceed half an SM's shared memory split over a
+    thread-block cluster, the blocks' sums exchanged in rank order."""
+    b, c, h, w = shape
+    assert gn_silu_bwd_plan(b, c, h * w, 32, _optin(cuda_device)).cluster == (
+        cluster)
+    gen = torch.Generator(cuda_device).manual_seed(23)
+    args = _gn_inputs(gen, cuda_device, *shape, film)
+    g = torch.randn(shape, generator=gen, device=cuda_device)
+    grads = gn_silu_bwd(g, *args, eps=eps)
+    torch.cuda.synchronize()
+    ref = groupnorm_silu_bwd_plain(g, *args, eps=eps)
+    for got, want in zip(grads, ref):
+        if want is None:
+            assert got is None
+        else:
+            torch.testing.assert_close(got, want, **CARD_TOL)
+    assert torch.equal(grads[0], gn_silu_bwd(g, *args, eps=eps)[0])
+
+
+@pytest.mark.cuda
+def test_gn_silu_bwd_inputs_off_16_bytes(cuda_device):
+    """x and g one float into their buffers take the 4-byte copies."""
+    gen = torch.Generator(cuda_device).manual_seed(24)
+    _, gamma, beta, scale, shift = _gn_inputs(gen, cuda_device, 2, 64, 16, 16,
+                                              True)
+    x, g = (torch.randn(2 * 64 * 16 * 16 + 1, generator=gen,
+                        device=cuda_device)[1:].view(2, 64, 16, 16)
+            for _ in range(2))
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    grads = gn_silu_bwd(g, x, gamma, beta, scale, shift)
+    torch.cuda.synchronize()
+    for got, want in zip(grads, groupnorm_silu_bwd_plain(g, x, gamma, beta,
+                                                         scale, shift)):
+        torch.testing.assert_close(got, want, **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_gn_silu_bwd_plan_is_the_kernel_plan(cuda_device):
+    """The Python copy of the backward's plan gives what the CUDA source
+    computes, at the shapes of test_gn_silu_plan_is_the_kernel_plan."""
+    shapes = {(c, hw) for c in (32, 64, 96, 128, 192, 256, 384, 512)
+              for hw in (4, 9, 16, 35, 64, 256, 1024, 4096, 16384, 65536)}
+    shapes.add((32, 262144))
+    for limit in (_optin(cuda_device), 48 * 1024):
+        for c, hw in sorted(shapes):
+            try:
+                want = tuple(gn_silu_bwd_plan(1, c, hw, 32, limit))[:5]
+            except ValueError:
+                want = None
+            assert kernel_plan(c, hw, 32, limit, bwd=True) == want, (c, hw,
+                                                                     limit)
 
 
 @pytest.mark.cuda
@@ -443,6 +569,38 @@ def test_flash_attention_autograd_runs_all_three_kernels(cuda_device):
                                   do)
     for got, want in zip(grads, ref):
         torch.testing.assert_close(got, want, **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["attention_core", "flash_attention",
+                                  "groupnorm_silu"])
+def test_backward_from_out_sum(cuda_device, name):
+    """out.sum().backward() hands each Function an expanded cotangent of
+    strides 0; the backward kernels run on it and match the plain path."""
+    gen = torch.Generator(cuda_device).manual_seed(25)
+    if name == "groupnorm_silu":
+        leaves = [t.requires_grad_() for t in
+                  _gn_inputs(gen, cuda_device, 4, 128, 8, 8, True)]
+        fn, wrapper = groupnorm_silu, gn_silu_bwd
+    else:
+        n = 1024 if name == "flash_attention" else 64
+        leaves = [_heads_view(gen, cuda_device, 2, n, 4, 16).requires_grad_()
+                  for _ in range(3)]
+        fn = lambda *a: (flash_attention if name == "flash_attention"
+                         else attention_core)(*a, 0.25)
+        wrapper = (flash_attention_dq if name == "flash_attention"
+                   else attention_core_bwd)
+    before = wrapper.launches
+    fn(*leaves).sum().backward()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    got = [t.grad.clone() for t in leaves]
+    for t in leaves:
+        t.grad = None
+    with plain_path():
+        fn(*leaves).sum().backward()
+    for a, want in zip(got, leaves):
+        torch.testing.assert_close(a, want.grad, **CARD_TOL)
 
 
 @pytest.mark.cuda
