@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``encdiff_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out DIR]
 
-Phases, one line each with its wall time; any failure exits non-zero:
+``--out`` (``build/`` by default) takes the harness phases' run
+directories, the eval's 38.4 MB of reps among them. Phases, one line each
+with its wall time; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi). No CUDA: fail.
 2. build: the five CUDA sources with nvcc into ``build/``, all at once;
@@ -41,6 +43,31 @@ The flagship's stage-2 train step, B = 128, from the same checkpoint through
     on the kernel path and on the plain path: loss, every gradient leaf and
     the new batch statistics.
 12. train-profile: one train step's device time by kernel (torch.profiler).
+
+The training harness (``python -m encdiff_tpu_torch.main_val``) on the
+flagship YAML at full width, on the whole 480,000-image v4 grid:
+
+harness-data: the grid rendered on the host, uploaded as uint8 (the harness
+keeps it on the card for the phases after it) and encoded once by the
+committed checkpoint's frozen first stage: seconds of each, peak memory.
+harness-eval: a ``Trainer`` restored from the committed checkpoint runs
+``test()``: the Encoder4 sweep over the grid (seconds, images/s), FactorVAE
+and MIG on the host (seconds); it fails unless FactorVAE is 1.0 with 20
+dims and MIG within 0.01 of the checkpoint's recorded 0.17347. The reps
+are written under ``--out`` (for DCI and beta-VAE off the card).
+harness-train: ``main_val.main`` trains 40 steps from the checkpoint with
+the image logger every 20 steps, the launch counters set to 0 just before
+and read just after, then ``main_val.main -r`` resumes from its ``last``
+checkpoint for 10 steps and ends in ``test()``: ms per step on cached
+latents, peak memory. Hooks record the shape of every kernel call of the
+first run's latent encode (chunks of 2,048), of its first step and of its
+image logs; each kernel is held against its plain version at each of those
+shapes, and its launches must equal 40 steps' plus the encode's plus the
+logs'. The last chunk of the run's latents is held against the plain
+path's encode of the same rows, and the first step's loss against the
+plain path's on the same batch, t and noise. It fails unless these, the
+image logs, the checkpoint files, the resumed run's step, AdamW count, LR
+and EMA and the test results are as expected.
 
 Then vq-backward: the two backward kernels at shapes of the VQ first stage
 that no path runs yet, each against its plain version and timed as in
@@ -117,24 +144,27 @@ GroupNorm chain).
 
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from encdiff_tpu_torch import fid as fid_cli
+from encdiff_tpu_torch import main_val
 from encdiff_tpu_torch import train_steps
 from encdiff_tpu_torch.configs import FACES, FACES_TRAIN, FLAGSHIP_TRAIN
 from encdiff_tpu_torch.core.schedules import DDIMSchedule
-from encdiff_tpu_torch.data.synthetic_shapes import (TRAIN_GRID,
-                                                     epoch_batches,
-                                                     render_all_v4)
+from encdiff_tpu_torch.data.synthetic_shapes import (
+    TRAIN_GRID, SyntheticShapes3DV4FullTrain, epoch_batches, render_all_v4)
 from encdiff_tpu_torch.evalx import fid as fid_lib
 from encdiff_tpu_torch.evalx.swap import (TOKEN_BUDGET, swap_conditions,
                                           swap_sample)
@@ -158,7 +188,11 @@ from encdiff_tpu_torch.nn.kernels.fused_attention import (
 from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (
     groupnorm_silu, groupnorm_silu_bwd_plain, groupnorm_silu_plain,
     gn_silu_bwd)
+from encdiff_tpu_torch.train import harness
+from encdiff_tpu_torch.train.callbacks import make_grid
+from encdiff_tpu_torch.train.checkpoint_io import MODEL_FILE, STATE_FILE
 from encdiff_tpu_torch.train.loop import (draw_t_and_noise, loss_and_grads,
+                                          precompute_latents,
                                           trainable_parameters, train_step)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -223,6 +257,20 @@ FACES_INPUTS = 4
 FACES_DDIM_STEPS = 50
 FACES_FID_NUM = 64
 FACES_REFERENCE_SAMPLES = 20
+# the harness on the flagship: 40 steps with the image logger every 20, then
+# a run resumed from the checkpoint that saved at 40, to 50; the metric
+# gates of the committed checkpoint at step 97,500: FactorVAE 1.0 with 20
+# dims and MIG 0.17347 (demo_artifacts/round5/v4purify_run/97500.json),
+# within 0.01 since the reps come from the H100's fp32 and not the TPU's
+HARNESS_STEPS = 40
+HARNESS_RESUMED_STEPS = 50
+HARNESS_LOG_EVERY = 20
+#: rows a chunk of the harness's latent encode (train.loop.precompute_latents)
+LATENT_CHUNK = 2048
+MIG_TARGET = 0.17347
+MIG_TOL = 0.01
+LOG_KEYS = ("inputs", "reconstruction", "conditioning", "diffusion_row",
+            "samples", "samples_swapping")
 #: the VQ first stage's backward shapes, run by no path yet (ROADMAP queue 1
 #: #10, #12): GN-SiLU without FiLM at the decoder's 256x256 level, and the
 #: mid block's attention (one head of 128) over 16x16 latents
@@ -1018,7 +1066,11 @@ def profile(fn, calls: int = 3):
     return wall, busy, top
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=os.path.join(ROOT, "build"),
+                    help="directory for the harness phases' run directories")
+    args = ap.parse_args(argv)
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1152,6 +1204,8 @@ def main() -> int:
     del model
 
     train_rows, train_launches, per_step = train_phases(smi, card)
+    harness_launches, harness_rows = harness_phases(
+        smi, card, seen_rows(serve_rows, train_rows), args.out)
     vq_rows = vq_backward_phase(card)
     faces_rows, faces_launches, per_micro = faces_phases(
         smi, card, seen_rows(serve_rows, train_rows))
@@ -1169,6 +1223,7 @@ def main() -> int:
             if rows.get(name)}
         top = next(iter(parts.values()))
         launches = {"swap": swap_launches[name], "train": train_launches[name],
+                    "harness": harness_launches[name],
                     "faces_train": faces_launches[name],
                     **{path: counts[name]
                        for path, counts in fserve_launches.items()}}
@@ -1177,7 +1232,9 @@ def main() -> int:
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": max([p["max_abs_err"] for p in parts.values()]
                                + [r["err"] for r in fserve_other.get(name, ())]
-                               + [r["err"] for r in vq_rows.get(name, ())]),
+                               + [r["err"] for r in vq_rows.get(name, ())]
+                               + [r["err"]
+                                  for r in harness_rows.get(name, ())]),
             **{k: top[k] for k in (*fields, BASELINE.get(name)) if k in top}}
         for workload, calls in (("train_step", per_step),
                                 ("faces_micro_step", per_micro),
@@ -1212,7 +1269,8 @@ def main() -> int:
           "per SM and clock) and simt_ms (CUDA-core FLOPs at 67 TFLOP/s), "
           "binds names the larger of tc_ms and exp_ms, and fp32_bound_ms is "
           "the fp32 CUDA-core bound of the earlier rows; launches count "
-          f"the swap request, the {TRAIN_STEPS} train steps, the "
+          f"the swap request, the {TRAIN_STEPS} train steps, the harness's "
+          f"{HARNESS_STEPS} steps with its image logs, the "
           f"{4 * FACES_UPDATES} faces micro-steps, the faces swap request and "
           "the faces FID sampling", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1445,6 +1503,315 @@ def train_phases(smi, card):
                   profile(lambda: train_step(model, state, batch,
                                              generator=gen), calls=2))
     return rows, launches, per_step
+
+
+def harness_data_phase(smi):
+    """harness-data: the full v4 grid rendered on the host, uploaded as
+    uint8 through the harness's device cache (later phases reuse it) and
+    encoded once by the flagship's frozen first stage, as each fit does."""
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    host = SyntheticShapes3DV4FullTrain().images
+    render_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    images = harness.device_images(host, "cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t
+    model = LatentDiffusion.from_checkpoint(CKPT, device="cuda")
+    t = time.perf_counter()
+    z = precompute_latents(model, images)
+    torch.cuda.synchronize()
+    latent_s = time.perf_counter() - t
+    if not torch.isfinite(z).all():
+        raise RuntimeError("non-finite latents")
+    phase("harness-data", t0, f"{len(host)} images {tuple(host.shape)} "
+          f"rendered on the host in {render_s:.3f}s, uploaded "
+          f"({host.nbytes / 2**30:.3f} GiB uint8) in {upload_s:.3f}s, "
+          f"latents {tuple(z.shape)} ({z.numel() * 4 / 2**30:.3f} GiB fp32) "
+          f"in {latent_s:.3f}s ({len(host) / latent_s:.1f} images/s); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB | {smi}")
+
+
+def harness_eval_phase(smi, out):
+    """harness-eval: a ``Trainer`` of the flagship restored from the
+    committed checkpoint runs ``test()``; FactorVAE and MIG against the
+    checkpoint's recorded scores. The run directory, with the reps for DCI
+    and beta-VAE off the card, is ``<out>/harness_eval``. Returns the
+    trainer, whose weights are the checkpoint's."""
+    t0 = time.perf_counter()
+    config = harness.load_configs(["flagship"], [])
+    lightning = config.pop("lightning")
+    logdir = os.path.join(out, "harness_eval")
+    trainer = harness.Trainer(config, lightning, logdir=logdir,
+                              device="cuda")
+    trainer.resume_ckpt = CKPT
+    results = trainer.test()
+    step = trainer.state.step
+    with open(os.path.join(logdir, "metrics_sin", f"{step}.json")) as f:
+        scores = json.load(f)
+    fvae, mig = scores["factor_VAE"], scores["MIG"]["discrete_mig"]
+    reps_path = os.path.join(logdir, "reps", f"{step}.npy")
+    reps = np.load(reps_path)
+    with open(reps_path, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    tm = trainer.timings
+    print(f"  reps {reps.shape} {reps.dtype} at {reps_path}, sha256 {sha}; "
+          f"row 0 {np.array2string(reps[0], precision=6, max_line_width=400)}"
+          f"; dims with a std of at least 0.05 "
+          f"{int((reps.std(axis=0, ddof=1) >= 0.05).sum())}", flush=True)
+    faults = []
+    if fvae["eval_accuracy"] != 1.0 or fvae["num_active_dims"] != 20:
+        faults.append(f"FactorVAE {fvae} (1.0 with 20 dims expected)")
+    if not abs(mig - MIG_TARGET) <= MIG_TOL:
+        faults.append(f"MIG {mig} (|MIG - {MIG_TARGET}| <= {MIG_TOL} "
+                      "expected)")
+    if faults:
+        raise RuntimeError("harness-eval: " + "; ".join(faults))
+    phase("harness-eval", t0, f"test() at step {step}: sweep of "
+          f"{tm['images']} images {tm['sweep_s']:.3f}s "
+          f"({tm['images'] / tm['sweep_s']:.1f} images/s), metrics on the "
+          f"host {tm['metrics_s']:.3f}s; FactorVAE {fvae['eval_accuracy']} "
+          f"(train {fvae['train_accuracy']}, num_active_dims "
+          f"{fvae['num_active_dims']}), MIG {mig:.6f} (target {MIG_TARGET} "
+          f"+- {MIG_TOL}); {results} | {smi}")
+    return trainer
+
+
+@contextlib.contextmanager
+def recording_harness(stamps):
+    """While on, the harness's first latent encode, first train step and
+    every image log record the shape of each kernel call they make (the
+    first step also its batch, its generator's state and its loss), and
+    each train step appends its end time to ``stamps``. Yields the records;
+    ``records["on"] = False`` stops the recording."""
+    records = {"on": True, "latents": None, "step": None, "logs": []}
+    step_fn, latents_fn, log_fn = (harness.train_step,
+                                   harness.precompute_latents,
+                                   harness.log_images)
+
+    def train_step(model, state, batch, **kwargs):
+        if records["on"] and records["step"] is None:
+            first = {"batch": {k: v.clone() for k, v in batch.items()},
+                     "gen": kwargs["generator"].get_state()}
+            fwd, remove = record_shapes(model)
+            try:
+                with record_backward_shapes() as bwd:
+                    metrics = step_fn(model, state, batch, **kwargs)
+            finally:
+                remove()
+            first["loss"] = metrics["train/loss"].item()
+            records["step"] = ({**fwd, **bwd}, first)
+        else:
+            metrics = step_fn(model, state, batch, **kwargs)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return metrics
+
+    def precompute_latents(model, images, *args, **kwargs):
+        if not records["on"] or records["latents"] is not None:
+            return latents_fn(model, images, *args, **kwargs)
+        shapes, remove = record_shapes(model)
+        try:
+            z = latents_fn(model, images, *args, **kwargs)
+        finally:
+            remove()
+        records["latents"] = (shapes, z)
+        return z
+
+    def log_images(model, batch, **kwargs):
+        if not records["on"]:
+            return log_fn(model, batch, **kwargs)
+        shapes, remove = record_shapes(model)
+        try:
+            return log_fn(model, batch, **kwargs)
+        finally:
+            remove()
+            records["logs"].append(shapes)
+
+    harness.train_step = train_step
+    harness.precompute_latents = precompute_latents
+    harness.log_images = log_images
+    try:
+        yield records
+    finally:
+        harness.train_step = step_fn
+        harness.precompute_latents = latents_fn
+        harness.log_images = log_fn
+
+
+def harness_reference(ref, records):
+    """The harness run's last chunk of latents against the plain path's
+    encode of the same rows, and its first step's loss against the plain
+    path's on the same batch, t and noise; ``ref`` is a trainer at the
+    run's starting weights. Returns (readings, faults)."""
+    _, z = records["latents"]
+    _, first = records["step"]
+    images = harness.device_images(ref.data.dataset("train").images,
+                                   ref.device)
+    n, chunk = len(z), min(LATENT_CHUNK, len(z))
+    with plain_path():
+        z_plain = precompute_latents(ref.model, images[n - chunk:])
+    torch.cuda.synchronize()
+    faults = []
+    try:
+        torch.testing.assert_close(z[n - chunk:], z_plain, **PATH_TOL)
+    except AssertionError as e:
+        faults.append(f"latents of rows {n - chunk}-{n - 1}: {e}")
+    z_err = (z[n - chunk:] - z_plain).abs().max().item()
+    gen = torch.Generator(ref.device)
+    gen.set_state(first["gen"])
+    batch = first["batch"]
+    t, noise = draw_t_and_noise(ref.model, len(batch["image"]), gen)
+    bn = cond_state(ref.model)
+    with plain_path():
+        loss_dict, _ = loss_and_grads(ref.model, ref.state, batch, t, noise)
+    ref.model.cond_stage_model.load_state_dict(bn)
+    loss_plain = loss_dict["train/loss"].item()
+    if abs(first["loss"] - loss_plain) > LOSS_RTOL * abs(loss_plain):
+        faults.append(f"first step's loss {first['loss']}, plain path "
+                      f"{loss_plain} (rtol {LOSS_RTOL})")
+    return (f"latents of rows {n - chunk}-{n - 1} against the plain path "
+            f"max_abs_err {z_err:.3e} (tol {PATH_TOL}); first step's loss "
+            f"{first['loss']:.7f}, plain path {loss_plain:.7f} (rtol "
+            f"{LOSS_RTOL})"), faults
+
+
+def harness_train_phase(smi, card, seen, ref, out):
+    """harness-train: ``main_val.main`` on the flagship, 40 steps from the
+    committed checkpoint with the image logger every 20 steps and no test;
+    then ``main_val.main -r`` to step 50, which ends in ``test()``. Returns
+    the launches of the 40-step run and the checked rows of its kernel
+    calls by kernel."""
+    t0 = time.perf_counter()
+    logroot = os.path.join(out, "harness")
+    # --max_steps counts global steps, which go on from the checkpoint's
+    with np.load(CKPT) as f:
+        start = int(f["state/step"])
+    stamps = []
+    with recording_harness(stamps) as records:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        trainer = main_val.main([
+            "-b", "flagship", "-t", "--max_steps", str(start + HARNESS_STEPS),
+            "--resume_ckpt", CKPT, "--no-test", "-l", logroot,
+            "--device", "cuda",
+            "lightning.callbacks.image_logger.params.batch_frequency="
+            f"{HARNESS_LOG_EVERY}",
+            "lightning.callbacks.image_logger.params.increase_log_steps="
+            "false"])
+        torch.cuda.synchronize()
+        launches, plain_calls = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        records["on"] = False
+        first = list(stamps)
+        resumed = main_val.main(["-r", trainer.logdir, "-t", "--max_steps",
+                                 str(start + HARNESS_RESUMED_STEPS),
+                                 "--device", "cuda"])
+    faults = []
+    # the image logs of step 20: every key, at the grid shape of its count
+    root = os.path.join(trainer.logdir, "images", "train")
+    n_units = FLAGSHIP_TRAIN["unet_config"]["latent_unit"]
+    counts = {"inputs": 8, "reconstruction": 8, "conditioning": 8,
+              "diffusion_row": 4 * 6, "samples": 8,
+              "samples_swapping": 8 * n_units}
+    for key in LOG_KEYS:
+        path = os.path.join(root,
+                            f"{key}_gs-{start + HARNESS_LOG_EVERY:06}.npy")
+        nrow = 8 if key == "samples_swapping" else 4
+        want = make_grid(np.zeros((counts[key], 64, 64, 3), np.uint8),
+                         nrow=nrow).shape
+        if not os.path.exists(path):
+            faults.append(f"no image log {path}")
+        elif np.load(path).shape != want:
+            faults.append(f"{path}: {np.load(path).shape}, {want} expected")
+    last = os.path.join(trainer.ckptdir, "last")
+    for name in (MODEL_FILE, STATE_FILE):
+        if not os.path.exists(os.path.join(last, name)):
+            faults.append(f"no {name} in {last}")
+    # the resumed run: from the 40th step with AdamW's count at 40, so its
+    # first LR is the 41st update's (count 40), not the warmup's first value
+    lr_fn = trainer.state.lr_fn
+    first_lr = resumed.lr_monitor.history[0]
+    want_lr = (start + HARNESS_STEPS + 1, lr_fn(HARNESS_STEPS))
+    if first_lr != want_lr or lr_fn(HARNESS_STEPS) == lr_fn(0) \
+            or resumed.state.step != start + HARNESS_RESUMED_STEPS \
+            or resumed.state.updates != HARNESS_RESUMED_STEPS:
+        faults.append(f"resumed run's first (step, lr) {first_lr}, "
+                      f"{want_lr} expected; ended at step "
+                      f"{resumed.state.step}, AdamW count "
+                      f"{resumed.state.updates}")
+    ema_moved = not all(torch.equal(v, trainer.state.ema.params[k])
+                        for k, v in resumed.state.ema.params.items())
+    if resumed.state.ema.num_updates != trainer.state.ema.num_updates + (
+            HARNESS_RESUMED_STEPS - HARNESS_STEPS) or not ema_moved:
+        faults.append(f"EMA: {resumed.state.ema.num_updates} updates after "
+                      f"{trainer.state.ema.num_updates}, moved {ema_moved}")
+    with open(os.path.join(resumed.logdir, "test_results.json")) as f:
+        test_results = json.load(f)
+    if sorted(test_results) != ["val/factor_vae_score", "val/mig"] or not \
+            all(np.isfinite(v) for v in test_results.values()):
+        faults.append(f"test_results.json {test_results}")
+    del resumed, trainer
+    # the launches: 40 steps', the latent encode's and the image logs'
+    step_shapes, _ = records["step"]
+    latent_shapes, _ = records["latents"]
+    parts = (latent_shapes, *records["logs"])
+    want = {k: HARNESS_STEPS * len(step_shapes.get(k, ()))
+            + sum(len(p.get(k, ())) for p in parts) for k in KERNELS}
+    if launches != want or any(plain_calls.values()):
+        faults.append(f"launches {launches}, expected {want} (40 steps of "
+                      f"{ {k: len(v) for k, v in step_shapes.items()} }, "
+                      f"the latent encode's and {len(records['logs'])} image "
+                      f"logs'); plain calls {plain_calls}")
+    reading, wrong = harness_reference(ref, records)
+    faults += wrong
+    # every kernel at every shape of the run: the encode's chunks of 2,048
+    # and the image logs' are new; the step's were checked in train-kernels
+    kgen = torch.Generator("cuda").manual_seed(SEED + 6)
+    shapes = {k: [s for p in (step_shapes, *parts) for s in p.get(k, ())]
+              for k in KERNELS}
+    rows = {name: check_rows(name, shapes[name], kgen, card, seen)
+            for name in KERNELS if shapes[name]}
+    print_yardstick("harness-train", rows)
+    records.clear()
+    if faults:
+        raise RuntimeError("harness-train: " + "; ".join(faults))
+    # steps 3-40, without step 21, whose interval holds step 20's image log
+    times = [b - a for a, b in zip(first, first[1:])]  # steps 2..40
+    steady = [dt for i, dt in enumerate(times, start=2)
+              if i >= 3 and i != HARNESS_LOG_EVERY + 1]
+    median_ms = sorted(steady)[len(steady) // 2] * 1e3
+    mean_ms = sum(steady) / len(steady) * 1e3
+    phase("harness-train", t0, f"main_val -b flagship -t --max_steps "
+          f"{start + HARNESS_STEPS} from global step {start} on cached "
+          f"latents: {median_ms:.3f} ms per step (median of steps "
+          f"3-{HARNESS_STEPS} but {HARNESS_LOG_EVERY + 1}; their mean "
+          f"{mean_ms:.3f} ms; the train phase's on uncached latents above), "
+          f"peak memory {peak / 2**20:.1f} MiB, launches {launches} "
+          f"(expected); every kernel matches its plain version at every "
+          f"shape of the run (tol {KERNEL_TOL}); {reading}; image logs at "
+          f"step {start + HARNESS_LOG_EVERY}: {list(LOG_KEYS)}; resumed "
+          f"with -r to step {start + HARNESS_RESUMED_STEPS}: first (step, "
+          f"lr) {first_lr}, AdamW count {HARNESS_RESUMED_STEPS}; test "
+          f"{test_results} | {smi}")
+    return launches, rows
+
+
+def harness_phases(smi, card, seen, out):
+    """harness-data, harness-eval and harness-train, their run directories
+    under ``out``; frees the device dataset after them. Returns the
+    launches of the harness's train run and the checked rows of its kernel
+    calls."""
+    harness_data_phase(smi)
+    ref = harness_eval_phase(smi, out)
+    launches, rows = harness_train_phase(smi, card, seen, ref, out)
+    del ref
+    harness.clear_device_cache()
+    torch.cuda.empty_cache()
+    return launches, rows
 
 
 def vq_backward_phase(card):

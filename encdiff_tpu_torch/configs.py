@@ -10,6 +10,15 @@ HSIC overrides (``demo_artifacts/round5/v4purify_run/run_metadata.json``).
 ``tests/test_torch_port_slice.py`` and
 ``tests/test_torch_port_train_modules.py`` hold both equal to those files.
 
+``FLAGSHIP_RUN`` is the whole YAML as ``train.harness`` reads it
+(``-b flagship``), nested as the YAML is: ``model`` (``base_learning_rate``
+and ``params``: ``FLAGSHIP`` with the YAML's other model fields, its
+sub-configs as their ``params``), ``data`` (the full 480,000-image v4 grid
+as train and validation data, B = 128) and ``lightning`` (the image logger
+every 20,000 steps, the best-FactorVAE and best-DCI checkpoints, 24 epochs,
+validation every 2), with the port's classes as targets.
+``tests/test_torch_harness.py`` holds it equal to the YAML.
+
 ``FACES`` and ``FACES_TRAIN`` hold the model and training fields of
 ``configs/demo/synthetic-faces-encdiff.yaml``: 256 px images of the
 procedural face grid on 64x64x3 latents, micro-batch 8 with 4-way gradient
@@ -108,4 +117,75 @@ FACES_TRAIN = {
     "accumulate_grad_batches": 4,
     "seed": 23,
     "scheduler_config": dict(FLAGSHIP_TRAIN["scheduler_config"]),
+}
+
+
+FLAGSHIP_RUN = {
+    "model": {
+        "base_learning_rate": 2.0e-06,
+        "params": {
+            **FLAGSHIP,
+            "num_timesteps_cond": 1,
+            "log_every_t": 200,
+            "first_stage_key": "image",
+            "cond_stage_key": "image",
+            "cond_stage_trainable": True,
+            "concat_mode": False,
+            "monitor": "train/loss_simple",
+            "conditioning_key": "crossattn",
+            "eval_name": "synthetic_shapes_full",
+            "scheduler_config": dict(FLAGSHIP_TRAIN["scheduler_config"]),
+        },
+    },
+    "data": {
+        "target": "encdiff_tpu_torch.train.data.DataModuleFromConfig",
+        "params": {
+            "batch_size": 128,
+            "num_workers": 8,
+            "wrap": True,
+            "train": {"target": "encdiff_tpu_torch.data.synthetic_shapes."
+                                "SyntheticShapes3DV4FullTrain"},
+            "validation": {"target": "encdiff_tpu_torch.data.synthetic_shapes."
+                                     "SyntheticShapes3DV4FullTrain"},
+        },
+    },
+    "lightning": {
+        "callbacks": {
+            "image_logger": {
+                "target": "encdiff_tpu_torch.train.callbacks.ImageLogger",
+                "params": {
+                    "log_config": {
+                        "target": "encdiff_tpu_torch.train.callbacks.Record",
+                        "params": {"plot_image": True},
+                    },
+                    "batch_frequency": 20000,
+                    "max_images": 8,
+                    "increase_log_steps": False,
+                    "log_images_kwargs": {"inpaint": False,
+                                          "sample_swap": True,
+                                          "plot_progressive_rows": False},
+                },
+            },
+            "best_vae_checkpoint": {
+                "target": "encdiff_tpu_torch.train.callbacks.ModelCheckpoint",
+                "params": {
+                    "monitor": "val/factor_vae_score",
+                    "mode": "max",
+                    "filename": "best_vae_{epoch:03d}_{val/factor_vae_score:.4f}",
+                    "save_top_k": 1,
+                },
+            },
+            "best_dci_checkpoint": {
+                "target": "encdiff_tpu_torch.train.callbacks.ModelCheckpoint",
+                "params": {
+                    "monitor": "val/dci_disentanglement",
+                    "mode": "max",
+                    "filename": "best_dci_{epoch:03d}_{val/dci_disentanglement:.4f}",
+                    "save_top_k": 1,
+                },
+            },
+        },
+        "trainer": {"benchmark": True, "max_epochs": 24,
+                    "check_val_every_n_epoch": 2},
+    },
 }

@@ -107,6 +107,8 @@ def encoder4_state_dict(params: dict, batch_stats: dict
         sd["warp_mlps" + k[4:] if k.startswith("warp.") else k] = v
     for k in [k for k in sd if k.endswith(".running_mean")]:
         sd[k.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
+    if "fc.weight" not in sd or "conv4.weight" not in sd:
+        return sd  # a partial tree (a lenient restore keeps what it lacks)
     # fc input rows: flax (h, w, c) flatten -> torch (c, h, w) flatten
     d = sd["conv4.weight"].shape[0]
     w = sd["fc.weight"]                       # (U, h*w*d), HWC columns
@@ -134,7 +136,8 @@ def first_stage_state_dict(params: dict) -> dict[str, torch.Tensor]:
     """The VQ model: encoder, quant_conv, codebook, post_quant_conv and
     decoder."""
     keep = {k: params[k] for k in ("encoder", "quant_conv", "quantize",
-                                   "post_quant_conv", "decoder")}
+                                   "post_quant_conv", "decoder")
+            if k in params}
     return flax_to_state_dict(keep)
 
 

@@ -5,11 +5,14 @@ Counterpart of ``encdiff_tpu/core/ema.py:19-46``: the shadow moves as
 warmup ``d = min(decay, (1 + n) / (10 + n))``, n the update count after it
 is incremented. The JAX state is an immutable pytree; here the shadow
 tensors are updated in place, which saves one copy of the parameters per
-step. The decay is computed in float32, as the JAX package computes it.
+step. ``applied`` puts the shadow into the model for sampling, as the JAX
+package samples from the EMA's params. The decay is computed in float32,
+as the JAX package computes it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,3 +45,19 @@ def update(state: EmaState, named_params: dict, decay: float) -> None:
     torch._foreach_mul_(diffs, w)
     torch._foreach_sub_(shadows, diffs)
     state.num_updates = n
+
+
+@contextlib.contextmanager
+def applied(state: EmaState, named_params: dict):
+    """Within the block, the parameters ``named_params`` hold the EMA's
+    values; their own come back after it."""
+    saved = {k: named_params[k].detach().clone() for k in state.params}
+    with torch.no_grad():
+        for k, v in state.params.items():
+            named_params[k].copy_(v)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for k, v in saved.items():
+                named_params[k].copy_(v)

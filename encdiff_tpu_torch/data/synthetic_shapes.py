@@ -3,10 +3,11 @@
 A copy of ``_hue_rgb`` and ``render_all_v4`` from
 ``encdiff_tpu/data/synthetic_shapes.py``, so that the port can make the
 flagship's images without importing the JAX package. The flagship trains on
-the full grid ``FULL_FACTOR_SIZES`` (480,000 images, 5.9 GB of uint8);
-callers render a small ``factor_sizes`` grid instead: ``(2, 2, 2, 2, 2, 2)``
-= 64 images for swap inputs, ``TRAIN_GRID`` = 4,096 images (50 MB) for
-training batches, drawn by ``epoch_batches``.
+the full grid ``FULL_FACTOR_SIZES`` (480,000 images, 5.9 GB of uint8), the
+harness's dataset ``SyntheticShapes3DV4FullTrain``; the other entry points
+render a small ``factor_sizes`` grid: ``(2, 2, 2, 2, 2, 2)`` = 64 images
+for swap inputs, ``TRAIN_GRID`` = 4,096 images (50 MB) for the batches of
+``train_steps``, drawn by ``epoch_batches``.
 
 Factor order: floor_hue, wall_hue, object_hue, scale, shape, orientation.
 """
@@ -17,20 +18,24 @@ import colorsys
 
 import numpy as np
 
+from encdiff_tpu_torch.train.data import epoch_order
+
 FACTOR_SIZES = [6, 6, 6, 4, 4, 8]
 #: the exact Shapes3D factor grid the flagship was trained on
 FULL_FACTOR_SIZES = [10, 10, 10, 8, 4, 15]
 #: the sub-grid the port trains on: 4 values of every factor, 4,096 images
 TRAIN_GRID = (4, 4, 4, 4, 4, 4)
+#: rendered grids of this process, by (image_size, factor sizes)
+_CACHE: dict = {}
 
 
 def epoch_batches(n: int, batch_size: int, seed: int, epoch: int = 0):
     """Index arrays of one epoch's batches over ``n`` images: a permutation
     seeded with ``seed + epoch``, cut into ``n // batch_size`` full batches
-    (the order of ``encdiff_tpu/train/data.py:epoch_loader``)."""
-    order = np.random.RandomState(seed + epoch).permutation(n)
-    return [order[i * batch_size:(i + 1) * batch_size]
-            for i in range(n // batch_size)]
+    (the order of ``encdiff_tpu/train/data.py:epoch_loader``, and the
+    harness's ``train.data.epoch_order``)."""
+    return list(epoch_order(seed, epoch, n, batch_size, n).reshape(
+        -1, batch_size))
 
 
 def _hue_rgb(i: int, n: int, s: float = 0.85, v: float = 0.95) -> np.ndarray:
@@ -167,3 +172,29 @@ def render_all_v4(size: int = 64, horizon: float = 0.55,
                 idx += n_geo
     assert idx == n_images
     return out
+
+
+class SyntheticShapes3DV4Full:
+    """The 480,000-image grid of ``render_all_v4`` at ``FULL_FACTOR_SIZES``
+    (``encdiff_tpu/data/synthetic_shapes.py:593-627``), the flagship's
+    train and validation data: ``images`` (N, S, S, 3) uint8 in the order
+    of the ground truth's factor bases, rendered once per process (5.9 GB
+    on the host). The JAX class also keeps a disk cache; this one writes
+    no file."""
+
+    factor_sizes = FULL_FACTOR_SIZES
+
+    def __init__(self, image_size: int = 64, **kwargs):
+        del kwargs
+        key = (image_size, tuple(self.factor_sizes))
+        if key not in _CACHE:
+            _CACHE[key] = render_all_v4(image_size,
+                                        factor_sizes=self.factor_sizes)
+        self.images = _CACHE[key]
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+
+class SyntheticShapes3DV4FullTrain(SyntheticShapes3DV4Full):
+    pass

@@ -1,11 +1,14 @@
-"""The stage-2 train step: loss, backward, AdamW, EMA and scale-by-std.
+"""The stage-2 train step: loss, backward, AdamW, EMA and scale-by-std;
+the first-stage latent cache and the representation sweep.
 
 Counterpart of ``encdiff_tpu/train/loop.py:128-250`` (``TrainState``,
 ``scaled_learning_rate``, ``build_optimizer`` with its ``optax.MultiSteps``
 gradient accumulation, ``create_train_state``, ``build_train_step``)
-without MCL. The JAX step is one jitted XLA program; here it is eager
-PyTorch whose GN-SiLU and attention run the port's kernels forward and
-backward. As in the JAX step:
+without MCL, of ``precompute_latents`` (:74-130) and of the encode sweep
+(``build_encode_step``, ``build_encode_sweep``: :637-679). The JAX step is
+one jitted XLA program; here it is eager PyTorch whose GN-SiLU and
+attention run the port's kernels forward and backward. As in the JAX
+step:
 
 - scale_by_std sets the scale factor from the batch at global step 0 only;
   later steps keep the state's;
@@ -80,18 +83,20 @@ def build_optimizer(params, learning_rate: float) -> torch.optim.Optimizer:
                              eps=1e-8, weight_decay=1e-2)
 
 
-def create_train_state(model, config: dict, step: int = 0) -> TrainState:
+def create_train_state(model, config: dict, step: int = 0,
+                       learning_rate: float | None = None) -> TrainState:
     """A fresh optimizer and EMA (from the model's current UNet) for
     ``model``, whose UNet and Encoder4 become trainable; ``step`` is the
     global step the weights were saved at. ``config`` gives
     ``base_learning_rate``, ``batch_size``, the ``scheduler_config`` of a
     ``LambdaLinearScheduler`` and optionally ``accumulate_grad_batches``
-    (1 by default)."""
+    (1 by default); the peak LR is ``learning_rate`` if given, else the
+    reference's rule (``scaled_learning_rate``)."""
     model.unet.requires_grad_(True)
     model.cond_stage_model.requires_grad_(True)
     accumulate = config.get("accumulate_grad_batches", 1)
-    lr = scaled_learning_rate(config["base_learning_rate"],
-                              config["batch_size"], accumulate)
+    lr = learning_rate or scaled_learning_rate(
+        config["base_learning_rate"], config["batch_size"], accumulate)
     lr_fn = as_lr_schedule(
         LambdaLinearScheduler(**config["scheduler_config"]), lr)
     optimizer = build_optimizer(list(trainable_parameters(model).values()),
@@ -137,13 +142,15 @@ def global_norm(tensors) -> torch.Tensor:
 
 def train_step(model, state: TrainState, batch, *, t=None, noise=None,
                generator: torch.Generator | None = None) -> dict:
-    """One step on ``batch`` (B, S, S, 3) uint8 or [-1, 1] floats, one
+    """One step on ``batch`` (B, S, S, 3) uint8 or [-1, 1] floats, or
+    ``{"image": those, "z": their cached first-stage code}``, one
     micro-batch when ``state.accumulate`` > 1; t and noise are drawn from
     ``generator`` unless given. Updates ``state`` and the model in place;
     returns the metrics as device scalars: the loss dict, ``grad_norm`` and
     ``lr`` (the LR of the optimizer's next update)."""
     if t is None or noise is None:
-        t, noise = draw_t_and_noise(model, len(batch), generator)
+        images = batch["image"] if isinstance(batch, dict) else batch
+        t, noise = draw_t_and_noise(model, len(images), generator)
     loss_dict, sf = loss_and_grads(model, state, batch, t, noise)
     params = list(trainable_parameters(model).values())
     grads = [p.grad for p in params]
@@ -177,3 +184,45 @@ def train_step(model, state: TrainState, batch, *, t=None, noise=None,
     state.scale_factor = sf
     return {**{k: v.detach() for k, v in loss_dict.items()},
             "grad_norm": grad_norm, "lr": lr}
+
+
+@torch.no_grad()
+def precompute_latents(model, images, chunk: int = 2048) -> torch.Tensor:
+    """The frozen first stage's pre-quant code (N, h, w, C) of every row of
+    ``images`` (N, S, S, 3) uint8, on their device: one encode per row,
+    ``chunk`` rows at a time (fewer above 64 px, as the activations grow
+    with S²). As the JAX package's, the last chunk ends at row N and
+    overlaps the one before, so every encode sees ``chunk`` rows; the
+    overlap is dropped."""
+    n, side = len(images), images.shape[1]
+    if side > 64:
+        chunk = max(64, int(chunk * (64.0 / side) ** 2))
+    chunk = int(min(chunk, n))
+    starts = list(range(0, n - chunk + 1, chunk))
+    if starts[-1] + chunk < n:
+        starts.append(n - chunk)
+    parts, prev_end = [], 0
+    for s in starts:
+        z = model.encode_first_stage(model.split_batch(images[s:s + chunk])[0])
+        parts.append(z[prev_end - s:] if s < prev_end else z)
+        prev_end = s + chunk
+    return torch.cat(parts)
+
+
+@torch.no_grad()
+def encode_sweep(model, images, chunk: int = 2048) -> torch.Tensor:
+    """Encoder4's scalars (N, latent_unit) of every row of ``images`` (N, S,
+    S, 3) uint8 on the model's device, in row order: the representation
+    sweep the metrics look up by index. Encoder4 runs on its running
+    statistics (``cond_encoding``). As ``build_encode_sweep`` is driven,
+    the row order is padded with row 0 to a whole number of chunks of
+    ``min(chunk, N)``, and the padding's codes are dropped."""
+    n = len(images)
+    chunk = min(chunk, n)
+    n_chunks = -(-n // chunk)
+    order = torch.zeros(n_chunks * chunk, dtype=torch.long,
+                        device=images.device)
+    order[:n] = torch.arange(n, device=images.device)
+    us = [model.cond_encoding(model.split_batch(images[order[i:i + chunk]])[0])
+          for i in range(0, n_chunks * chunk, chunk)]
+    return torch.cat(us)[:n]

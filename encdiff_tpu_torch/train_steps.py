@@ -32,13 +32,13 @@ import argparse
 
 import torch
 
-from encdiff_tpu_torch import convert
 from encdiff_tpu_torch.configs import FACES_TRAIN, FLAGSHIP_TRAIN
-from encdiff_tpu_torch.core.compact_ckpt import (load_compact,
-                                                 model_variables, save_compact)
+from encdiff_tpu_torch.core.compact_ckpt import load_compact, model_variables
 from encdiff_tpu_torch.data import synthetic_faces, synthetic_shapes
 from encdiff_tpu_torch.data.synthetic_shapes import epoch_batches
 from encdiff_tpu_torch.models.latent_diffusion import LatentDiffusion
+from encdiff_tpu_torch.train.checkpoint_io import (fresh_variables,
+                                                   save_checkpoint)
 from encdiff_tpu_torch.train.loop import create_train_state, train_step
 
 
@@ -61,18 +61,7 @@ def fresh_for_training(config: dict, seed: int, device):
     trained state is saved under."""
     model = LatentDiffusion(config, device)
     model.init_parameters(torch.Generator(model.device).manual_seed(seed))
-    cond = model.cond_stage_model.state_dict()
-    stats = ("running_mean", "running_var", "num_batches_tracked")
-    params = convert.state_dict_tree(
-        {k: v for k, v in cond.items() if not k.endswith(stats)})
-    params["warp"] = params.pop("warp_mlps")
-    variables = {
-        "unet": {"params": convert.state_dict_tree(model.unet.state_dict())},
-        "cond": {"params": params, "batch_stats": convert.state_dict_tree(
-            {k: v for k, v in cond.items() if k.endswith(stats[:2])})},
-        "first_stage": {"params": convert.state_dict_tree(
-            model.first_stage_model.state_dict())},
-    }
+    variables = fresh_variables(model)
     return model, create_train_state(model, config), variables
 
 
@@ -101,27 +90,6 @@ def run(model, state, images, steps: int, batch_size: int, seed: int,
             epoch += 1
         idx = torch.from_numpy(pending.pop(0)).to(model.device)
         yield train_step(model, state, images[idx], generator=generator)
-
-
-def save_checkpoint(path: str, model, state, variables: dict) -> str:
-    """The trained UNet, Encoder4 (params and batch statistics), EMA, scale
-    factor and step, under the paths of ``variables``, with its frozen
-    first stage; no optimizer state, as the JAX package's compact files."""
-    unet_tree = variables["unet"]["params"]
-    cond, stats = convert.encoder4_to_flax(
-        model.cond_stage_model.state_dict(), variables["cond"]["params"],
-        variables["cond"]["batch_stats"])
-    train_state = {
-        "params": {"unet": convert.state_dict_to_flax(model.unet.state_dict(),
-                                                      unet_tree),
-                   "cond": cond},
-        "batch_stats": stats,
-        "scale_factor": float(state.scale_factor),
-        "step": state.step,
-        "ema": convert.state_dict_to_flax(state.ema.params, unet_tree),
-    }
-    return save_compact(path, train_state,
-                        {"first_stage": variables["first_stage"]})
 
 
 def main(argv=None) -> None:
