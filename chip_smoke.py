@@ -69,12 +69,32 @@ plain path's on the same batch, t and noise. It fails unless these, the
 image logs, the checkpoint files, the resumed run's step, AdamW count, LR
 and EMA and the test results are as expected.
 
-Then vq-backward: the two backward kernels at shapes of the VQ first stage
-that no path runs yet, each against its plain version and timed as in
-train-kernels: ``gn_silu_bwd`` without FiLM at the decoder's 256x256 level
-(B = 32; 65,536 floats a group, on clusters of 4) and ``attention_core_bwd``
-at the mid block's one head of 128 over the flagship's 16x16 latents
-(B = 160).
+The VQ-GAN first-stage trainer (``main_val -b flagship_vq``: the flagship's
+VQ config at full width, LPIPS, the PatchGAN and the adaptive GAN weight)
+on the same grid, from the harness's seeded fresh init:
+
+vq-shapes: hooks record every kernel call, forward and backward, of one
+train step at B = 128, of one eval batch and of one image log of 8.
+vq-kernels: every kernel at each of those shapes against its plain version,
+timed beside it, the library call (SDPA and its autograd backward, the
+GroupNorm chain and its autograd backward) and the card's bound, and the
+VQ first stage's other backward shapes: ``gn_silu_bwd`` without FiLM at a
+256x256 level (B = 32, on clusters of 4) and ``attention_core_bwd`` at
+(160, 1, 256, 256, 128).
+vq-train: ``main_val.main`` trains 40 steps with the image logger's warm-up
+logs and ends in ``test()`` over 4 validation batches, the launch counters
+set to 0 just before and read just after: launches must equal 40 steps',
+6 image logs' and 4 eval batches'; both Adam counts 40; every generator and
+discriminator leaf moved; ``compact_last.npz`` and ``test_results.json``
+finite. ms per step (each step timed on its own, synchronised), peak
+memory.
+vq-reference: one generator and one discriminator pass on the first batch
+at the run's starting weights, kernel path against plain path: every
+logged value and the discriminator's loss to 1e-5 relative, every
+generator gradient leaf to 1e-3 relative L2; the code indices that differ
+are counted, and where any do the kernel path quantizes with the plain
+path's.
+vq-profile: one train step's device time by kernel.
 
 The faces configuration's stage-2 train step (256 px images, 64x64 latents,
 micro-batch 8, 4-way accumulation) from a fresh seeded init, through the
@@ -188,7 +208,7 @@ from encdiff_tpu_torch.nn.kernels.fused_attention import (
 from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (
     groupnorm_silu, groupnorm_silu_bwd_plain, groupnorm_silu_plain,
     gn_silu_bwd)
-from encdiff_tpu_torch.train import harness
+from encdiff_tpu_torch.train import harness, vq_trainer
 from encdiff_tpu_torch.train.callbacks import make_grid
 from encdiff_tpu_torch.train.checkpoint_io import MODEL_FILE, STATE_FILE
 from encdiff_tpu_torch.train.loop import (draw_t_and_noise, loss_and_grads,
@@ -271,11 +291,31 @@ MIG_TARGET = 0.17347
 MIG_TOL = 0.01
 LOG_KEYS = ("inputs", "reconstruction", "conditioning", "diffusion_row",
             "samples", "samples_swapping")
-#: the VQ first stage's backward shapes, run by no path yet (ROADMAP queue 1
-#: #10, #12): GN-SiLU without FiLM at the decoder's 256x256 level, and the
-#: mid block's attention (one head of 128) over 16x16 latents
+#: backward shapes of the VQ first stage outside the flagship VQ-GAN step,
+#: checked in vq-kernels beside it: GN-SiLU without FiLM at a 256x256 level
+#: (the faces VQ's decoder), and the mid block's attention (one head of 128)
+#: over 16x16 latents at B = 160
 VQ_BWD_SHAPES = {"gn_silu_bwd": [((32, 32, 256, 256), 1e-6, False)],
                  "attention_core_bwd": [(160, 1, 256, 256, 128)]}
+#: the VQ-GAN trainer on the flagship's VQ config (-b flagship_vq), from the
+#: harness's seeded fresh init: 40 steps at B = 128 (the image logger's
+#: warm-up logs at steps 1, 2, 4, 8, 16 and 32), then test() over
+#: VQ_VAL_BATCHES validation batches; the harness's default seed
+VQ_STEPS = 40
+VQ_VAL_BATCHES = 4
+VQ_SEED = 23
+VQ_LOG_STEPS = (1, 2, 4, 8, 16, 32)
+#: the VQ generator's leaves whose exact gradient is zero at the flagship
+#: width: the keys' biases (softmax is shift-invariant in each query's
+#: logits), and the biases at the 32-channel levels that reach only
+#: GroupNorms of one channel a group (and, in the decoder, conv_out after
+#: one): their gradients are rounding
+VQ_EXACT_ZERO = {
+    "encoder.mid_attn_1.k.bias", "decoder.mid_attn_1.k.bias",
+    "encoder.down_0_block_0.conv1.bias", "encoder.down_0_block_1.conv1.bias",
+    *(f"decoder.up_0_block_{i}.conv{j}.bias" for i in range(3)
+      for j in (1, 2)),
+    "decoder.up_0_block_0.nin_shortcut.bias"}
 KERNELS = {
     "groupnorm_silu": dict(
         source="encdiff_tpu_torch/csrc/groupnorm_silu.cu",
@@ -1206,7 +1246,10 @@ def main(argv=None) -> int:
     train_rows, train_launches, per_step = train_phases(smi, card)
     harness_launches, harness_rows = harness_phases(
         smi, card, seen_rows(serve_rows, train_rows), args.out)
-    vq_rows = vq_backward_phase(card)
+    vq_rows, vq_other, vq_launches, per_vq_step = vq_phases(
+        smi, card, seen_rows(serve_rows, train_rows, harness_rows), args.out)
+    harness.clear_device_cache()
+    torch.cuda.empty_cache()
     faces_rows, faces_launches, per_micro = faces_phases(
         smi, card, seen_rows(serve_rows, train_rows))
     fserve_rows, fserve_other, fserve_launches, per_fserve = faces_serve_phases(
@@ -1219,11 +1262,13 @@ def main(argv=None) -> int:
     for name in KERNELS:
         parts = {w: summed(name, rows[name]) for w, rows in (
             ("serve", serve_rows), ("train_step", train_rows),
-            ("faces_micro_step", faces_rows), ("faces_serve", fserve_rows))
+            ("faces_micro_step", faces_rows), ("faces_serve", fserve_rows),
+            ("vq_step", vq_rows))
             if rows.get(name)}
         top = next(iter(parts.values()))
         launches = {"swap": swap_launches[name], "train": train_launches[name],
                     "harness": harness_launches[name],
+                    "vq_train": vq_launches[name],
                     "faces_train": faces_launches[name],
                     **{path: counts[name]
                        for path, counts in fserve_launches.items()}}
@@ -1232,13 +1277,14 @@ def main(argv=None) -> int:
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": max([p["max_abs_err"] for p in parts.values()]
                                + [r["err"] for r in fserve_other.get(name, ())]
-                               + [r["err"] for r in vq_rows.get(name, ())]
+                               + [r["err"] for r in vq_other.get(name, ())]
                                + [r["err"]
                                   for r in harness_rows.get(name, ())]),
             **{k: top[k] for k in (*fields, BASELINE.get(name)) if k in top}}
         for workload, calls in (("train_step", per_step),
                                 ("faces_micro_step", per_micro),
-                                ("faces_serve", per_fserve)):
+                                ("faces_serve", per_fserve),
+                                ("vq_step", per_vq_step)):
             if workload in parts:
                 entry[workload] = {
                     **{k: v for k, v in parts[workload].items()
@@ -1251,9 +1297,11 @@ def main(argv=None) -> int:
           "backward kernels, and over one faces micro-step (micro-batch 8, "
           "256 px) for the flash kernels; train_step, faces_micro_step and "
           "faces_serve (one UNet call at B=32 plus one 256 px decode of 32) "
-          "hold every kernel's sums over those calls; max_abs_err also "
-          "covers the faces serving shapes at B=16 and B=64 and the VQ "
-          "backward shapes of vq-backward (attention_core_ms: "
+          "hold every kernel's sums over those calls, and vq_step over one "
+          "VQ-GAN train step at B=128 (-b flagship_vq); max_abs_err also "
+          "covers the faces serving shapes at B=16 and B=64, the VQ eval "
+          "and image-log shapes and the other VQ backward shapes of "
+          "vq-kernels (attention_core_ms: "
           "attention_core or attention_core_bwd at the flash kernels' shapes; "
           "chain_ms: nn.Linear x3 + attention_core + nn.Linear at "
           "fused_attention's shapes, whose SDPA form is its library_ms; the "
@@ -1270,7 +1318,9 @@ def main(argv=None) -> int:
           "binds names the larger of tc_ms and exp_ms, and fp32_bound_ms is "
           "the fp32 CUDA-core bound of the earlier rows; launches count "
           f"the swap request, the {TRAIN_STEPS} train steps, the harness's "
-          f"{HARNESS_STEPS} steps with its image logs, the "
+          f"{HARNESS_STEPS} steps with its image logs, the VQ-GAN run's "
+          f"{VQ_STEPS} steps, {len(VQ_LOG_STEPS)} image logs and "
+          f"{VQ_VAL_BATCHES} test batches, the "
           f"{4 * FACES_UPDATES} faces micro-steps, the faces swap request and "
           "the faces FID sampling", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1802,30 +1852,325 @@ def harness_train_phase(smi, card, seen, ref, out):
 
 def harness_phases(smi, card, seen, out):
     """harness-data, harness-eval and harness-train, their run directories
-    under ``out``; frees the device dataset after them. Returns the
+    under ``out``; the device dataset stays for the VQ phases. Returns the
     launches of the harness's train run and the checked rows of its kernel
     calls."""
     harness_data_phase(smi)
     ref = harness_eval_phase(smi, out)
     launches, rows = harness_train_phase(smi, card, seen, ref, out)
     del ref
-    harness.clear_device_cache()
     torch.cuda.empty_cache()
     return launches, rows
 
 
-def vq_backward_phase(card):
-    """The two backward kernels at ``VQ_BWD_SHAPES``, each against its plain
-    version, timed as in train-kernels. Returns the checked rows."""
+def vq_model(config, seed: int):
+    """The VQ-GAN of ``config`` (``-b flagship_vq``) on the card with the
+    harness's seeded fresh init, and a fresh train state at its LR."""
+    params = config["model"]["params"]
+    model = harness.VQModel(**params).cuda()
+    model.init_parameters(torch.Generator("cuda").manual_seed(seed))
+    bs = config["data"]["params"]["batch_size"]
+    lr = bs * config["model"]["base_learning_rate"]
+    return model, vq_trainer.create_vq_train_state(model, lr)
+
+
+def vq_snapshot(model):
+    """Copies of the generator's leaves and of the discriminator's state."""
+    return ({k: p.detach().clone()
+             for k, p in model.generator_parameters().items()},
+            {k: v.clone()
+             for k, v in model.loss.discriminator.state_dict().items()})
+
+
+def record_vq_calls(model, fn):
+    """The shape of every kernel call ``fn()`` makes on ``model``, forward
+    and backward, by kernel."""
+    fwd, remove = record_shapes(model)
+    try:
+        with record_backward_shapes() as bwd:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        remove()
+    return {k: v for k, v in {**fwd, **bwd}.items() if v}
+
+
+def forced_quantize(quantizer, z, indices):
+    """The quantizer's outputs on ``z`` with the code ``indices`` given
+    (the plain path's), by its own arithmetic."""
+    b, e, h, w = z.shape
+    z_q = quantizer.embedding[indices.reshape(-1)].view(b, h, w, e).permute(
+        0, 3, 1, 2)
+    loss = (quantizer.beta * ((z_q.detach() - z) ** 2).mean()
+            + ((z_q - z.detach()) ** 2).mean())
+    return z + (z_q - z).detach(), loss, (None, None, indices)
+
+
+def vq_reference(t0, model, state, batch):
+    """One generator pass (with the adaptive weight) and one discriminator
+    pass on ``batch`` at the run's starting weights, on the plain path and
+    on the kernel path: the code indices, every logged value and the
+    discriminator's loss to LOSS_RTOL, every generator gradient leaf to
+    GRAD_RTOL relative L2 but VQ_EXACT_ZERO's (within GRAD_ZERO of the
+    global norm on both paths), on each of REFERENCE_REPEATS kernel-path
+    runs. Those runs start their backward at the decoder's output from the
+    plain path's gradient there (the L1 term's sign flips where |x - x_rec|
+    is within the two paths' rounding), and, where a near-tie of the VQ
+    argmin gave a code another index, quantize with the plain path's
+    indices; one more kernel-path run on its own indices and upstream
+    gradient is printed, not held."""
+    loss_obj = model.loss
+    x = vq_trainer.as_images(batch)
+    gen = model.generator_parameters()
+    disc0 = {k: v.clone() for k, v in loss_obj.discriminator.state_dict().items()}
+
+    def run(upstream=None, indices=None):
+        seen, handles = {}, []
+        if indices is not None:
+            handles.append(model.quantize.register_forward_hook(
+                lambda m, args, out: forced_quantize(m, args[0], indices)))
+        try:
+            xrec, qloss, ind = model(x)
+        finally:
+            for h in handles:
+                h.remove()
+
+        def grad_hook(g):
+            seen["upstream"] = g.detach().clone()
+            return upstream
+        g_total, log = loss_obj.generator_loss(
+            qloss, x, xrec, state.step, last_layer=model.get_last_layer(),
+            predicted_indices=ind)
+        # after the adaptive weight's two gradients: only the step's own
+        # backward starts from ``upstream``
+        xrec.register_hook(grad_hook)
+        grads = dict(zip(gen, torch.autograd.grad(g_total, list(gen.values()))))
+        d_total, d_log = loss_obj.discriminator_loss(x, xrec, state.step)
+        loss_obj.discriminator.load_state_dict(disc0)
+        return ({**log, **d_log}, grads, ind, seen["upstream"])
+
+    with plain_path():
+        log_p, grads_p, ind_p, up_p = run()
+    own = run()
+    flips = (own[2] != ind_p).sum().item()
+    forced = ind_p if flips else None
+    runs = [run(up_p, forced) for _ in range(REFERENCE_REPEATS)]
+    torch.cuda.synchronize()
+    norms = {k: torch.linalg.vector_norm(g).item() for k, g in grads_p.items()}
+    total = sum(n * n for n in norms.values()) ** 0.5
+    zero = sorted(k for k in VQ_EXACT_ZERO
+                  if k in norms and norms[k] <= GRAD_ZERO * total)
+
+    def relative(grads):
+        return {k: torch.linalg.vector_norm(g - grads_p[k]).item() / norms[k]
+                for k, g in grads.items() if k not in zero}
+
+    faults, got = [], []
+    for log_k, grads_k, _, _ in runs:
+        for k, v in log_p.items():
+            if abs(log_k[k].item() - v.item()) > LOSS_RTOL * abs(v.item()):
+                faults.append(f"{k} kernel {log_k[k].item()} vs plain "
+                              f"{v.item()}")
+        rel = relative(grads_k)
+        failed = [k for k, r in rel.items() if r > GRAD_RTOL]
+        loud = [k for k in zero if torch.linalg.vector_norm(
+            grads_k[k]).item() > GRAD_ZERO * total]
+        if failed or loud:
+            faults.append(f"gradients off: {failed}; zero-gradient leaves "
+                          f"above {GRAD_ZERO} of the global norm: {loud}")
+        worst = max((r, k) for k, r in rel.items())
+        got.append(f"{worst[0]:.3e} ({worst[1]})")
+    worst_own = max((r, k) for k, r in relative(own[1]).items())
+    own_signs = (own[3].sign() != up_p.sign()).sum().item()
+    kernel_losses = ", ".join(f"{r[0]['train/total_loss'].item():.7f}"
+                              for r in runs)
+    reading = (f"plain generator loss {log_p['train/total_loss'].item():.7f}, "
+               f"kernel {kernel_losses}; "
+               f"disc loss plain {log_p['train/disc_loss'].item():.7f}; code "
+               f"indices that differ {flips} of {ind_p.numel()}"
+               + (" (the kernel-path runs quantize with the plain path's)"
+                  if flips else "")
+               + f"; worst gradient leaf {'; '.join(got)}; on its own "
+               f"indices and upstream gradient ({own_signs} signs differ at "
+               f"the decoder's output) the kernel path's worst leaf "
+               f"{worst_own[0]:.3e} ({worst_own[1]})")
+    if faults:
+        raise RuntimeError("vq-reference: " + reading + "; " + "; ".join(faults))
+    phase("vq-reference", t0, f"B={len(batch)} at the run's starting weights: "
+          f"every logged value within {LOSS_RTOL}, "
+          f"{len(grads_p) - len(zero)} of {len(grads_p)} generator gradient "
+          f"leaves within relative L2 {GRAD_RTOL} on each of "
+          f"{REFERENCE_REPEATS} kernel-path runs; the {len(zero)} leaves "
+          f"with a zero exact gradient within {GRAD_ZERO} of the global "
+          f"norm: {zero}. {reading}")
+
+
+@contextlib.contextmanager
+def timed_vq_steps(times):
+    """While on, each VQ-GAN train step appends its own device-synchronised
+    seconds to ``times``."""
+    step_fn = vq_trainer.train_step
+
+    def train_step(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    vq_trainer.train_step = train_step
+    try:
+        yield
+    finally:
+        vq_trainer.train_step = step_fn
+
+
+def vq_phases(smi, card, seen, out):
+    """vq-shapes, vq-kernels, vq-train, vq-reference and vq-profile: the
+    VQ-GAN trainer behind ``main_val -b flagship_vq`` at B = 128 on the
+    full v4 grid the harness phases left on the card. Returns the checked
+    rows of the train step's kernel calls, the other checked rows (eval,
+    image log, VQ_BWD_SHAPES), the launches of the 40-step run and the
+    calls of one step by kernel."""
+    # ---- vq-shapes: one step, one eval batch and one image log
     t0 = time.perf_counter()
-    kgen = torch.Generator("cuda").manual_seed(SEED + 5)
-    rows = {name: check_rows(name, shapes, kgen, card)
-            for name, shapes in VQ_BWD_SHAPES.items()}
-    print_yardstick("vq-backward", rows)
-    phase("vq-backward", t0, "gn_silu_bwd without FiLM and "
-          "attention_core_bwd at dh 128 match their plain versions at "
+    config = harness.load_configs(["flagship_vq"], [])
+    bs = config["data"]["params"]["batch_size"]
+    host = harness.instantiate_from_config(config["data"]).setup().dataset(
+        "train").images
+    images = harness.device_images(host, "cuda")
+    model, state = vq_model(config, VQ_SEED)
+    start_gen, start_disc = vq_snapshot(model)
+    order = torch.from_numpy(harness.epoch_order(
+        VQ_SEED, 0, len(host), bs, len(host))).cuda()
+    first = images[order[:bs]]
+    per_step = record_vq_calls(
+        model, lambda: vq_trainer.train_step(model, state, first))
+    per_eval = record_vq_calls(
+        model, lambda: vq_trainer.eval_step(model, state, images[:bs]))
+    logx = vq_trainer.as_images(images[:8])
+    with torch.no_grad():
+        per_log = record_vq_calls(model, lambda: model.reconstruct(logx))
+    phase("vq-shapes", t0, f"B={bs}: per train step "
+          f"{ {k: len(v) for k, v in per_step.items()} }, per eval batch "
+          f"{ {k: len(v) for k, v in per_eval.items()} }, per image log of 8 "
+          f"{ {k: len(v) for k, v in per_log.items()} }")
+
+    # ---- vq-kernels: every kernel at every shape of the VQ path
+    t0 = time.perf_counter()
+    kgen = torch.Generator("cuda").manual_seed(SEED + 7)
+    step_rows = {name: check_rows(name, per_step[name], kgen, card, seen)
+                 for name in KERNELS if per_step.get(name)}
+    seen = {**seen, **seen_rows(step_rows)}
+    other = {name: [s for part in (per_eval, per_log)
+                    for s in part.get(name, ())]
+                   + VQ_BWD_SHAPES.get(name, []) for name in KERNELS}
+    other_rows = {name: check_rows(name, shapes, kgen, card, seen)
+                  for name, shapes in other.items() if shapes}
+    print_yardstick("vq-kernels", step_rows)
+    print_yardstick("vq-kernels (eval, image log, other VQ shapes)",
+                    other_rows)
+    phase("vq-kernels", t0, "each kernel matches its plain version at every "
+          f"shape of the VQ-GAN step, eval and image log, and at "
           f"{ {k: v for k, v in VQ_BWD_SHAPES.items()} } (tol {KERNEL_TOL})")
-    return rows
+    del model, state
+
+    # ---- vq-train: main_val -b flagship_vq, counters read around it alone
+    t0 = time.perf_counter()
+    logroot = os.path.join(out, "vq")
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with timed_vq_steps(times):
+        trainer = main_val.main([
+            "-b", "flagship_vq", "-t", "--max_steps", str(VQ_STEPS),
+            "--val_batches", str(VQ_VAL_BATCHES), "-l", logroot,
+            "--seed", str(VQ_SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches, plain_calls = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    model, state = trainer.model, trainer.state
+    faults = []
+    want = {k: VQ_STEPS * len(per_step.get(k, ()))
+            + len(VQ_LOG_STEPS) * len(per_log.get(k, ()))
+            + VQ_VAL_BATCHES * len(per_eval.get(k, ())) for k in KERNELS}
+    if launches != want or any(plain_calls.values()):
+        faults.append(f"launches {launches}, expected {want} ({VQ_STEPS} "
+                      f"steps, {len(VQ_LOG_STEPS)} image logs, "
+                      f"{VQ_VAL_BATCHES} eval batches); plain calls "
+                      f"{plain_calls}")
+    counts = (vq_trainer.optimizer_count(state.gen_opt),
+              vq_trainer.optimizer_count(state.disc_opt))
+    if counts != (VQ_STEPS, VQ_STEPS) or state.step != VQ_STEPS:
+        faults.append(f"Adam counts {counts}, step {state.step}")
+    end_gen, end_disc = vq_snapshot(model)
+    still = ([k for k, v in end_gen.items() if torch.equal(v, start_gen[k])]
+             + [k for k, v in end_disc.items()
+                if torch.equal(v, start_disc[k])
+                and not k.endswith("num_batches_tracked")])
+    if still:
+        faults.append(f"{len(still)} leaves unchanged: {still[:8]}")
+    ckdir = os.path.join(trainer.logdir, "checkpoints")
+    compact = os.path.join(ckdir, "compact_last.npz")
+    results_path = os.path.join(trainer.logdir, "test_results.json")
+    for path in (compact, results_path,
+                 os.path.join(ckdir, "last", STATE_FILE),
+                 *(os.path.join(trainer.logdir, "images", "train",
+                                f"{k}_gs-{s:06}.npy")
+                   for s in VQ_LOG_STEPS
+                   for k in ("inputs", "reconstructions"))):
+        if not os.path.exists(path):
+            faults.append(f"no {path}")
+    if os.path.exists(compact):
+        with np.load(compact) as f:
+            bad = [k for k in f.files if not np.isfinite(
+                f[k].astype(np.float64)).all()]
+            n_keys = len(f.files)
+        if bad:
+            faults.append(f"non-finite values in {compact}: {bad[:8]}")
+    test_results = {}
+    if os.path.exists(results_path):
+        with open(results_path) as f:
+            test_results = json.load(f)
+        if not test_results or not all(np.isfinite(v)
+                                       for v in test_results.values()):
+            faults.append(f"test_results.json {test_results}")
+    if faults:
+        raise RuntimeError("vq-train: " + "; ".join(faults))
+    steady = times[2:]
+    median_ms = sorted(steady)[len(steady) // 2] * 1e3
+    mean_ms = sum(steady) / len(steady) * 1e3
+    phase("vq-train", t0, f"main_val -b flagship_vq -t --max_steps "
+          f"{VQ_STEPS} --val_batches {VQ_VAL_BATCHES} from the seeded fresh "
+          f"init (seed {VQ_SEED}), B={bs} on the {len(host)}-image grid: "
+          f"{median_ms:.3f} ms per step (median of steps 3-{VQ_STEPS}; "
+          f"their mean {mean_ms:.3f} ms; first {times[0] * 1e3:.1f} ms), "
+          f"{1e3 / median_ms:.3f} steps/s, {bs * 1e3 / median_ms:.1f} "
+          f"images/s, peak memory {peak / 2**20:.1f} MiB (the grid's "
+          f"{host.nbytes / 2**20:.1f} MiB included); launches {launches} "
+          f"(expected), plain calls {plain_calls}; Adam counts {counts}; "
+          f"every generator and discriminator leaf moved; compact_last.npz "
+          f"({n_keys} keys) and test_results.json finite: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in sorted(test_results.items()))
+          + f" | {smi}")
+
+    # ---- vq-reference: kernel path vs plain path at the starting weights
+    t0 = time.perf_counter()
+    ref_model, ref_state = vq_model(config, VQ_SEED)
+    vq_reference(t0, ref_model, ref_state, first)
+    del ref_model, ref_state
+
+    # ---- vq-profile: one train step's device time (not pass/fail)
+    t0 = time.perf_counter()
+    batch = images[order[bs:2 * bs]]
+    print_profile("vq-profile", t0, f"one VQ-GAN train step at B={bs}",
+                  profile(lambda: vq_trainer.train_step(model, state, batch),
+                          calls=2))
+    del trainer, model, state
+    torch.cuda.empty_cache()
+    return step_rows, other_rows, launches, per_step
 
 
 def redraw_trainable(model, gen):

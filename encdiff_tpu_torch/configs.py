@@ -19,6 +19,13 @@ every 20,000 steps, the best-FactorVAE and best-DCI checkpoints, 24 epochs,
 validation every 2), with the port's classes as targets.
 ``tests/test_torch_harness.py`` holds it equal to the YAML.
 
+``FLAGSHIP_VQ_RUN`` is the whole ``configs/demo/synthetic-shapes-v4-full-vq.yaml``
+(``-b flagship_vq``): the flagship's VQ-GAN first stage (ch 32, ch_mult
+(1, 2, 4), 64 px, 16x16x3 latents, 2,048 codes) against LPIPS, the PatchGAN
+discriminator and the adaptive GAN weight, B = 128 on the full v4 grid, the
+image logger every 2,000 steps with its power-of-2 warm-up, 2 epochs.
+``tests/test_torch_vq_harness.py`` holds it equal to the YAML.
+
 ``FACES`` and ``FACES_TRAIN`` hold the model and training fields of
 ``configs/demo/synthetic-faces-encdiff.yaml``: 256 px images of the
 procedural face grid on 64x64x3 latents, micro-batch 8 with 4-way gradient
@@ -187,5 +194,54 @@ FLAGSHIP_RUN = {
         },
         "trainer": {"benchmark": True, "max_epochs": 24,
                     "check_val_every_n_epoch": 2},
+    },
+}
+
+
+FLAGSHIP_VQ_RUN = {
+    "model": {
+        "base_learning_rate": 4.5e-06,
+        "target": "encdiff_tpu_torch.models.autoencoder.VQModel",
+        "params": {
+            "embed_dim": 3,
+            "n_embed": 2048,
+            "monitor": "val/rec_loss",
+            "ddconfig": dict(FLAGSHIP["first_stage_config"]["ddconfig"]),
+            "lossconfig": {
+                "target": "encdiff_tpu_torch.losses.gan."
+                          "VQLPIPSWithDiscriminator",
+                "params": {
+                    "disc_conditional": False,
+                    "disc_in_channels": 3,
+                    "disc_start": 0,
+                    "disc_weight": 0.75,
+                    "codebook_weight": 1.0,
+                    "perceptual_weight": 1.0,
+                },
+            },
+        },
+    },
+    "data": {
+        "target": "encdiff_tpu_torch.train.data.DataModuleFromConfig",
+        "params": {
+            "batch_size": 128,
+            "num_workers": 8,
+            "wrap": True,
+            "train": {"target": "encdiff_tpu_torch.data.synthetic_shapes."
+                                "SyntheticShapes3DV4FullTrain"},
+            "validation": {"target": "encdiff_tpu_torch.data.synthetic_shapes."
+                                     "SyntheticShapes3DV4FullTrain"},
+        },
+    },
+    "lightning": {
+        "callbacks": {
+            "image_logger": {
+                "target": "encdiff_tpu_torch.train.callbacks.ImageLogger",
+                "params": {"batch_frequency": 2000, "max_images": 8,
+                           "increase_log_steps": True},
+            },
+        },
+        "trainer": {"benchmark": True, "accumulate_grad_batches": 1,
+                    "max_epochs": 2},
     },
 }

@@ -14,18 +14,24 @@ Two leaves of Encoder4 need more: the warp MLPs live under ``warp_mlps``
 are permuted to the CHW flatten of an NCHW tensor.
 
 ``inception_state_dict`` maps the FID Inception's flax variables the same way.
+``vq_state_dicts`` maps a JAX VQ-GAN train state (``VQTrainState`` or the
+``state`` of a compact ``.npz`` such as ``v4vq_fp16.npz``): the generator,
+the discriminator's params and batch statistics, the LPIPS variables and,
+where the state holds them, both Adam states (``adam_state``).
 
 The inverse (``state_dict_to_flax``, ``encoder4_to_flax``) walks the tree
 a state dict was converted from, so that a trained model is saved under the
 JAX package's paths. A model initialised in the port has no such tree:
 ``state_dict_tree`` makes one without the wrappers' inner levels, which the
-port's loader drops anyway.
+port's loader drops anyway, and ``flax_variables`` one with them, from the
+modules' types, which the JAX loaders that merge by path need.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 _WRAPPERS = ("Conv_0", "Dense_0", "GroupNorm_0")
 _LEAVES = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
@@ -148,3 +154,108 @@ def inception_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     pytorch-fid's."""
     return {**flax_to_state_dict(variables["params"]),
             **flax_to_state_dict(variables["batch_stats"])}
+
+
+def _np(t) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().float().cpu().numpy())
+
+
+def flax_variables(module) -> tuple[dict, dict]:
+    """(params, batch_stats) of ``module`` as flax trees with the JAX
+    package's wrapper levels, as float32 numpy: a convolution's leaves under
+    ``Conv_0`` (kernel HWIO), a GroupNorm's or GN-SiLU's under
+    ``GroupNorm_0`` (``scale``, ``bias``), a BatchNorm's ``scale`` and
+    ``bias`` in place and its ``mean`` and ``var`` in ``batch_stats``, the
+    codebook's ``embedding`` in place. Raises on another module that holds
+    parameters."""
+    from encdiff_tpu_torch.nn.encoder4 import BatchNorm
+    from encdiff_tpu_torch.nn.layers import GNSiLU
+    from encdiff_tpu_torch.nn.quantize import VectorQuantizer
+
+    params: dict = {}
+    stats: dict = {}
+
+    def node(tree, name):
+        for part in name.split(".") if name else ():
+            tree = tree.setdefault(part, {})
+        return tree
+
+    for name, m in module.named_modules():
+        own = dict(m.named_parameters(recurse=False))
+        if isinstance(m, nn.Conv2d):
+            leaf = node(params, name).setdefault("Conv_0", {})
+            leaf["kernel"] = _np(m.weight).transpose(2, 3, 1, 0)
+            if m.bias is not None:
+                leaf["bias"] = _np(m.bias)
+        elif isinstance(m, (GNSiLU, nn.GroupNorm)):
+            node(params, name)["GroupNorm_0"] = {"scale": _np(m.weight),
+                                                 "bias": _np(m.bias)}
+        elif isinstance(m, BatchNorm):
+            node(params, name).update(scale=_np(m.weight), bias=_np(m.bias))
+            node(stats, name).update(mean=_np(m.running_mean),
+                                     var=_np(m.running_var))
+        elif isinstance(m, VectorQuantizer):
+            node(params, name)["embedding"] = _np(m.embedding)
+        elif own:
+            raise TypeError(f"{name}: no flax layout for {type(m).__name__}")
+    return params, stats
+
+
+def adam_state(opt_state):
+    """(count, mu, nu) of the ``optax.scale_by_adam`` state inside an optax
+    optimizer state (``optax.adam``'s chain, or ``MultiSteps`` around it);
+    None if it holds none."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return int(np.asarray(opt_state.count)), opt_state.mu, opt_state.nu
+    children = (opt_state if isinstance(opt_state, (tuple, list)) else
+                [getattr(opt_state, f) for f in getattr(opt_state,
+                                                        "_fields", ())])
+    for child in children:
+        found = adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def vq_state_dicts(state) -> dict:
+    """The state dicts of a JAX VQ-GAN state: ``state`` is a
+    ``VQTrainState`` or a dict of its fields (the ``state`` of a compact
+    ``.npz``), values numpy. Returns ``{"generator", "discriminator",
+    "lpips"}`` (the LPIPS entry only if the state holds its variables), and
+    ``"step"``; with the optimizer states, also ``"gen_opt"`` and
+    ``"disc_opt"``, each (count, mu state dict, nu state dict)."""
+    field = (state.get if isinstance(state, dict)
+             else lambda name: getattr(state, name, None))
+    out = {"generator": flax_to_state_dict(field("gen_params")),
+           "discriminator": {**flax_to_state_dict(field("disc_params")),
+                             **flax_to_state_dict(
+                                 field("disc_batch_stats") or {})},
+           "step": int(np.asarray(field("step") or 0))}
+    lpips = (field("loss_vars") or {}).get("lpips")
+    if lpips:
+        out["lpips"] = flax_to_state_dict(lpips["params"])
+    for name in ("gen_opt", "disc_opt"):
+        found = adam_state(field(name)) if field(name) is not None else None
+        if found is not None:
+            count, mu, nu = found
+            out[name] = (count, flax_to_state_dict(mu),
+                         flax_to_state_dict(nu))
+    return out
+
+
+def vq_flax_state(model, step: int) -> dict:
+    """The JAX ``VQTrainState`` fields of a port ``VQModel`` (trained with
+    its loss), as numpy flax trees without the optimizer states:
+    ``gen_params``, ``disc_params``, ``disc_batch_stats``,
+    ``loss_vars`` ({"lpips": {"params"}} when LPIPS is on) and ``step``."""
+    from encdiff_tpu_torch.models.autoencoder import GENERATOR
+
+    gen = {name: flax_variables(getattr(model, name))[0]
+           for name in GENERATOR}
+    disc, stats = flax_variables(model.loss.discriminator)
+    lpips = model.loss.lpips
+    return {"gen_params": gen, "disc_params": disc,
+            "disc_batch_stats": stats,
+            "loss_vars": ({"lpips": {"params": flax_variables(lpips)[0]}}
+                          if lpips is not None else {}),
+            "step": np.asarray(step, np.int32)}

@@ -1,7 +1,8 @@
 """The compact ``.npz`` checkpoints: load and save.
 
 A copy of ``encdiff_tpu/core/compact_ckpt.py`` (``_flatten``,
-``_unflatten``, ``save_compact``, ``load_compact``) and of the ``.npz``
+``_unflatten``, ``save_compact``, ``save_compact_vq``, ``load_compact``)
+and of the ``.npz``
 branch of ``encdiff_tpu/train/checkpoint_io.py`` (``load_model_variables``).
 A compact checkpoint is one ``.npz`` whose keys are ``/``-joined paths of
 the flax variable tree, with weight tensors stored as float16 and scalars
@@ -91,5 +92,23 @@ def save_compact(path: str, state: dict, frozen: dict) -> str:
         },
         "frozen": frozen,
     }
+    np.savez_compressed(path, **_flatten(tree))
+    return path
+
+
+def save_compact_vq(path: str, state: dict) -> str:
+    """Write the VQ-GAN trainer's state (``convert.vq_flax_state``: the
+    generator's and discriminator's params, the batch statistics, the LPIPS
+    variables and the step; no Adam state) as one fp16 ``.npz`` under
+    ``state/``, the keys of ``demo_artifacts/round5/v4vq_fp16.npz``, which
+    the JAX ``load_compact`` and ``VQModel.load_reference_checkpoint``
+    read."""
+    tree = {"state": {
+        "gen_params": state["gen_params"],
+        "disc_params": state.get("disc_params") or {},
+        "disc_batch_stats": state.get("disc_batch_stats") or {},
+        "loss_vars": state.get("loss_vars") or {},
+        "step": np.asarray(state.get("step") or 0),
+    }}
     np.savez_compressed(path, **_flatten(tree))
     return path

@@ -24,17 +24,20 @@ class BatchNorm(nn.BatchNorm2d):
     biased batch variance E[x²] − E[x]² (flax's fast variance, clipped at
     0), and update the running statistics as ``ra = 0.9·ra + 0.1·batch``
     with that biased variance. ``nn.BatchNorm2d`` itself updates the
-    running variance with the unbiased one, at momentum 0.1."""
+    running variance with the unbiased one, at momentum 0.1. With
+    ``update_stats=False`` train mode leaves the running statistics as they
+    are, as a flax ``apply`` whose ``batch_stats`` update is discarded."""
 
-    def forward(self, x):
+    def forward(self, x, update_stats: bool = True):
         if not self.training:
             return super().forward(x)
         dims = (0, 2, 3)
         mean = x.mean(dim=dims)
         var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(0.9).add_(0.1 * mean)
-            self.running_var.mul_(0.9).add_(0.1 * var)
+        if update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x - mean[None, :, None, None]) * mul[None, :, None, None]
                 + self.bias[None, :, None, None])

@@ -4,8 +4,10 @@ Counterpart of ``encdiff_tpu/nn/vae.py:24-222``: ResnetBlock (GN-SiLU eps
 1e-6 through the ``groupnorm_silu`` kernel), AttnBlock (single head over
 all positions through ``nn.attention.attention``: the flash kernel from
 1,024 positions on, ``attention_core`` below), the asymmetric-pad Downsample,
-Upsample, Encoder and Decoder. The first stage runs frozen, so these run
-forward only.
+Upsample, Encoder and Decoder. They run forward only when they serve the
+frozen first stage of EncDiff, and forward and backward in the VQ-GAN
+trainer (``train.vq_trainer``), where the GN-SiLU and attention kernels run
+their backward kernels. Dropout is not ported: the configs train at 0.
 """
 
 from __future__ import annotations

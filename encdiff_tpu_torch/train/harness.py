@@ -28,6 +28,21 @@ the stage-2 LDM on one device:
 - ``test`` runs ``validate`` on the current or restored weights and writes
   ``test_results.json``.
 
+A config whose ``model.target`` is ``models.autoencoder.VQModel``
+(``-b flagship_vq``, ``configs.FLAGSHIP_VQ_RUN``) trains the VQ-GAN first
+stage instead (``fit_vq``, :550-704 of the JAX harness): from a seeded
+fresh init (the JAX ``fit_vq`` does not resume), the two optimizers of
+``train.vq_trainer`` on the device-resident grid in the epoch order above,
+the step counted from 0; the image logger writes inputs and
+reconstructions of 8 rows drawn with ``RandomState(step)``; each epoch
+ends with the validation metrics over the validation grid in order, capped
+at ``--val_batches`` batches, and the monitor checkpoints on
+``val/rec_loss``; ``test`` writes those metrics as ``test_results.json``. A
+checkpoint is a directory holding ``train_state.pt`` (the fp32 model with
+its discriminator and LPIPS, both Adam states, the step), and each save
+also writes ``<ckptdir>/compact_last.npz``, which the JAX ``load_compact``
+and ``VQModel.load_reference_checkpoint`` read.
+
 Checkpoints are directories (``train.checkpoint_io``). The dataset stays on
 the device between runs of one process, so a resumed run or a second
 ``main`` does not upload 5.9 GB again; its latents are computed anew by
@@ -52,23 +67,27 @@ import time
 import numpy as np
 import torch
 
-from encdiff_tpu_torch.configs import FLAGSHIP_RUN
-from encdiff_tpu_torch.core.config import instantiate_from_config
+from encdiff_tpu_torch import convert
+from encdiff_tpu_torch.configs import FLAGSHIP_RUN, FLAGSHIP_VQ_RUN
+from encdiff_tpu_torch.core.compact_ckpt import save_compact_vq
+from encdiff_tpu_torch.core.config import get_obj_from_str, instantiate_from_config
 from encdiff_tpu_torch.core.device import resolve_device
 from encdiff_tpu_torch.evalx.eval_driver import METRICS, eval_func
 from encdiff_tpu_torch.evalx.ground_truth.named_data import get_index_dataset
 from encdiff_tpu_torch.evalx.swap import log_images
+from encdiff_tpu_torch.models.autoencoder import VQModel
 from encdiff_tpu_torch.models.latent_diffusion import LatentDiffusion
 from encdiff_tpu_torch.train import callbacks as cb
+from encdiff_tpu_torch.train import vq_trainer
 from encdiff_tpu_torch.train.checkpoint_io import (
-    MODEL_FILE, fresh_variables, restore_train_checkpoint,
+    MODEL_FILE, STATE_FILE, fresh_variables, restore_train_checkpoint,
     save_train_checkpoint)
 from encdiff_tpu_torch.train.data import epoch_order
 from encdiff_tpu_torch.train.loop import (create_train_state, encode_sweep,
                                           precompute_latents, train_step)
 
 #: the configs ``-b`` takes by name
-REGISTERED = {"flagship": FLAGSHIP_RUN}
+REGISTERED = {"flagship": FLAGSHIP_RUN, "flagship_vq": FLAGSHIP_VQ_RUN}
 
 #: the dataset on the device, kept between the runs of one process: at most
 #: one, with the host array it was uploaded from
@@ -135,8 +154,8 @@ def get_parser(**parser_kwargs):
     parser.add_argument("--max_steps", type=int, default=None)
     parser.add_argument("--accumulate_grad_batches", type=int, default=None)
     parser.add_argument("--val_batches", type=int, default=None,
-                        help="cap the sweep's batches: the host-streamed "
-                             "sweep, not ported")
+                        help="VQ-GAN: cap the validation batches; LDM: the "
+                             "host-streamed sweep, not ported")
     parser.add_argument("--eval_metrics", type=str, default=None,
                         help="comma list of MIG,factor_VAE")
     parser.add_argument("--check_val_every_n_epoch", type=int, default=None)
@@ -278,7 +297,12 @@ class Trainer:
 
         self.base_lr = float(config["model"].get("base_learning_rate", 1e-4))
         self.model_params = dict(config["model"]["params"])
-        self.model = LatentDiffusion(self.model_params, self.device)
+        target = config["model"].get("target")
+        self.is_vq = target is not None and issubclass(
+            get_obj_from_str(target), VQModel)
+        self.model = (VQModel(**self.model_params).to(self.device)
+                      if self.is_vq else
+                      LatentDiffusion(self.model_params, self.device))
         eval_name = self.model_params.get("eval_name")
         self.label_dataset = (get_index_dataset(eval_name) if eval_name
                               else None)
@@ -351,6 +375,9 @@ class Trainer:
 
     # --- the loops -----------------------------------------------------------
     def fit(self, max_epochs=10, max_steps=None, log_every=50):
+        if self.is_vq:
+            return self.fit_vq(max_epochs=max_epochs, max_steps=max_steps,
+                               log_every=log_every)
         cb.SetupCallback(self.logdir, self.ckptdir, self.cfgdir,
                          config=self.config,
                          lightning_config=self.lightning_config,
@@ -450,16 +477,159 @@ class Trainer:
     def test(self) -> dict:
         """The full sweep and metric battery on the current (or restored)
         weights; writes ``<logdir>/test_results.json`` (and, through the
-        eval driver, ``metrics_sin/<step>.json``)."""
+        eval driver, ``metrics_sin/<step>.json``). A VQ-GAN run writes its
+        validation metrics, and skips without a trained state, as the JAX
+        harness does."""
         os.makedirs(self.logdir, exist_ok=True)
-        self._ensure_state()
-        results = self.validate(epoch=-1, step=self.state.step)
+        if self.is_vq:
+            if self.state is None:
+                print("[harness] test: no trained VQ state; skipping",
+                      flush=True)
+                return {}
+            results = self.validate_vq()
+        else:
+            self._ensure_state()
+            results = self.validate(epoch=-1, step=self.state.step)
         out_path = os.path.join(self.logdir, "test_results.json")
         with open(out_path, "w") as fh:
             json.dump(results, fh, indent=2)
         print(f"[harness] test results -> {out_path}: " + " ".join(
             f"{k}={v:.4f}" for k, v in results.items()), flush=True)
         return results
+
+
+    # --- the VQ-GAN first stage ------------------------------------------------
+    def fit_vq(self, max_epochs=10, max_steps=None, log_every=50):
+        """The VQ-GAN loop from a seeded fresh init; ``max_steps`` counts the
+        fit's steps from 0."""
+        if self.resume_ckpt:
+            raise NotImplementedError(
+                "the VQ-GAN trainer starts from a seeded fresh init, as the "
+                "JAX fit_vq does: resuming it is not ported")
+        cb.SetupCallback(self.logdir, self.ckptdir, self.cfgdir,
+                         config=self.config,
+                         lightning_config=self.lightning_config,
+                         now=datetime.datetime.now().strftime(
+                             "%Y-%m-%dT%H-%M-%S")).setup()
+        model, bs = self.model, self.batch_size
+        model.init_parameters(
+            torch.Generator(self.device).manual_seed(self.seed))
+        state = self.state = vq_trainer.create_vq_train_state(
+            model, self.learning_rate, self.accumulate)
+        train_ds = self.data.dataset("train")
+        images = self._device_grid(train_ds)
+        n = len(train_ds)
+        spe = n // bs
+        print(f"[harness] dataset on the device ({images.numel() / 2**20:.0f}"
+              f" MiB), {spe} steps/epoch", flush=True)
+
+        def melk(*args):
+            print("[harness] SIGUSR1: saving last checkpoint", flush=True)
+            self._save_vq_checkpoint(os.path.join(self.ckptdir, "last"))
+
+        try:
+            previous = signal.signal(signal.SIGUSR1, melk)
+        except (ValueError, AttributeError):  # not the main thread
+            previous = None
+        t0 = time.time()
+        try:
+            for epoch in range(max_epochs):
+                self.device_stats.on_epoch_start()
+                order = torch.from_numpy(epoch_order(
+                    self.seed, epoch, n, bs, len(images))).to(self.device)
+                for _ in range(spe):
+                    i = state.step % spe
+                    metrics = vq_trainer.train_step(
+                        model, state, images[order[i * bs:(i + 1) * bs]])
+                    step = state.step
+                    if step % log_every == 0:
+                        dt = time.time() - t0
+                        print(f"step {step} epoch {epoch} rec "
+                              f"{metrics['train/rec_loss'].item():.4f} disc "
+                              f"{metrics['train/disc_loss'].item():.4f} "
+                              f"({log_every / dt:.2f} it/s)", flush=True)
+                        t0 = time.time()
+                    if self.image_logger is not None and \
+                            self.image_logger.check_frequency(step):
+                        self._log_vq_images(step, images)
+                    if max_steps and step >= max_steps:
+                        raise StopIteration
+                self.device_stats.on_epoch_end(epoch)
+                val_metrics = self.validate_vq()
+                if val_metrics:
+                    print(f"[val epoch {epoch}] rec_loss="
+                          f"{val_metrics.get('val/rec_loss', float('nan')):.4f}",
+                          flush=True)
+                    self.last_val_metrics = val_metrics
+                    for ck in self.checkpoints:
+                        ck.maybe_save(self._save_vq_checkpoint, state.step,
+                                      epoch, metrics=val_metrics)
+        except StopIteration:
+            pass
+        except KeyboardInterrupt:
+            print("[harness] interrupted: saving last checkpoint", flush=True)
+            self._save_vq_checkpoint(os.path.join(self.ckptdir, "last"))
+            raise
+        finally:
+            if previous is not None:
+                signal.signal(signal.SIGUSR1, previous)
+        self._save_vq_checkpoint(os.path.join(self.ckptdir, "last"))
+        return state
+
+    @torch.no_grad()
+    def _log_vq_images(self, step: int, images) -> None:
+        """Inputs and reconstructions of 8 grid rows drawn with
+        ``RandomState(step)``, as ``.npy`` grids under ``images/train``."""
+        idx = np.random.RandomState(step).randint(0, len(images), 8)
+        x = vq_trainer.as_images(images[torch.from_numpy(idx).to(self.device)])
+        rec = self.model.reconstruct(x)
+        root = os.path.join(self.logdir, "images", "train")
+        for key, v in (("inputs", x), ("reconstructions", rec)):
+            cb.save_image_grid(v.permute(0, 2, 3, 1).cpu().numpy(),
+                               os.path.join(root, f"{key}_gs-{step:06}.npy"))
+
+    def validate_vq(self) -> dict:
+        """The means of the eval step's metrics over the validation grid in
+        order, in whole batches, at most ``val_batches`` of them."""
+        val_ds = self.data.dataset(
+            "validation" if "validation" in self.data.dataset_configs
+            else "train")
+        images = self._device_grid(val_ds)
+        bs = self.batch_size
+        steps = len(val_ds) // bs
+        if self.val_batches:
+            steps = min(steps, self.val_batches)
+        rows = []
+        for i in range(steps):
+            idx = torch.arange(i * bs, (i + 1) * bs,
+                               device=self.device) % len(images)
+            rows.append(vq_trainer.eval_step(self.model, self.state,
+                                             images[idx]))
+        if not rows:
+            return {}
+        keys = list(rows[0])
+        means = torch.stack([torch.stack([r[k] for k in keys]) for r in rows]
+                            ).cpu().double().mean(0).tolist()
+        return dict(zip(keys, means))
+
+    def _save_vq_checkpoint(self, path: str) -> None:
+        """``<path>/train_state.pt``: the fp32 model (generator,
+        discriminator with its batch statistics, LPIPS), both Adam states
+        and their accumulation buffers, the step; then
+        ``<ckptdir>/compact_last.npz``."""
+        state = self.state
+        os.makedirs(path, exist_ok=True)
+        torch.save({"step": state.step, "model": self.model.state_dict(),
+                    "gen_opt": state.gen_opt.state_dict(),
+                    "disc_opt": state.disc_opt.state_dict(),
+                    "gen_acc": vars(state.gen_acc),
+                    "disc_acc": vars(state.disc_acc)},
+                   os.path.join(path, STATE_FILE))
+        try:  # the JAX harness's rule: the mirror never ends a run
+            save_compact_vq(os.path.join(self.ckptdir, "compact_last.npz"),
+                            convert.vq_flax_state(self.model, state.step))
+        except Exception as e:  # noqa: BLE001
+            print(f"[harness] compact npz mirror failed: {e}", flush=True)
 
     def log_run_metadata(self):
         """``<logdir>/run_metadata.json``: the logger's static config (or

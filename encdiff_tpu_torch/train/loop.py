@@ -140,6 +140,39 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+def accumulate_grads(acc, params) -> bool:
+    """``optax.MultiSteps`` over ``acc.accumulate`` micro-batches: fold the
+    ``.grad`` of ``params`` into the running mean ``acc.acc_grads`` (counted
+    in ``acc.mini_step``) and return whether the optimizer updates on this
+    call; on the k-th call the parameters' ``.grad`` become the mean. With
+    ``acc.accumulate`` 1, every call updates on its own gradients. ``acc``
+    is a ``TrainState`` or anything with its three fields."""
+    if acc.accumulate == 1:
+        return True
+    grads = [p.grad for p in params]
+    if acc.acc_grads is None:
+        acc.acc_grads = [torch.zeros_like(g) for g in grads]
+    # acc + (g - acc) / (n + 1): optax.MultiSteps' running mean
+    diff = torch._foreach_sub(grads, acc.acc_grads)
+    torch._foreach_div_(diff, acc.mini_step + 1)
+    torch._foreach_add_(acc.acc_grads, diff)
+    acc.mini_step += 1
+    if acc.mini_step < acc.accumulate:
+        return False
+    for p, mean in zip(params, acc.acc_grads):
+        p.grad = mean
+    return True
+
+
+def end_update(acc, optimizer) -> None:
+    """After an optimizer update of ``accumulate_grads``: start the next
+    running mean."""
+    if acc.accumulate > 1:
+        optimizer.zero_grad(set_to_none=True)
+        torch._foreach_zero_(acc.acc_grads)
+        acc.mini_step = 0
+
+
 def train_step(model, state: TrainState, batch, *, t=None, noise=None,
                generator: torch.Generator | None = None) -> dict:
     """One step on ``batch`` (B, S, S, 3) uint8 or [-1, 1] floats, or
@@ -153,31 +186,14 @@ def train_step(model, state: TrainState, batch, *, t=None, noise=None,
         t, noise = draw_t_and_noise(model, len(images), generator)
     loss_dict, sf = loss_and_grads(model, state, batch, t, noise)
     params = list(trainable_parameters(model).values())
-    grads = [p.grad for p in params]
-    grad_norm = global_norm(grads)
+    grad_norm = global_norm([p.grad for p in params])
     lr = state.lr_fn(state.updates)
-    update = True
-    if state.accumulate > 1:
-        if state.acc_grads is None:
-            state.acc_grads = [torch.zeros_like(g) for g in grads]
-        # acc + (g - acc) / (n + 1): optax.MultiSteps' running mean
-        diff = torch._foreach_sub(grads, state.acc_grads)
-        torch._foreach_div_(diff, state.mini_step + 1)
-        torch._foreach_add_(state.acc_grads, diff)
-        state.mini_step += 1
-        update = state.mini_step == state.accumulate
-        if update:
-            for p, acc in zip(params, state.acc_grads):
-                p.grad = acc
-    if update:
+    if accumulate_grads(state, params):
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         state.optimizer.step()
         state.updates += 1
-        if state.accumulate > 1:
-            state.optimizer.zero_grad(set_to_none=True)
-            torch._foreach_zero_(state.acc_grads)
-            state.mini_step = 0
+        end_update(state, state.optimizer)
     ema_lib.update(state.ema, dict(model.unet.named_parameters()),
                    decay=EMA_DECAY)
     state.step += 1

@@ -288,7 +288,7 @@ def test_chunked_swap_matches_jax(monkeypatch, routes):
     zq, _, (_, _, idx_ref) = fsm.apply(
         jvars["first_stage"], jnp.asarray(zj),
         method=lambda m, h: m.quantize(h))
-    _, idx = tmodel.first_stage_model.quantize(
+    _, _, (_, _, idx) = tmodel.first_stage_model.quantize(
         _t(zj).permute(0, 3, 1, 2).contiguous())
     assert (idx.numpy() == np.asarray(idx_ref)).mean() >= 0.999
     # JAX's output is the decode of its own quantized latents

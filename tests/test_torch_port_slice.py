@@ -280,7 +280,7 @@ def test_quantize_indices():
     jmod = jquant.VectorQuantizer(64, 3)
     npv, jv = _init(jmod, 13, jnp.asarray(z))
     tmod = _torch_module(tquant.VectorQuantizer(64, 3), npv["params"])
-    zq, idx = tmod(_nchw(z))
+    zq, _, (_, _, idx) = tmod(_nchw(z))
     zq_ref, _, (_, _, idx_ref) = jmod.apply(jv, jnp.asarray(z))
     np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_ref))
     np.testing.assert_allclose(_nhwc(zq), np.asarray(zq_ref), **MODULE_TOL)
@@ -413,7 +413,7 @@ def test_flagship_weights_encoder4_unet_and_decode(flagship):
     zq, _, (_, _, idx_ref) = fsm.apply(
         jvars["first_stage"], jnp.asarray(z / jmodel.scale_factor),
         method=lambda m, h: m.quantize(h))
-    _, idx = tmodel.first_stage_model.quantize(
+    _, _, (_, _, idx) = tmodel.first_stage_model.quantize(
         _nchw(z / tmodel.scale_factor))
     assert (idx.numpy() == np.asarray(idx_ref)).mean() >= 0.99
     zq_scaled = np.asarray(zq) * jmodel.scale_factor
