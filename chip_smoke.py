@@ -96,6 +96,35 @@ are counted, and where any do the kernel path quantizes with the plain
 path's.
 vq-profile: one train step's device time by kernel.
 
+The MCL fine-tune (``main_val -b flagship_mcl``: ``infonce_mechgrad`` at
+λ 0.05 from the committed checkpoint, the MCL heads from the seeded fresh
+init) on the same grid:
+
+mcl-shapes: hooks record every kernel call of one step at B = 128, the
+second order included (``gn_silu_bwd_bwd``, and the attention VJP, which is
+PyTorch ops and no kernel of the port).
+mcl-kernels: every kernel at each of those shapes against its plain
+version, ``gn_silu_bwd_bwd`` against autograd of the plain backward and
+the attention VJP against autograd of ``attention_core_bwd_plain``, timed
+beside the library's double backward (the GroupNorm chain's; SDPA's on its
+math backend) and the bound.
+mcl-train: ``main_val.main`` trains MCL_STEPS steps on cached latents and
+ends in ``test()`` with the swap-visualization grids, the counters set to 0
+just before and read just after: launches must equal the steps', the
+latent encode's and the swap visualization's recorded calls; in the first
+step the critic's four weights have finite nonzero gradients and its six
+MCL_EXACT_ZERO leaves exactly zero ones; every other leaf moves; the
+checkpoint, test_results.json and the grids exist. ms per step, peak
+memory, the losses.
+mcl-reference: the kernel path against the plain path at the run's start
+on the same batch, z, t and noise: every logged value to 1e-5 and every
+trainable leaf to 1e-3 relative L2 (the L1-sign guard at the UNet output
+and the forced-code rule as in train- and vq-reference), for
+``infonce_mechgrad`` at B = 128 and ``nce_logistic``, ``denoise_sm`` and
+``jacobian_vjp_infonce`` at B = 16; ``fisher_sm`` (a third order) must
+raise.
+mcl-profile: one MCL step's device time by kernel.
+
 The faces configuration's stage-2 train step (256 px images, 64x64 latents,
 micro-batch 8, 4-way accumulation) from a fresh seeded init, through the
 same entry points:
@@ -167,6 +196,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import hashlib
 import json
 import os
@@ -205,9 +235,11 @@ from encdiff_tpu_torch.nn.kernels.flash_attention import (
     flash_attention_dq_plain, flash_attention_fwd, flash_attention_fwd_plain)
 from encdiff_tpu_torch.nn.kernels.fused_attention import (
     fused_attention, fused_attention_plain)
+from encdiff_tpu_torch.nn.kernels.attention import attention_core_bwd_vjp
 from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (
-    groupnorm_silu, groupnorm_silu_bwd_plain, groupnorm_silu_plain,
-    gn_silu_bwd)
+    gn_silu_bwd_bwd, groupnorm_silu, groupnorm_silu_bwd_bwd_plain,
+    groupnorm_silu_bwd_plain, groupnorm_silu_plain, gn_silu_bwd)
+from encdiff_tpu_torch.train import callbacks as port_callbacks
 from encdiff_tpu_torch.train import harness, vq_trainer
 from encdiff_tpu_torch.train.callbacks import make_grid
 from encdiff_tpu_torch.train.checkpoint_io import MODEL_FILE, STATE_FILE
@@ -316,6 +348,21 @@ VQ_EXACT_ZERO = {
     *(f"decoder.up_0_block_{i}.conv{j}.bias" for i in range(3)
       for j in (1, 2)),
     "decoder.up_0_block_0.nin_shortcut.bias"}
+#: the MCL fine-tune (-b flagship_mcl) from the committed checkpoint with
+#: its seeded fresh heads: MCL_STEPS steps at B = 128 on cached latents,
+#: then test(); the other first- and second-order types held kernel path
+#: against plain path at B = MCL_TYPES_BATCH
+MCL_STEPS = 20
+MCL_TYPES = ("nce_logistic", "denoise_sm", "jacobian_vjp_infonce")
+MCL_TYPES_BATCH = 16
+#: the critic's leaves that the mechanism gradient g = d/dz sum critic
+#: reaches only through a ReLU's mask (zero derivative): their exact
+#: gradient is zero in infonce_mechgrad (in JAX too), and AdamW's decay alone
+#: moves them, by lr·1e-2 a step, under fp32's resolution during the warmup;
+#: the other four critic leaves reach g through the decoder's second order
+MCL_EXACT_ZERO = {"mcl.critic.img_conv1.bias", "mcl.critic.img_conv2.bias",
+                  "mcl.critic.z_fc.bias", "mcl.critic.u_fc.weight",
+                  "mcl.critic.u_fc.bias", "mcl.critic.out.bias"}
 KERNELS = {
     "groupnorm_silu": dict(
         source="encdiff_tpu_torch/csrc/groupnorm_silu.cu",
@@ -342,6 +389,10 @@ KERNELS = {
     "fused_attention": dict(
         source="encdiff_tpu_torch/csrc/fused_attention.cu",
         replaces="encdiff_tpu/nn/pallas/attention.py:66"),
+    "gn_silu_bwd_bwd": dict(
+        source="encdiff_tpu_torch/csrc/groupnorm_silu.cu",
+        replaces="no TPU kernel: XLA's autodiff of the VJP at "
+                 "encdiff_tpu/nn/pallas/groupnorm_silu.py:113"),
 }
 FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkdv")
 WRAPPERS = {"groupnorm_silu": groupnorm_silu, "attention_core": attention_core,
@@ -350,7 +401,8 @@ WRAPPERS = {"groupnorm_silu": groupnorm_silu, "attention_core": attention_core,
             "flash_attention_fwd": flash_attention_fwd,
             "flash_attention_dq": flash_attention_dq,
             "flash_attention_dkdv": flash_attention_dkdv,
-            "fused_attention": fused_attention}
+            "fused_attention": fused_attention,
+            "gn_silu_bwd_bwd": gn_silu_bwd_bwd}
 #: what each kernel's baseline column times: the route it replaces at the
 #: same shape
 BASELINE = {"flash_attention_fwd": "attention_core_ms",
@@ -363,7 +415,7 @@ BASELINE = {"flash_attention_fwd": "attention_core_ms",
 #: kernels of attention_core and groupnorm_silu, forward and backward
 PROFILE_ALWAYS = ("attn_core_mma_kernel", "gn_silu_fwd_kernel",
                   "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
-                  "gn_silu_bwd_kernel")
+                  "gn_silu_bwd_kernel", "gn_silu_bwd_bwd_kernel")
 
 
 def mma_rate(card):
@@ -587,6 +639,38 @@ def gn_bwd_cost(shape, film):
     n = b * c * h * w
     nbytes = 4 * (3 * n + 4 * c + (4 * b * c if film else 0))
     return nbytes, n * (4 + 4 + (3 if film else 0) + 3 + 5 + 1 + 6 + 4 + 4)
+
+
+def gn_bwd_bwd_cost(shape, params):
+    """(bytes, fp32 operations) of one gn_silu_bwd_bwd call without FiLM:
+    x, the gradient g and the cotangent u read and dg and dx written once
+    (the cotangents of dgamma and dbeta read, their gradients written, with
+    ``params``); per element the statistics (4), the first pass's xn, a,
+    sigmoid, silu' and five sums (3 + 3 + 4 + 10), the second pass's xn, a,
+    sigmoid, silu', silu'', dy, ut, h, e, Gx and two sums (3 + 3 + 4 + 6 +
+    2 + 3 + 4 + 2 + 6 + 4, with two channel sums 4 more) and dx (5)."""
+    b, c, h, w = shape
+    n = b * c * h * w
+    nbytes = 4 * (5 * n + 2 * c + (4 * c if params else 0))
+    return nbytes, n * (4 + 20 + 37 + (4 if params else 0) + 5)
+
+
+def attn_vjp_work(b, h, n, m, dh):
+    """(fp32 FLOPs, exponentials) of one attention_core_bwd_vjp call: twelve
+    products of 2 N M dh FLOPs per (batch, head) (q kᵀ, do vᵀ, dq_bar kᵀ,
+    q dk_barᵀ, do dv_barᵀ, S̄ k, dS dk_bar, S̄ᵀ q, dSᵀ dq_bar, dP̄ᵀ do, dP̄ v,
+    P dv_bar), about twenty elementwise operations per score, and one
+    exponential per score."""
+    bh = b * h
+    return bh * (24 * n * m * dh + 20 * n * m), bh * n * m
+
+
+def attn_vjp_cost(b, h, n, m, dh):
+    """(bytes, fp32 operations) of one attention_core_bwd_vjp call: q, k,
+    v, do and the three cotangents read and four gradients written once;
+    ``attn_vjp_work``'s operations."""
+    bh = b * h
+    return 4 * bh * dh * (4 * n + 7 * m), attn_vjp_work(b, h, n, m, dh)[0]
 
 
 def flash_cost(name, b, h, n, dh):
@@ -825,6 +909,101 @@ def check_attn(shape, gen, card):
                 tc_ms=tc_ms, exp_ms=exp_ms)
 
 
+def check_gn_bwd_bwd(shape, eps, params, gen):
+    """Check and time gn_silu_bwd_bwd at x's shape (with the gradients of
+    gamma and beta where ``params``) beside its plain version (autograd of
+    the plain backward) and autograd's double backward of the GroupNorm
+    chain (F.group_norm, F.silu), on event time and on device time
+    (CUDA-graph replays)."""
+    b, c, h, w = shape
+    dev = "cuda"
+    x = torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5
+    gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
+    beta = 0.2 * torch.randn(c, generator=gen, device=dev)
+    g, du = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
+    bars = (dict(dgamma_bar=torch.randn(c, generator=gen, device=dev),
+                 dbeta_bar=torch.randn(c, generator=gen, device=dev))
+            if params else {})
+    kw = dict(eps=eps, param_grads=params, **bars)
+    kernel = lambda: gn_silu_bwd_bwd(du, g, x, gamma, beta, **kw)
+    plain = lambda: groupnorm_silu_bwd_bwd_plain(du, g, x, gamma, beta, **kw)
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    pairs = [(a, r) for a, r in zip(got, ref) if r is not None]
+    for a, r in pairs:
+        torch.testing.assert_close(a, r, **KERNEL_TOL)
+    err = max((a - r).abs().max().item() for a, r in pairs)
+    del got, ref, pairs
+    nbytes, ops = gn_bwd_bwd_cost(shape, params)
+    plan = kgn.gn_silu_bwd_bwd_plan(b, c, h * w, 32, torch.cuda.get_device_properties(
+        0).shared_memory_per_block_optin)
+    # the library's second order: the GroupNorm chain's backward recorded
+    # (create_graph) and differentiated against the same cotangents
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [t.detach().requires_grad_() for t in (x, gamma, beta)]
+        gl = g.detach().requires_grad_()
+        y = F.silu(F.group_norm(leaves[0], 32, leaves[1], leaves[2], eps))
+        first = torch.autograd.grad(y, leaves, gl, create_graph=True)
+        outs, cots = ([first[0]], [du]) if not params else (
+            list(first), [du, bars["dgamma_bar"], bars["dbeta_bar"]])
+        library = lambda: torch.autograd.grad(
+            outs, [gl, *leaves[:1 + 2 * params]], cots, retain_graph=True)
+        library_ms = time_ms(library)
+        library_device_ms = graph_ms(library, stream=side)
+    torch.cuda.current_stream().wait_stream(side)
+    return dict(err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
+                library_ms=library_ms, device_ms=graph_ms(kernel),
+                library_device_ms=library_device_ms,
+                bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=ops / PEAK_FP32 * 1e3,
+                path=f"{plan.per_block} a block" if plan.cluster == 1
+                else f"cluster of {plan.cluster}")
+
+
+def check_attn_vjp(shape, gen):
+    """Check and time attention_core_bwd_vjp (PyTorch ops, no kernel of
+    the port) at (B, H, N, M, dh) against autograd of the plain backward
+    (its plain version), beside autograd's double backward of SDPA on its
+    math backend (the fused backends have no double backward), on event
+    time; the fp32 bound of its products."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    b, h, n, m, dh = shape
+    q, k, v, do, dq_bar, dk_bar, dv_bar = (
+        torch.randn(b, h, length, dh, generator=gen, device="cuda")
+        for length in (n, m, m, n, n, m, m))
+    scale = dh ** -0.5
+    fn = lambda: attention_core_bwd_vjp(q, k, v, do, dq_bar, dk_bar, dv_bar,
+                                        scale)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, do)]
+    outs = attention_core_bwd_plain(*leaves, scale)
+    plain = lambda: torch.autograd.grad(outs, leaves,
+                                        (dq_bar, dk_bar, dv_bar),
+                                        retain_graph=True)
+    got, ref = fn(), plain()
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, **KERNEL_TOL)
+    err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+    del got, ref
+    with sdpa_kernel(SDPBackend.MATH):
+        sl = [t.detach().requires_grad_() for t in (q, k, v)]
+        dl = do.detach().requires_grad_()
+        first = torch.autograd.grad(
+            F.scaled_dot_product_attention(*sl, scale=scale), sl, dl,
+            create_graph=True)
+        library = lambda: torch.autograd.grad(
+            first, [*sl, dl], (dq_bar, dk_bar, dv_bar), retain_graph=True)
+        library_ms = time_ms(library)
+    nbytes, ops = attn_vjp_cost(*shape)
+    calls = attention_core_bwd_vjp.calls
+    row = dict(err=err, ms=time_ms(fn), plain_ms=time_ms(plain),
+               library_ms=library_ms, bytes_ms=nbytes / PEAK_BYTES * 1e3,
+               ops_ms=ops / PEAK_FP32 * 1e3)
+    attention_core_bwd_vjp.calls = calls  # timing calls are not the path's
+    return row
+
+
 def check_attn_bwd(shape, gen, card):
     """Check and time attention_core_bwd at (B, H, N, M, dh) on the callers'
     layout, beside its plain version and SDPA's autograd backward (which
@@ -902,14 +1081,32 @@ def check_gn_bwd(shape, eps, film, gen):
 
 @contextlib.contextmanager
 def record_backward_shapes():
-    """Hooks on the backward of the two autograd Functions: every backward
-    kernel call's shape, as ``check_*_bwd`` take it."""
+    """Hooks on the backward of the autograd Functions: every backward
+    kernel call's shape, as ``check_*_bwd`` take it, and the second order's
+    (``gn_silu_bwd_bwd``, and ``attention_core_bwd_vjp``, which is PyTorch
+    ops)."""
     records = {"attention_core_bwd": [], "gn_silu_bwd": [],
-               "flash_attention_dq": [], "flash_attention_dkdv": []}
+               "flash_attention_dq": [], "flash_attention_dkdv": [],
+               "gn_silu_bwd_bwd": [], "attention_core_bwd_vjp": []}
     attn_fn, gn_fn, flash_fn = (kattn._AttentionCore, kgn._GNSiLU,
                                 kflash._FlashAttention)
     attn_bwd, gn_bwd, flash_bwd = (attn_fn.backward, gn_fn.backward,
                                    flash_fn.backward)
+    gn2_fn, attn2_fn = kgn._GNSiLUBwd, kattn._AttentionCoreBwd
+    gn2_bwd, attn2_bwd = gn2_fn.backward, attn2_fn.backward
+
+    def gn2_hook(ctx, *grads):
+        x = ctx.saved_tensors[1]
+        needs = ctx.needs_input_grad
+        records["gn_silu_bwd_bwd"].append((tuple(x.shape), ctx.eps,
+                                           bool(needs[2] or needs[3])))
+        return gn2_bwd(ctx, *grads)
+
+    def attn2_hook(ctx, *grads):
+        q, k = ctx.saved_tensors[:2]
+        records["attention_core_bwd_vjp"].append(
+            (q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3]))
+        return attn2_bwd(ctx, *grads)
 
     def attn_hook(ctx, do):
         q, k, _ = ctx.saved_tensors
@@ -929,13 +1126,15 @@ def record_backward_shapes():
             records[name].append(tuple(q.shape))
         return flash_bwd(ctx, do)
 
-    fns = (attn_fn, gn_fn, flash_fn)
-    for fn, hook in zip(fns, (attn_hook, gn_hook, flash_hook)):
+    fns = (attn_fn, gn_fn, flash_fn, gn2_fn, attn2_fn)
+    for fn, hook in zip(fns, (attn_hook, gn_hook, flash_hook, gn2_hook,
+                              attn2_hook)):
         fn.backward = staticmethod(hook)
     try:
         yield records
     finally:
-        for fn, bwd in zip(fns, (attn_bwd, gn_bwd, flash_bwd)):
+        for fn, bwd in zip(fns, (attn_bwd, gn_bwd, flash_bwd, gn2_bwd,
+                                 attn2_bwd)):
             fn.backward = staticmethod(bwd)
 
 
@@ -949,7 +1148,9 @@ def check_rows(name, shapes, gen, card, seen=None):
              "attention_core": lambda key: check_attn(key, gen, card),
              "gn_silu_bwd": lambda key: check_gn_bwd(*key, gen),
              "attention_core_bwd": lambda key: check_attn_bwd(key, gen, card),
-             "fused_attention": lambda key: check_fused(key, gen, card)}.get(
+             "fused_attention": lambda key: check_fused(key, gen, card),
+             "gn_silu_bwd_bwd": lambda key: check_gn_bwd_bwd(*key, gen),
+             "attention_core_bwd_vjp": lambda key: check_attn_vjp(key, gen)}.get(
                  name, lambda key: check_flash(name, key, gen, card))
     seen = {} if seen is None else seen
     rows = []
@@ -1007,7 +1208,13 @@ YARDSTICK = {
                            lambda r: r["library_device_ms"]),
     "gn_silu_bwd": ("the GroupNorm chain's autograd backward on device time",
                     lambda r: r["device_ms"],
-                    lambda r: r["library_device_ms"])}
+                    lambda r: r["library_device_ms"]),
+    "gn_silu_bwd_bwd": ("the GroupNorm chain's autograd double backward on "
+                        "device time", lambda r: r["device_ms"],
+                        lambda r: r["library_device_ms"]),
+    "attention_core_bwd_vjp": ("SDPA's (math backend) autograd double "
+                               "backward", lambda r: r["ms"],
+                               lambda r: r["library_ms"])}
 
 
 def print_yardstick(phase_name, rows_by_kernel):
@@ -1248,6 +1455,9 @@ def main(argv=None) -> int:
         smi, card, seen_rows(serve_rows, train_rows), args.out)
     vq_rows, vq_other, vq_launches, per_vq_step = vq_phases(
         smi, card, seen_rows(serve_rows, train_rows, harness_rows), args.out)
+    mcl_rows, mcl_vjp_rows, mcl_launches, per_mcl_step = mcl_phases(
+        smi, card, seen_rows(serve_rows, train_rows, harness_rows, vq_rows),
+        args.out)
     harness.clear_device_cache()
     torch.cuda.empty_cache()
     faces_rows, faces_launches, per_micro = faces_phases(
@@ -1263,12 +1473,13 @@ def main(argv=None) -> int:
         parts = {w: summed(name, rows[name]) for w, rows in (
             ("serve", serve_rows), ("train_step", train_rows),
             ("faces_micro_step", faces_rows), ("faces_serve", fserve_rows),
-            ("vq_step", vq_rows))
+            ("vq_step", vq_rows), ("mcl_step", mcl_rows))
             if rows.get(name)}
         top = next(iter(parts.values()))
         launches = {"swap": swap_launches[name], "train": train_launches[name],
                     "harness": harness_launches[name],
                     "vq_train": vq_launches[name],
+                    "mcl_train": mcl_launches[name],
                     "faces_train": faces_launches[name],
                     **{path: counts[name]
                        for path, counts in fserve_launches.items()}}
@@ -1284,13 +1495,15 @@ def main(argv=None) -> int:
         for workload, calls in (("train_step", per_step),
                                 ("faces_micro_step", per_micro),
                                 ("faces_serve", per_fserve),
-                                ("vq_step", per_vq_step)):
+                                ("vq_step", per_vq_step),
+                                ("mcl_step", per_mcl_step)):
             if workload in parts:
                 entry[workload] = {
                     **{k: v for k, v in parts[workload].items()
                        if k != "max_abs_err"},
                     "launches": len(calls[name])}
         kernels.append(entry)
+    vjp = summed("attention_core_bwd_vjp", mcl_vjp_rows)
     print("# kernels: ms, plain_ms, bound_ms and library_ms are summed over "
           "the launches of one UNet call plus one VQ decode at B=160 for the "
           "forward kernels, over one train step at B=128 for the flagship's "
@@ -1320,9 +1533,18 @@ def main(argv=None) -> int:
           f"the swap request, the {TRAIN_STEPS} train steps, the harness's "
           f"{HARNESS_STEPS} steps with its image logs, the VQ-GAN run's "
           f"{VQ_STEPS} steps, {len(VQ_LOG_STEPS)} image logs and "
-          f"{VQ_VAL_BATCHES} test batches, the "
+          f"{VQ_VAL_BATCHES} test batches, the MCL run's {MCL_STEPS} steps "
+          "with its latent encode and swap visualization, the "
           f"{4 * FACES_UPDATES} faces micro-steps, the faces swap request and "
-          "the faces FID sampling", flush=True)
+          "the faces FID sampling; mcl_step: one MCL fine-tune step at "
+          "B=128 (-b flagship_mcl, infonce_mechgrad), whose second order "
+          "runs gn_silu_bwd_bwd and the attention VJP (PyTorch ops, not a "
+          "kernel of the port: "
+          + ", ".join(f"{k} {vjp[k]:.5f}" for k in ("ms", "plain_ms",
+                                                     "bound_ms", "library_ms"))
+          + f", bound by {vjp['bound_by']} at the fp32 peak, "
+          f"{len(per_mcl_step['attention_core_bwd_vjp'])} call a step)",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     phase("total", t_all, "chip_smoke passed")
@@ -1522,7 +1744,7 @@ def train_phases(smi, card):
                            f"after {TRAIN_STEPS} steps: {unchanged[:8]}")
     if all(torch.equal(v, ema_start[k]) for k, v in state.ema.params.items()):
         raise RuntimeError("the EMA did not move")
-    expected = {k: len(v) * TRAIN_STEPS for k, v in per_step.items()}
+    expected = {k: len(per_step.get(k, ())) * TRAIN_STEPS for k in KERNELS}
     if launches != expected or any(plain_calls.values()):
         raise RuntimeError(f"launches {launches}, expected {expected}; "
                            f"plain calls {plain_calls}")
@@ -2173,6 +2395,401 @@ def vq_phases(smi, card, seen, out):
     return step_rows, other_rows, launches, per_step
 
 
+def mcl_trainer(config, lightning, out):
+    """A ``Trainer`` of ``-b flagship_mcl`` restored from the committed
+    checkpoint as ``main_val --resume_ckpt`` restores it, its MCL heads the
+    seeded fresh init: the run's starting point."""
+    trainer = harness.Trainer(copy.deepcopy(config), copy.deepcopy(lightning),
+                              logdir=os.path.join(out, "mcl_reference"),
+                              device="cuda")
+    trainer.resume_ckpt = CKPT
+    trainer._ensure_state()
+    return trainer
+
+
+def mcl_first_batch(trainer, images):
+    """The run's first batch (global step 97,500 of the epoch order), with
+    its first-stage code encoded, and the t and noise of that step."""
+    bs, n = trainer.batch_size, len(images)
+    order = torch.from_numpy(harness.epoch_order(trainer.seed, 0, n, bs,
+                                                 n)).cuda()
+    i = trainer.state.step % (n // bs)
+    x = images[order[i * bs:(i + 1) * bs]]
+    model = trainer.model
+    batch = {"image": x, "z": model.encode_first_stage(model.split_batch(x)[0])}
+    gen = harness.step_generator(trainer.seed, trainer.state.step, "cuda")
+    return batch, draw_t_and_noise(model, bs, gen)
+
+
+def mcl_grads(model, state, batch, t, noise, draw=None, upstream=None,
+              indices=None):
+    """One MCL forward + backward on ``batch``: (logged values, gradient of
+    every trainable leaf, the gradient at the UNet output, the code indices
+    of each decode). ``upstream`` replaces the gradient at the UNet output
+    (the L1 sign guard), ``indices`` the decodes' codes (the forced-index
+    rule); Encoder4's statistics are restored."""
+    bn = cond_state(model)
+    seen, codes, handles = {}, [], []
+
+    def output_hook(mod, args, out):
+        def grad_hook(g):
+            seen["upstream"] = g.detach().clone()
+            return upstream
+        out.register_hook(grad_hook)
+
+    def code_hook(mod, args, out):
+        if indices is not None:
+            out = forced_quantize(mod, args[0], indices[len(codes)])
+        codes.append(out[2][2].detach().clone())
+        return out
+    handles.append(model.unet.register_forward_hook(output_hook))
+    handles.append(model.first_stage_model.quantize.register_forward_hook(
+        code_hook))
+    try:
+        loss_dict, _ = loss_and_grads(model, state, batch, t, noise,
+                                      mcl_draw=draw)
+    finally:
+        for h in handles:
+            h.remove()
+    grads = {k: p.grad.detach().clone()
+             for k, p in trainable_parameters(model).items()}
+    model.cond_stage_model.load_state_dict(bn)
+    return ({k: v.item() for k, v in loss_dict.items()}, grads,
+            seen["upstream"], codes)
+
+
+def mcl_compare(label, model, state, batch, t, noise, draw=None):
+    """Kernel path against plain path on one batch: the plain path, one
+    kernel-path run on its own upstream gradient and codes (printed, not
+    held), and REFERENCE_REPEATS kernel-path runs from the plain path's
+    upstream gradient at the UNet output and, where a code flipped, its
+    codes. Every logged value to LOSS_RTOL, every gradient leaf to
+    GRAD_RTOL relative L2 but the known exact zeros (EXACT_ZERO, the
+    critic's MCL_EXACT_ZERO, the heads the type does not use), which must
+    be within GRAD_ZERO of the global norm on both paths. The MCL term
+    dominates the global norm (the critic's and Pi_g's gradients), so a
+    small leaf of the UNet is held to GRAD_RTOL like any other, not set
+    apart by its size as train-reference does. Returns (reading, faults,
+    the leaves with a zero exact gradient)."""
+    with plain_path():
+        log_p, grads_p, up_p, codes_p = mcl_grads(model, state, batch, t,
+                                                  noise, draw)
+    own = mcl_grads(model, state, batch, t, noise, draw)
+    flips = sum((a != b).sum().item() for a, b in zip(own[3], codes_p))
+    forced = codes_p if flips else None
+    runs = [mcl_grads(model, state, batch, t, noise, draw, up_p, forced)
+            for _ in range(REFERENCE_REPEATS)]
+    torch.cuda.synchronize()
+    norms = {k: torch.linalg.vector_norm(g).item() for k, g in grads_p.items()}
+    total = sum(n * n for n in norms.values()) ** 0.5
+    unused = {k for k, n in norms.items() if n == 0.0
+              and k.startswith(("mcl.Pi_", "mcl.critic."))}
+    known = EXACT_ZERO | MCL_EXACT_ZERO | unused
+    zero = sorted(k for k in known if norms[k] <= GRAD_ZERO * total)
+    faults = []
+
+    def relative(grads):
+        return {k: torch.linalg.vector_norm(g - grads_p[k]).item()
+                / max(norms[k], 1e-30) for k, g in grads.items()
+                if k not in zero}
+
+    got = []
+    for log_k, grads_k, _, _ in runs:
+        for k, v in log_p.items():
+            if abs(log_k[k] - v) > LOSS_RTOL * abs(v):
+                faults.append(f"{label}: {k} kernel {log_k[k]} vs plain {v}")
+        rel = relative(grads_k)
+        failed = [k for k, r in rel.items() if r > GRAD_RTOL]
+        loud = [k for k in zero if torch.linalg.vector_norm(
+            grads_k[k]).item() > GRAD_ZERO * total]
+        if failed or loud:
+            faults.append(f"{label}: gradients off: {failed}; zero-gradient "
+                          f"leaves above {GRAD_ZERO} of the global norm: "
+                          f"{loud}")
+        worst = max((r, k) for k, r in rel.items())
+        got.append(f"{worst[0]:.3e} ({worst[1]}, |g| / global "
+                   f"{norms[worst[1]] / total:.3e})")
+    worst_mcl = max((r, k) for k, r in relative(runs[0][1]).items()
+                    if k.startswith(("mcl.", "cond.")))
+    worst_own = max((r, k) for k, r in relative(own[1]).items())
+    signs = (own[2] != up_p).sum().item()
+    reading = (f"{label}: plain loss {log_p['train/loss']:.7f}, loss_mcl "
+               f"{log_p['train/loss_mcl']:.7f}; kernel "
+               + ", ".join(f"{r[0]['train/loss_mcl']:.7f}" for r in runs)
+               + f"; worst leaf {'; '.join(got)}, worst Encoder4 or MCL leaf "
+               f"{worst_mcl[0]:.3e} ({worst_mcl[1]}); code flips {flips}; on "
+               f"its own upstream ({signs} L1 signs differ) and codes the "
+               f"worst leaf {worst_own[0]:.3e} ({worst_own[1]}); "
+               f"{len(grads_p) - len(zero)} of {len(grads_p)} leaves held")
+    return reading, faults, zero
+
+
+@contextlib.contextmanager
+def recording_mcl_run(metrics, first_grads, swap_records):
+    """Inside ``recording_harness``: each train step's metrics go to
+    ``metrics``, the first step's gradients of every trainable leaf to
+    ``first_grads``, and the shape of every kernel call of each swap
+    visualization to ``swap_records``."""
+    step_fn = harness.train_step
+    cls = port_callbacks.SwapVisualizationCallback
+    swap_fn = cls.on_validation_epoch_end
+
+    def train_step(model, state, batch, **kwargs):
+        out = step_fn(model, state, batch, **kwargs)
+        if not first_grads:
+            first_grads.update({k: p.grad.detach().clone() for k, p in
+                                trainable_parameters(model).items()})
+        metrics.append(out)
+        return out
+
+    def swap_visualization(self, model, *args, **kwargs):
+        shapes, remove = record_shapes(model)
+        try:
+            return swap_fn(self, model, *args, **kwargs)
+        finally:
+            remove()
+            swap_records.append(shapes)
+
+    harness.train_step = train_step
+    cls.on_validation_epoch_end = swap_visualization
+    try:
+        yield
+    finally:
+        harness.train_step = step_fn
+        cls.on_validation_epoch_end = swap_fn
+
+
+def mcl_train_phase(smi, card, per_step, ref, images, seen, out):
+    """mcl-train: ``main_val -b flagship_mcl`` from the committed checkpoint
+    for MCL_STEPS steps on cached latents, ending in ``test()``; launches
+    against the recorded calls, the first step's critic gradients, every
+    leaf's movement against ``ref`` (a trainer at the run's start), the
+    files. Returns (launches, the run's checked rows)."""
+    t0 = time.perf_counter()
+    logroot = os.path.join(out, "mcl")
+    with np.load(CKPT) as f:
+        start = int(f["state/step"])
+    stamps, metrics, first_grads, swap_records = [], [], {}, []
+    with recording_harness(stamps) as records, \
+            recording_mcl_run(metrics, first_grads, swap_records):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        attention_core_bwd_vjp.calls = 0
+        trainer = main_val.main([
+            "-b", "flagship_mcl", "-t", "--max_steps",
+            str(start + MCL_STEPS), "--resume_ckpt", CKPT, "-l", logroot,
+            "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches, plain_calls = read_counts()
+        vjp_calls = attention_core_bwd_vjp.calls
+        peak = torch.cuda.max_memory_allocated()
+        records["on"] = False
+    faults = []
+    step_shapes, _ = records["step"]
+    latent_shapes, _ = records["latents"]
+    parts = (latent_shapes, *records["logs"], *swap_records)
+    counts = lambda d: {k: len(v) for k, v in d.items() if v}
+    if counts(step_shapes) != counts(per_step):
+        faults.append(f"the run's first step's calls {counts(step_shapes)}, "
+                      f"mcl-shapes' {counts(per_step)}")
+    want = {k: MCL_STEPS * len(step_shapes.get(k, ()))
+            + sum(len(p.get(k, ())) for p in parts) for k in KERNELS}
+    want_vjp = MCL_STEPS * len(step_shapes["attention_core_bwd_vjp"])
+    if launches != want or vjp_calls != want_vjp or any(plain_calls.values()):
+        faults.append(f"launches {launches}, expected {want}; attention VJP "
+                      f"calls {vjp_calls}, expected {want_vjp}; plain calls "
+                      f"{plain_calls}")
+    # the silent drop's signature: the critic's weights get gradients only
+    # through the decoder's backward kernels' own backward
+    critic = {k: torch.linalg.vector_norm(g).item()
+              for k, g in first_grads.items() if k.startswith("mcl.critic.")}
+    live = sorted(set(critic) - MCL_EXACT_ZERO)
+    bad = [k for k in live if not (np.isfinite(critic[k]) and critic[k] > 0)]
+    loud = [k for k in MCL_EXACT_ZERO if critic[k] != 0.0]
+    if len(live) != 4 or bad or loud or not all(
+            torch.isfinite(g).all() for g in first_grads.values()):
+        faults.append(f"first step's critic gradients {critic}: zero or "
+                      f"non-finite {bad}; exact zeros that are not {loud}")
+    end = trainable_parameters(trainer.model)
+    begin = trainable_parameters(ref.model)
+    still = [k for k, p in end.items() if torch.equal(p, begin[k])]
+    if set(still) - MCL_EXACT_ZERO:
+        faults.append(f"{len(still)} leaves unchanged after {MCL_STEPS} steps:"
+                      f" {sorted(set(still) - MCL_EXACT_ZERO)[:8]}")
+    series = {k: [m[k].item() for m in metrics]
+              for k in ("train/loss", "train/loss_simple", "train/loss_mcl",
+                        "train/mcl_diffusion_ratio", "grad_norm")}
+    if not all(np.isfinite(v).all() for v in series.values()):
+        faults.append(f"non-finite losses: {series}")
+    logdir = trainer.logdir
+    step = trainer.state.step
+    vis = os.path.join(logdir, "swap_visualization")
+    grid_path = os.path.join(vis, f"swap_grid_e-01_s{step:07}.npy")
+    n_units = FLAGSHIP_TRAIN["unet_config"]["latent_unit"]
+    rows_, side = trainer.swap_cb.num_samples, images.shape[1]
+    want_grid = make_grid(np.zeros((rows_ * (n_units + 1), side, side, 3),
+                                   np.uint8), nrow=rows_).shape
+    pages = [os.path.join(vis, f"factor_{c:02}_e-01.npy")
+             for c in range(n_units)]
+    for path in (os.path.join(trainer.ckptdir, "last", MODEL_FILE),
+                 os.path.join(trainer.ckptdir, "last", STATE_FILE),
+                 os.path.join(logdir, "test_results.json"), *pages):
+        if not os.path.exists(path):
+            faults.append(f"no {path}")
+    if not os.path.exists(grid_path) or np.load(grid_path).shape != want_grid:
+        faults.append(f"{grid_path}: missing or not {want_grid}")
+    test_results = {}
+    if os.path.exists(os.path.join(logdir, "test_results.json")):
+        with open(os.path.join(logdir, "test_results.json")) as f:
+            test_results = json.load(f)
+        if sorted(test_results) != ["val/factor_vae_score", "val/mig"] or \
+                not all(np.isfinite(v) for v in test_results.values()):
+            faults.append(f"test_results.json {test_results}")
+    if step != start + MCL_STEPS or trainer.state.updates != MCL_STEPS:
+        faults.append(f"step {step}, AdamW count {trainer.state.updates}")
+    kgen = torch.Generator("cuda").manual_seed(SEED + 9)
+    shapes = {k: [s for p in (step_shapes, *parts) for s in p.get(k, ())]
+              for k in KERNELS}
+    rows = {name: check_rows(name, shapes[name], kgen, card, seen)
+            for name in KERNELS if shapes[name]}
+    if faults:
+        raise RuntimeError("mcl-train: " + "; ".join(faults))
+    steady = [b - a for a, b in zip(stamps, stamps[1:])][1:]  # steps 3..N
+    median_ms = sorted(steady)[len(steady) // 2] * 1e3
+    mean_ms = sum(steady) / len(steady) * 1e3
+    tm = trainer.timings
+    phase("mcl-train", t0, f"main_val -b flagship_mcl -t --max_steps "
+          f"{start + MCL_STEPS} --resume_ckpt {os.path.basename(CKPT)}: "
+          f"{MCL_STEPS} steps at B={trainer.batch_size} on cached latents, "
+          f"{median_ms:.3f} ms per step (median of steps 3-{MCL_STEPS}; "
+          f"their mean {mean_ms:.3f} ms; first {(stamps[0] - t0) * 1e3:.1f} "
+          f"ms from the phase's start, the latent encode included), "
+          f"{1e3 / median_ms:.3f} steps/s, peak memory "
+          f"{peak / 2**20:.1f} MiB (the grid's included); "
+          + ", ".join(f"{k} {v[0]:.6f} -> {v[-1]:.6f}"
+                      for k, v in series.items())
+          + f"; launches per step { {k: len(v) for k, v in step_shapes.items() if v} }"
+          f", total {launches} (expected: {MCL_STEPS} steps, the encode, "
+          f"{len(swap_records)} swap visualization), attention VJP calls "
+          f"{vjp_calls}; first step's critic gradient norms "
+          + ", ".join(f"{k[11:]} {v:.3e}" for k, v in sorted(critic.items()))
+          + f"; every leaf moved but the {len(still)} whose exact gradient is"
+          f" zero and which AdamW's decay alone moves under fp32's "
+          f"resolution ({sorted(still)}); test() sweep {tm['sweep_s']:.3f}s"
+          f", metrics {tm['metrics_s']:.3f}s, swap visualization "
+          f"{tm['swap_visualization_s']:.3f}s: {test_results} | {smi}")
+    return launches, rows
+
+
+def mcl_phases(smi, card, seen, out):
+    """mcl-shapes, mcl-kernels, mcl-train, mcl-reference and mcl-profile:
+    the MCL fine-tune behind ``main_val -b flagship_mcl`` at B = 128 on the
+    full v4 grid the earlier phases left on the card. Returns the checked
+    rows of one MCL step's kernel calls, the attention VJP's rows, the
+    launches of the run and the calls of one step by kernel."""
+    # ---- mcl-shapes: every kernel call of one MCL step, second order too
+    t0 = time.perf_counter()
+    config = harness.load_configs(["flagship_mcl"], [])
+    lightning = config.pop("lightning")
+    ref = mcl_trainer(config, lightning, out)
+    images = harness.device_images(ref.data.dataset("train").images, "cuda")
+    batch, (t, noise) = mcl_first_batch(ref, images)
+    model, state = ref.model, ref.state
+    bn = cond_state(model)
+    fwd, remove = record_shapes(model)
+    try:
+        with record_backward_shapes() as bwd:
+            loss_and_grads(model, state, batch, t, noise)
+            torch.cuda.synchronize()
+    finally:
+        remove()
+    model.cond_stage_model.load_state_dict(bn)
+    per_step = {k: v for k, v in {**fwd, **bwd}.items() if v}
+    phase("mcl-shapes", t0, f"B={ref.batch_size} at global step "
+          f"{state.step}, {model.mcl_type} lambda {model.lambda_mcl}: per "
+          f"MCL step { {k: len(v) for k, v in per_step.items()} }")
+
+    # ---- mcl-kernels: every kernel at every shape of the MCL step
+    t0 = time.perf_counter()
+    kgen = torch.Generator("cuda").manual_seed(SEED + 8)
+    rows = {name: check_rows(name, per_step[name], kgen, card, seen)
+            for name in KERNELS if per_step.get(name)}
+    vjp_rows = check_rows("attention_core_bwd_vjp",
+                          per_step["attention_core_bwd_vjp"], kgen, card)
+    print_yardstick("mcl-kernels", {**rows,
+                                    "attention_core_bwd_vjp": vjp_rows})
+    phase("mcl-kernels", t0, "each kernel matches its plain version at every "
+          f"shape of the MCL step (tol {KERNEL_TOL}), gn_silu_bwd_bwd "
+          f"against autograd of the plain backward, the attention VJP "
+          f"(PyTorch ops) against autograd of attention_core_bwd_plain")
+
+    # ---- mcl-train: main_val -b flagship_mcl, counters read around it
+    launches, run_rows = mcl_train_phase(
+        smi, card, per_step, ref, images, {**seen, **seen_rows(rows)}, out)
+
+    # ---- mcl-reference: kernel path vs plain path at the run's start
+    t0 = time.perf_counter()
+    readings, faults = [], []
+    reading, wrong, zero = mcl_compare(model.mcl_type, model, state, batch,
+                                       t, noise)
+    readings.append(reading)
+    faults += wrong
+    if set(zero) & MCL_EXACT_ZERO != MCL_EXACT_ZERO:
+        faults.append(f"exact-zero critic leaves {sorted(MCL_EXACT_ZERO)}, "
+                      f"found {sorted(set(zero) & MCL_EXACT_ZERO)}")
+    gen = torch.Generator("cuda").manual_seed(SEED + 10)
+    b16 = {k: v[:MCL_TYPES_BATCH] for k, v in batch.items()}
+    t16, n16 = t[:MCL_TYPES_BATCH], noise[:MCL_TYPES_BATCH]
+    side = images.shape[1]  # the decoder's output: the grid's images
+    draws = {"nce_logistic": torch.randperm(MCL_TYPES_BATCH, generator=gen,
+                                            device="cuda"),
+             "denoise_sm": torch.randn(n16.shape, generator=gen,
+                                       device="cuda"),
+             "jacobian_vjp_infonce": torch.randn(
+                 MCL_TYPES_BATCH, side, side, 3, generator=gen, device="cuda")}
+    try:
+        for typ in MCL_TYPES:
+            model.mcl_type = typ
+            reading, wrong, _ = mcl_compare(typ, model, state, b16, t16, n16,
+                                            draws[typ])
+            readings.append(reading)
+            faults += wrong
+        model.mcl_type = "fisher_sm"
+        try:
+            mcl_grads(model, state, b16, t16, n16,
+                      torch.randn(n16.shape, generator=gen, device="cuda"))
+            faults.append("fisher_sm did not raise on the kernel path")
+        except NotImplementedError as e:
+            if "fisher_sm" not in str(e):
+                raise
+            model.cond_stage_model.load_state_dict(bn)
+            readings.append(f"fisher_sm raises: {e}")
+    finally:
+        model.mcl_type = "infonce_mechgrad"
+    if faults:
+        raise RuntimeError("mcl-reference: " + " | ".join(readings + faults))
+    phase("mcl-reference", t0, f"B={ref.batch_size} (the other types at "
+          f"B={MCL_TYPES_BATCH}) at the run's starting weights, the same "
+          f"batch, z, t and noise: every logged value within {LOSS_RTOL}, "
+          f"every trainable leaf (UNet, Encoder4, critic, Pi_g, Pi_u) within "
+          f"relative L2 {GRAD_RTOL} on each of {REFERENCE_REPEATS} "
+          f"kernel-path runs from the plain path's gradient at the UNet "
+          f"output; the exact-zero leaves within {GRAD_ZERO} of the global "
+          f"norm: {zero}. " + " | ".join(readings))
+
+    # ---- mcl-profile: one MCL train step's device time (not pass/fail)
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(SEED + 11)
+    print_profile("mcl-profile", t0, f"one MCL train step at "
+                  f"B={ref.batch_size}", profile(
+                      lambda: train_step(model, state, batch, generator=gen),
+                      calls=2))
+    del ref, model, state
+    torch.cuda.empty_cache()
+    return rows, vjp_rows, launches, per_step
+
+
 def redraw_trainable(model, gen):
     """Draw every trainable leaf anew from ``gen`` as the CPU whole-step
     tests value theirs: kernels N(0, 1/fan_in), norm scales 1 + N(0, 0.1²),
@@ -2281,7 +2898,7 @@ def faces_phases(smi, card, seen):
     if (state.step, state.updates) != (steps, FACES_UPDATES):
         raise RuntimeError(f"global step {state.step}, updates "
                            f"{state.updates}")
-    expected = {k: len(v) * steps for k, v in per_micro.items()}
+    expected = {k: len(per_micro.get(k, ())) * steps for k in KERNELS}
     if launches != expected or any(plain_calls.values()):
         raise RuntimeError(f"launches {launches}, expected {expected}; "
                            f"plain calls {plain_calls}")

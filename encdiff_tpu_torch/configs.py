@@ -26,6 +26,18 @@ discriminator and the adaptive GAN weight, B = 128 on the full v4 grid, the
 image logger every 2,000 steps with its power-of-2 warm-up, 2 epochs.
 ``tests/test_torch_vq_harness.py`` holds it equal to the YAML.
 
+``FLAGSHIP_MCL_RUN`` (``-b flagship_mcl``) is the MCL fine-tune of the
+flagship as ``scripts/run_mcl_sweep.py`` runs each cell: ``FLAGSHIP_RUN``
+(the v4 model and the full v4 grid, which the committed
+``v4purify_final_fp16.npz`` was trained on) overlaid with
+``configs/demo/synthetic-shapes-mcl.yaml``'s MCL keys (``infonce_mechgrad``
+at λ 0.05, τ 0.1, projections of 128, σ 0.1, ``shuffle_u`` negatives), its
+base LR of 2e-7, its LR warmup of 200 steps and its swap-visualization
+callback (8 samples, DDIM 200). That YAML's own dataset, the v1 renderer's
+27,648-image grid (``SyntheticShapes3DTrain``), is not taken: the
+committed checkpoint was trained on v4. ``tests/test_torch_mcl_config.py``
+holds it to both YAMLs.
+
 ``FACES`` and ``FACES_TRAIN`` hold the model and training fields of
 ``configs/demo/synthetic-faces-encdiff.yaml``: 256 px images of the
 procedural face grid on 64x64x3 latents, micro-batch 8 with 4-way gradient
@@ -243,5 +255,45 @@ FLAGSHIP_VQ_RUN = {
         },
         "trainer": {"benchmark": True, "accumulate_grad_batches": 1,
                     "max_epochs": 2},
+    },
+}
+
+
+#: the MCL keys of ``configs/demo/synthetic-shapes-mcl.yaml``
+MCL_KEYS = {
+    "use_mcl": True,
+    "lambda_mcl": 0.05,
+    "mcl_tau": 0.1,
+    "mcl_proj_dim": 128,
+    "mcl_sigma": 0.1,
+    "mcl_neg_mode": "shuffle_u",
+    "mcl_type": "infonce_mechgrad",
+}
+
+FLAGSHIP_MCL_RUN = {
+    "model": {
+        "base_learning_rate": 2.0e-07,
+        "params": {
+            **FLAGSHIP_RUN["model"]["params"],
+            **MCL_KEYS,
+            "scheduler_config": {
+                **FLAGSHIP_RUN["model"]["params"]["scheduler_config"],
+                "warm_up_steps": [200],
+            },
+        },
+    },
+    # the v4 grid of FLAGSHIP_RUN, not the MCL YAML's v1 grid: the committed
+    # checkpoint the fine-tune starts from was trained on v4
+    "data": FLAGSHIP_RUN["data"],
+    "lightning": {
+        **FLAGSHIP_RUN["lightning"],
+        "callbacks": {
+            **FLAGSHIP_RUN["lightning"]["callbacks"],
+            "swap_visualization": {
+                "target": "encdiff_tpu_torch.train.callbacks."
+                          "SwapVisualizationCallback",
+                "params": {"num_samples": 8, "ddim_steps": 200},
+            },
+        },
     },
 }

@@ -13,7 +13,10 @@ Two leaves of Encoder4 need more: the warp MLPs live under ``warp_mlps``
 (``warp`` is a method), and the fc rows, flattened HWC by the JAX model,
 are permuted to the CHW flatten of an NCHW tensor.
 
-``inception_state_dict`` maps the FID Inception's flax variables the same way.
+``inception_state_dict`` maps the FID Inception's flax variables the same way,
+and ``mcl_state_dict`` the MCL heads' (``params/mcl``: ``critic``, ``Pi_g``,
+``Pi_u``, each ``{"params": ...}``) to the state dict of the port's
+``LatentDiffusion.mcl``; ``mcl_to_flax`` inverts it on a template's paths.
 ``vq_state_dicts`` maps a JAX VQ-GAN train state (``VQTrainState`` or the
 ``state`` of a compact ``.npz`` such as ``v4vq_fp16.npz``): the generator,
 the discriminator's params and batch statistics, the LPIPS variables and,
@@ -147,6 +150,27 @@ def first_stage_state_dict(params: dict) -> dict[str, torch.Tensor]:
     return flax_to_state_dict(keep)
 
 
+MCL_HEADS = ("critic", "Pi_g", "Pi_u")
+
+
+def mcl_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """The JAX ``params["mcl"]`` tree -> the state dict of the port's
+    ``nn.ModuleDict`` of MCL heads (``critic.img_conv1.weight``, ...);
+    heads the tree lacks give no keys."""
+    return {f"{head}.{k}": v for head in MCL_HEADS if head in tree
+            for k, v in flax_to_state_dict(tree[head]["params"]).items()}
+
+
+def mcl_to_flax(sd: dict, template: dict) -> dict:
+    """The MCL heads' state dict on the paths of the JAX-layout
+    ``template`` (``{head: {"params": tree}}``): the inverse of
+    ``mcl_state_dict``."""
+    return {head: {"params": state_dict_to_flax(
+        {k[len(head) + 1:]: v for k, v in sd.items()
+         if k.startswith(head + ".")}, template[head]["params"])}
+        for head in MCL_HEADS}
+
+
 def inception_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     """The FID Inception's flax variables (``params`` and ``batch_stats``,
     as ``encdiff_tpu.evalx.fid.init_fid_variables`` makes them) -> the
@@ -163,7 +187,8 @@ def _np(t) -> np.ndarray:
 def flax_variables(module) -> tuple[dict, dict]:
     """(params, batch_stats) of ``module`` as flax trees with the JAX
     package's wrapper levels, as float32 numpy: a convolution's leaves under
-    ``Conv_0`` (kernel HWIO), a GroupNorm's or GN-SiLU's under
+    ``Conv_0`` (kernel HWIO), a linear's under ``Dense_0`` (kernel (in,
+    out)), a GroupNorm's or GN-SiLU's under
     ``GroupNorm_0`` (``scale``, ``bias``), a BatchNorm's ``scale`` and
     ``bias`` in place and its ``mean`` and ``var`` in ``batch_stats``, the
     codebook's ``embedding`` in place. Raises on another module that holds
@@ -185,6 +210,11 @@ def flax_variables(module) -> tuple[dict, dict]:
         if isinstance(m, nn.Conv2d):
             leaf = node(params, name).setdefault("Conv_0", {})
             leaf["kernel"] = _np(m.weight).transpose(2, 3, 1, 0)
+            if m.bias is not None:
+                leaf["bias"] = _np(m.bias)
+        elif isinstance(m, nn.Linear):
+            leaf = node(params, name).setdefault("Dense_0", {})
+            leaf["kernel"] = _np(m.weight).T
             if m.bias is not None:
                 leaf["bias"] = _np(m.bias)
         elif isinstance(m, (GNSiLU, nn.GroupNorm)):

@@ -55,9 +55,10 @@ def load_model_variables(path: str) -> tuple[dict, float]:
 
     ``variables`` is the JAX package's layout, as nested numpy dicts:
     ``{unet: {params}, cond: {params, batch_stats}, first_stage: {params},
-    ema: params | None}``. Files without an ``ema`` subtree give None, and
-    sampling then uses the raw UNet params, as
-    ``encdiff_tpu/evalx/swap.py:_unet_vars`` does.
+    ema: params | None, mcl: {critic, Pi_g, Pi_u} | None}``. Files without
+    an ``ema`` subtree give None, and sampling then uses the raw UNet
+    params, as ``encdiff_tpu/evalx/swap.py:_unet_vars`` does; files of a
+    run without MCL give no ``mcl``.
     """
     if not path.endswith(".npz"):
         raise ValueError(f"expected a compact .npz checkpoint, got {path!r}")
@@ -74,6 +75,7 @@ def model_variables(tree: dict) -> tuple[dict, float]:
                  "batch_stats": state.get("batch_stats") or {}},
         "first_stage": frozen["first_stage"],
         "ema": ema["params"] if isinstance(ema, dict) else None,
+        "mcl": state["params"].get("mcl"),
     }
     return variables, float(np.asarray(state["scale_factor"]))
 

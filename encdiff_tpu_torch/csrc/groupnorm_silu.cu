@@ -257,30 +257,31 @@ gn_silu_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
 // block, blocks a group (the cluster), floats a block stages of a group (of
 // each array it stages), and dynamic shared memory in bytes. 0, or
 // cudaErrorInvalidValue where no cluster of kMaxCluster blocks fits a group
-// in `limit` bytes a block. The forward stages x beside its per-channel
-// affine (2 floats a channel) and kExtraFloats; the backward (bwd) stages x
-// and the gradient beside kBwdExtraFloats.
+// in `limit` bytes a block. The forward (staged = 0) stages x beside its
+// per-channel affine (2 floats a channel) and kExtraFloats; the backward
+// (staged = 2) stages x and the gradient, the double backward (staged = 3)
+// x, the gradient and the cotangent of dx, beside kBwdExtraFloats.
 struct GnPlan {
   long long team, per_block, cluster, slice, smem;
 };
 
 constexpr int kBwdExtraFloats = kThreads + 66;  // team sums, the cluster's slots
 
-// The backward takes the smallest cluster whose blocks fit two an SM (half
-// the limit), and only where none does, the smallest that fits: a block
-// that holds an SM alone serialises its copy, passes and stores (the VQ
-// decoder's 512 KB groups: clusters of 8 blocks of 64 KB, not 4 of 128).
-int plan(int C, int HW, int G, long long limit, bool bwd, GnPlan* p) {
+// The backward kernels take the smallest cluster whose blocks fit two an SM
+// (half the limit), and only where none does, the smallest that fits: a
+// block that holds an SM alone serialises its copy, passes and stores (the
+// VQ decoder's 512 KB groups: clusters of 8 blocks of 64 KB, not 4 of 128).
+int plan(int C, int HW, int G, long long limit, int staged, GnPlan* p) {
   const long long cg = C / G;
   const long long n = cg * HW;
   p->team = 32;
   while (p->team < kThreads && p->team * kFloatsPerThread < n) p->team *= 2;
   p->per_block = kThreads / p->team;
-  for (long long target : {bwd ? limit / 2 : limit, limit}) {
+  for (long long target : {staged ? limit / 2 : limit, limit}) {
     for (p->cluster = 1; p->cluster <= kMaxCluster; p->cluster *= 2) {
       p->slice = ((n + p->cluster - 1) / p->cluster + 3) / 4 * 4;
-      p->smem = bwd ? 4 * (p->per_block * 2 * p->slice + kBwdExtraFloats)
-                    : 4 * (p->per_block * (p->slice + 2 * cg) + kExtraFloats);
+      p->smem = staged ? 4 * (p->per_block * staged * p->slice + kBwdExtraFloats)
+                       : 4 * (p->per_block * (p->slice + 2 * cg) + kExtraFloats);
       if (p->smem <= target) return 0;
     }
   }
@@ -344,10 +345,10 @@ int launch_fwd(const float* x, const float* gamma, const float* beta,
                                                   (int)p.cluster, (int)p.slice, eps, vec);
 }
 
-int plan_out(int C, int HW, int G, long long limit, bool bwd, long long* out) {
+int plan_out(int C, int HW, int G, long long limit, int staged, long long* out) {
   if (C <= 0 || HW <= 0 || G <= 0 || C % G != 0) return (int)cudaErrorInvalidValue;
   GnPlan p;
-  const int err = plan(C, HW, G, limit, bwd, &p);
+  const int err = plan(C, HW, G, limit, staged, &p);
   out[0] = p.team;
   out[1] = p.per_block;
   out[2] = p.cluster;
@@ -358,17 +359,21 @@ int plan_out(int C, int HW, int G, long long limit, bool bwd, long long* out) {
 
 }  // namespace
 
-// The forward's (gn_silu_fwd_plan) or the backward's (gn_silu_bwd_plan) plan
-// at a shape for `limit` bytes of shared memory a block: out[0..4] =
+// The forward's (gn_silu_fwd_plan), the backward's (gn_silu_bwd_plan) or the
+// double backward's (gn_silu_bwd_bwd_plan) plan at a shape for `limit` bytes of shared memory a block: out[0..4] =
 // threads a group, groups a block, blocks a group (cluster), floats a block
 // stages (of each array), dynamic shared memory in bytes. Returns 0, or
 // cudaErrorInvalidValue for a shape it does not take.
 extern "C" int gn_silu_fwd_plan(int C, int HW, int G, long long limit, long long* out) {
-  return plan_out(C, HW, G, limit, false, out);
+  return plan_out(C, HW, G, limit, 0, out);
 }
 
 extern "C" int gn_silu_bwd_plan(int C, int HW, int G, long long limit, long long* out) {
-  return plan_out(C, HW, G, limit, true, out);
+  return plan_out(C, HW, G, limit, 2, out);
+}
+
+extern "C" int gn_silu_bwd_bwd_plan(int C, int HW, int G, long long limit, long long* out) {
+  return plan_out(C, HW, G, limit, 3, out);
 }
 
 // x, out: (B, C, H*W) fp32 contiguous; gamma, beta: (C,); scale, shift:
@@ -387,7 +392,7 @@ extern "C" int gn_silu_fwd(const void* x, const void* gamma, const void* beta,
   int err = kernel_launch::device_optin(&dev, &optin);
   if (err != 0) return err;
   GnPlan p;
-  err = plan(C, HW, G, optin, false, &p);
+  err = plan(C, HW, G, optin, 0, &p);
   if (err != 0) return err;
   const float* xf = (const float*)x;
   const float* gf = (const float*)gamma;
@@ -733,7 +738,7 @@ extern "C" int gn_silu_bwd(const void* x, const void* gamma, const void* beta,
   int err = kernel_launch::device_optin(&dev, &optin);
   if (err != 0) return err;
   GnPlan p;
-  err = plan(C, HW, G, optin, true, &p);
+  err = plan(C, HW, G, optin, 2, &p);
   if (err != 0) return err;
   const float* xf = (const float*)x;
   const float* gf = (const float*)gamma;
@@ -752,6 +757,336 @@ extern "C" int gn_silu_bwd(const void* x, const void* gamma, const void* beta,
              : launch_bwd_team<false>(xf, gf, bf, sc, sh, go, dxf, dsc, dsh, dgp, dbp, B, C,
                                       HW, G, eps, p, dev, optin, st);
   if (err != 0) return err;
+  gn_param_grad_kernel<<<(C + 31) / 32, dim3(32, kParamRows), 0, st>>>(
+      dgp, dbp, (float*)dgamma, (float*)dbeta, B, C);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Double backward, fp32, NCHW, without FiLM: the gradients of the backward's
+// (dx, dgamma, dbeta) with respect to its inputs (g, x, gamma, beta), for the
+// cotangents u of dx and, where given, gb of dgamma and bb of dbeta.
+//
+// Replaces no TPU kernel: the JAX package differentiates its GN-SiLU VJP
+// (encdiff_tpu/nn/pallas/groupnorm_silu.py:113) a second time through XLA's
+// autodiff, which the MCL losses ask for (a gradient of the frozen decoder
+// with respect to z, itself trained through). Here the backward that autograd
+// records under create_graph is one Function whose own backward is this
+// kernel, so that the second-order pass through the decoder's 23 GN-SiLU
+// sites costs one launch (and one small one for gamma and beta) each.
+//
+// Per (sample, group), with the forward's two-pass statistics mean and r =
+// rstd, xn = (x - mean) r, a = xn gamma + beta, s1 = silu'(a) = sig (1 + a
+// (1 - sig)), s2 = silu''(a) = sig (1 - sig) (2 + a (1 - 2 sig)), the
+// backward is dy = g s1, dxn = gamma dy, dx = r (dxn - M1 - xn M2) with M1 =
+// mean(dxn), M2 = mean(dxn xn), dgamma = sum dy xn, dbeta = sum dy. With
+// ubar = mean(u), A = mean(u xn) and ut = r (u - ubar - xn A), its scalar
+// <u, dx> + <gb, dgamma> + <bb, dbeta> is sum dxn ut + sum dy (gb xn + bb),
+// and with h = gamma ut + gb xn + bb and e = g s2 h:
+//   dg = s1 h;
+//   dbeta' = sum_channel e,  dgamma' = sum_channel (e xn + dy ut);
+//   dx' = r (Gx - mean(Gx) - xn (mean(Gx xn) + r T)), where
+//   Gx = gamma e - r (u M2 + A dxn) + gb dy is the gradient with respect to
+//   xn at fixed r, and T = mean(dxn u) - ubar M1 - A M2 = <u, dx> / (n r) that
+//   with respect to r (dr/dx = -r^2 xn / n).
+// So a group needs, after the statistics, five sums in one pass (u, u xn,
+// dxn, dxn xn, dxn u), then a pass that writes dg's values and Gx over g and
+// u in shared memory and adds Gx and Gx xn (and the channel sums), then the
+// pass that writes dx' and dg.
+//
+// Bound on the H100: bytes. x, g and u are read and dg and dx' written once
+// (20 bytes an element) for about sixty fp32 operations and one
+// exponential. The design is the backward's: the same plan with three staged
+// arrays (gn_silu_bwd_bwd_plan; its copy gn_silu_bwd_bwd_plan() in
+// nn/kernels/groupnorm_silu.py), each array read from device memory once by
+// cp.async, every pass after it on shared memory, each thread on the same
+// elements in every pass, clusters of 2, 4 or 8 blocks where a group's three
+// slices do not fit half of 227 KB (the VQ decoder's 64x64 level, 8,192
+// floats a group: one block of 97 KB, two an SM; its faces counterpart at
+// 256x256 on clusters of 8), the channel sums in registers 8 channels at a
+// time and the batch sum of dgamma' and dbeta' in gn_param_grad_kernel, all
+// in a fixed order: a run repeats bit for bit.
+
+namespace {
+
+// The thread's elements of channel ci in its block's slice [start, start +
+// len) of a group: from `first` (element i = tid mod TEAM, in chunks of w)
+// up to `hi`.
+template <int TEAM>
+__device__ __forceinline__ void channel_range(int ci, int HW, long long start, int len,
+                                              int w, int tid, int* first, int* hi) {
+  const long long from = (long long)ci * HW - start;
+  const int lo = from > 0 ? (int)from : 0;
+  *hi = from + HW < len ? (int)(from + HW) : len;
+  const int lo_w = lo / w;
+  *first = w * (lo_w + ((tid - lo_w) & (TEAM - 1)));
+}
+
+template <int TEAM, bool PARAMS>
+__global__ void __launch_bounds__(kThreads)
+gn_silu_bwd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                       const float* __restrict__ beta, const float* __restrict__ gout,
+                       const float* __restrict__ du, const float* __restrict__ dgamma_bar,
+                       const float* __restrict__ dbeta_bar, float* __restrict__ dg,
+                       float* __restrict__ dx, float* __restrict__ dgamma_part,
+                       float* __restrict__ dbeta_part, int C, int HW, int G,
+                       long long groups, int csize, int slice, float eps, bool vec) {
+  constexpr int GPB = kThreads / TEAM;  // groups per block
+  constexpr int CH = 8;                 // channels a register pass
+  extern __shared__ __align__(16) float smem[];
+  const int team = threadIdx.x / TEAM, tid = threadIdx.x % TEAM;
+  const int rank = blockIdx.x % csize;  // the block's rank in its cluster
+  const long long gi = (long long)(blockIdx.x / csize) * GPB + team;
+  const bool live = gi < groups;
+  const int cg = C / G;
+  const long long n = (long long)cg * HW;
+  const long long start = (long long)rank * slice;  // the block's part of the group
+  const long long rest = live && n > start ? n - start : 0;
+  const int len = (int)(rest < slice ? rest : slice);
+  float* xs = smem + team * slice;
+  float* gs = smem + (GPB + team) * slice;      // g, then dg
+  float* us = smem + (2 * GPB + team) * slice;  // u, then Gx
+  float* red = smem + 3 * GPB * slice;          // kThreads floats
+  float* slots = red + kThreads;                // mean, variance, then 2 CH 2
+  const long long off = gi * n + start;
+
+  // element i of the slice belongs to thread i mod TEAM (chunk i / 4 to
+  // thread (i / 4) mod TEAM where vec), in every pass
+  const int w = vec ? 4 : 1;
+  if (vec) {
+    for (int i = tid; i < len / 4; i += TEAM) {
+      cp_async16(xs + 4 * i, x + off + 4 * i, true);
+      cp_async16(gs + 4 * i, gout + off + 4 * i, true);
+      cp_async16(us + 4 * i, du + off + 4 * i, true);
+    }
+  } else {
+    for (int i = tid; i < len; i += TEAM) {
+      cp_async4(xs + i, x + off + i, true);
+      cp_async4(gs + i, gout + off + i, true);
+      cp_async4(us + i, du + off + i, true);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+
+  float s = 0.f;
+  for (int i = w * tid; i < len; i += w * TEAM)
+    for (int j = 0; j < w; ++j) s += xs[i + j];
+  s = team_sum<TEAM>(s, red);
+  if (csize > 1) s = cluster_sum(s, slots, csize);
+  const float mean = s / (float)n;
+  float q = 0.f;
+  for (int i = w * tid; i < len; i += w * TEAM)
+    for (int j = 0; j < w; ++j) {
+      const float d = xs[i + j] - mean;
+      q += d * d;
+    }
+  q = team_sum<TEAM>(q, red);
+  if (csize > 1) q = cluster_sum(q, slots + 1, csize);
+  const float rstd = rsqrtf(q / (float)n + eps);
+
+  const int c0 = live ? (int)(gi % G) * cg : 0;
+  const long long b = live ? gi / G : 0;
+
+  // pass 2: sum u, u xn, dxn, dxn xn, dxn u
+  float m[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int ci = 0; ci < cg; ++ci) {
+    int first, hi;
+    channel_range<TEAM>(ci, HW, start, len, w, tid, &first, &hi);
+    const float ga = gamma[c0 + ci], be = beta[c0 + ci];
+    for (int i = first; i < hi; i += w * TEAM) {
+#pragma unroll 4
+      for (int j = 0; j < w; ++j) {
+        const float xn = (xs[i + j] - mean) * rstd;
+        const float a = fmaf(xn, ga, be);
+        const float sig = __fdividef(1.f, 1.f + __expf(-a));
+        const float dxn = ga * gs[i + j] * sig * (1.f + a * (1.f - sig));
+        const float u = us[i + j];
+        m[0] += u;
+        m[1] += u * xn;
+        m[2] += dxn;
+        m[3] += dxn * xn;
+        m[4] += dxn * u;
+      }
+    }
+  }
+  team_sums<TEAM, 5>(m, red);
+  if (csize > 1) cluster_sums<5>(m, slots + 2, csize);
+  const float inv_n = 1.f / (float)n;
+  const float ubar = m[0] * inv_n, A = m[1] * inv_n;
+  const float M1 = m[2] * inv_n, M2 = m[3] * inv_n;
+  const float T = m[4] * inv_n - ubar * M1 - A * M2;
+
+  // pass 3: dg over g, Gx over u; the sums of Gx and Gx xn, and per channel
+  // of e and e xn + dy ut
+  float sg = 0.f, sgx = 0.f;
+  for (int cb = 0; cb < cg; cb += CH) {
+    float cs[2 * CH];
+#pragma unroll
+    for (int i = 0; i < 2 * CH; ++i) cs[i] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < CH; ++cc) {
+      const int ci = cb + cc;
+      if (ci < cg) {
+        int first, hi;
+        channel_range<TEAM>(ci, HW, start, len, w, tid, &first, &hi);
+        const int c = c0 + ci;
+        const float ga = gamma[c], be = beta[c];
+        const float gb = dgamma_bar != nullptr ? dgamma_bar[c] : 0.f;
+        const float bb = dbeta_bar != nullptr ? dbeta_bar[c] : 0.f;
+        for (int i = first; i < hi; i += w * TEAM) {
+#pragma unroll 4
+          for (int j = 0; j < w; ++j) {
+            const float xn = (xs[i + j] - mean) * rstd;
+            const float a = fmaf(xn, ga, be);
+            const float sig = __fdividef(1.f, 1.f + __expf(-a));
+            const float s1 = sig * (1.f + a * (1.f - sig));
+            const float s2 = sig * (1.f - sig) * (2.f + a * (1.f - 2.f * sig));
+            const float gv = gs[i + j], u = us[i + j];
+            const float dy = gv * s1;
+            const float ut = rstd * (u - ubar - xn * A);
+            const float h = fmaf(ga, ut, fmaf(gb, xn, bb));
+            const float e = gv * s2 * h;
+            const float gx = ga * e - rstd * (u * M2 + A * ga * dy) + gb * dy;
+            gs[i + j] = s1 * h;
+            us[i + j] = gx;
+            sg += gx;
+            sgx += gx * xn;
+            if constexpr (PARAMS) {
+              cs[2 * cc] += e;
+              cs[2 * cc + 1] += fmaf(e, xn, dy * ut);
+            }
+          }
+        }
+      }
+    }
+    if constexpr (PARAMS) {
+      team_sums<TEAM, 2 * CH>(cs, red);
+      if (csize > 1) cluster_sums<2 * CH>(cs, slots + 2, csize);
+#pragma unroll
+      for (int cc = 0; cc < CH; ++cc) {
+        const int ci = cb + cc;
+        if (ci < cg && live && rank == 0 && tid == 0) {
+          const long long bc = b * C + c0 + ci;
+          dbeta_part[bc] = cs[2 * cc];
+          dgamma_part[bc] = cs[2 * cc + 1];
+        }
+      }
+    }
+  }
+  float gsum[2] = {sg, sgx};
+  team_sums<TEAM, 2>(gsum, red);
+  if (csize > 1) cluster_sums<2>(gsum, slots + 2, csize);
+  const float mg = gsum[0] * inv_n;
+  const float mgx = fmaf(rstd, T, gsum[1] * inv_n);
+
+  // pass 4: dx' and dg, from the thread's own elements
+  if (vec) {
+    for (int i = tid; i < len / 4; i += TEAM) {
+      const float4 xv = reinterpret_cast<const float4*>(xs)[i];
+      const float4 gx = reinterpret_cast<const float4*>(us)[i];
+      reinterpret_cast<float4*>(dx + off)[i] =
+          make_float4(rstd * (gx.x - mg - (xv.x - mean) * rstd * mgx),
+                      rstd * (gx.y - mg - (xv.y - mean) * rstd * mgx),
+                      rstd * (gx.z - mg - (xv.z - mean) * rstd * mgx),
+                      rstd * (gx.w - mg - (xv.w - mean) * rstd * mgx));
+      reinterpret_cast<float4*>(dg + off)[i] = reinterpret_cast<const float4*>(gs)[i];
+    }
+  } else {
+    for (int i = tid; i < len; i += TEAM) {
+      dx[off + i] = rstd * (us[i] - mg - (xs[i] - mean) * rstd * mgx);
+      dg[off + i] = gs[i];
+    }
+  }
+}
+
+template <int TEAM, bool PARAMS>
+int launch_bwd_bwd(const float* x, const float* gamma, const float* beta, const float* gout,
+                   const float* du, const float* dgamma_bar, const float* dbeta_bar,
+                   float* dg, float* dx, float* dgamma_part, float* dbeta_part, int B,
+                   int C, int HW, int G, float eps, const GnPlan& p, int dev,
+                   long long optin, cudaStream_t st) {
+  const long long groups = (long long)B * G;
+  const bool vec = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(gout) |
+                     reinterpret_cast<uintptr_t>(du) | reinterpret_cast<uintptr_t>(dg) |
+                     reinterpret_cast<uintptr_t>(dx)) & 15) == 0 && HW % 4 == 0;
+  return launch_planned<gn_silu_bwd_bwd_kernel<TEAM, PARAMS>>(
+      p, groups, dev, optin, st, x, gamma, beta, gout, du, dgamma_bar, dbeta_bar, dg, dx,
+      dgamma_part, dbeta_part, C, HW, G, groups, (int)p.cluster, (int)p.slice, eps, vec);
+}
+
+template <bool PARAMS>
+int launch_bwd_bwd_team(const float* x, const float* gamma, const float* beta,
+                        const float* gout, const float* du, const float* dgamma_bar,
+                        const float* dbeta_bar, float* dg, float* dx, float* dgamma_part,
+                        float* dbeta_part, int B, int C, int HW, int G, float eps,
+                        const GnPlan& p, int dev, long long optin, cudaStream_t st) {
+  switch (p.team) {
+    case 32:
+      return launch_bwd_bwd<32, PARAMS>(x, gamma, beta, gout, du, dgamma_bar, dbeta_bar, dg,
+                                        dx, dgamma_part, dbeta_part, B, C, HW, G, eps, p,
+                                        dev, optin, st);
+    case 64:
+      return launch_bwd_bwd<64, PARAMS>(x, gamma, beta, gout, du, dgamma_bar, dbeta_bar, dg,
+                                        dx, dgamma_part, dbeta_part, B, C, HW, G, eps, p,
+                                        dev, optin, st);
+    case 128:
+      return launch_bwd_bwd<128, PARAMS>(x, gamma, beta, gout, du, dgamma_bar, dbeta_bar, dg,
+                                         dx, dgamma_part, dbeta_part, B, C, HW, G, eps, p,
+                                         dev, optin, st);
+    default:
+      return launch_bwd_bwd<256, PARAMS>(x, gamma, beta, gout, du, dgamma_bar, dbeta_bar, dg,
+                                         dx, dgamma_part, dbeta_part, B, C, HW, G, eps, p,
+                                         dev, optin, st);
+  }
+}
+
+}  // namespace
+
+// x, gout (the backward's g), du (the cotangent of dx), dg, dx: (B, C, H*W)
+// fp32 contiguous; gamma, beta: (C,); dgamma_bar, dbeta_bar (the cotangents
+// of dgamma and dbeta): (C,) or null for zero; dgamma, dbeta: (C,) outputs,
+// both null when not wanted, and then dgamma_part, dbeta_part ((B, C)
+// scratch the caller allocates) may be null too. Runs one kernel, and a
+// second for dgamma and dbeta, on `stream`; allocates nothing and returns
+// the first launch error (cudaErrorInvalidValue for a shape it does not
+// take, cudaErrorLaunchOutOfResources where the card cannot hold one
+// cluster of the plan).
+extern "C" int gn_silu_bwd_bwd(const void* x, const void* gamma, const void* beta,
+                               const void* gout, const void* du, const void* dgamma_bar,
+                               const void* dbeta_bar, void* dg, void* dx, void* dgamma,
+                               void* dbeta, void* dgamma_part, void* dbeta_part, int B,
+                               int C, int HW, int G, float eps, void* stream) {
+  if (B <= 0 || C <= 0 || HW <= 0 || G <= 0 || C % G != 0)
+    return (int)cudaErrorInvalidValue;
+  const bool params = dgamma != nullptr;
+  if ((dbeta != nullptr) != params ||
+      (params && (dgamma_part == nullptr || dbeta_part == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  long long optin = 0;
+  int err = kernel_launch::device_optin(&dev, &optin);
+  if (err != 0) return err;
+  GnPlan p;
+  err = plan(C, HW, G, optin, 3, &p);
+  if (err != 0) return err;
+  const float* xf = (const float*)x;
+  const float* gf = (const float*)gamma;
+  const float* bf = (const float*)beta;
+  const float* go = (const float*)gout;
+  const float* uf = (const float*)du;
+  const float* gb = (const float*)dgamma_bar;
+  const float* bb = (const float*)dbeta_bar;
+  float* dgf = (float*)dg;
+  float* dxf = (float*)dx;
+  float* dgp = (float*)dgamma_part;
+  float* dbp = (float*)dbeta_part;
+  cudaStream_t st = (cudaStream_t)stream;
+  err = params ? launch_bwd_bwd_team<true>(xf, gf, bf, go, uf, gb, bb, dgf, dxf, dgp, dbp, B,
+                                           C, HW, G, eps, p, dev, optin, st)
+               : launch_bwd_bwd_team<false>(xf, gf, bf, go, uf, gb, bb, dgf, dxf, dgp, dbp, B,
+                                            C, HW, G, eps, p, dev, optin, st);
+  if (err != 0 || !params) return err;
   gn_param_grad_kernel<<<(C + 31) / 32, dim3(32, kParamRows), 0, st>>>(
       dgp, dbp, (float*)dgamma, (float*)dbeta, B, C);
   return (int)cudaGetLastError();

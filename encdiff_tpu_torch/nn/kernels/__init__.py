@@ -42,6 +42,14 @@ def takes_plain(wrapper, x) -> bool:
     return False
 
 
+def plain_route(x) -> bool:
+    """Whether the wrappers run their plain versions on tensor ``x`` (on
+    the CPU, or on CUDA inside ``plain_path()``); counts nothing. The
+    backward Functions read it to decide how a second order is taken: on
+    the plain route autograd records the plain backward's own ops."""
+    return x.device.type == "cpu" or _ROUTE["plain"]
+
+
 def check_cuda_tensor(name: str, t, device, shape=None) -> None:
     """Raise unless ``t`` is a float32 tensor on ``device`` (of ``shape``)."""
     if t.device != device:

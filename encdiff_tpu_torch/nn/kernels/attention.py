@@ -3,8 +3,15 @@
 
 Counterpart of ``encdiff_tpu/nn/pallas/attention.py`` (``attention_core``
 and its custom VJP): ``attention_core`` is differentiable through
-``_AttentionCore``, whose backward is the recompute-P kernel. The
-projections around it stay in PyTorch, as the JAX package left them to XLA.
+``_AttentionCore``, whose backward is the recompute-P kernel. When autograd
+records inside that backward (``create_graph=True``: the MCL losses
+differentiate the frozen decoder's mid-block attention twice), the backward
+runs as ``_AttentionCoreBwd``: the same kernel's values, and a backward
+written in PyTorch ops (``attention_core_bwd_vjp``), which the JAX package
+takes from XLA's autodiff of its VJP. On the plain route (CPU tensors,
+``plain_path()``) autograd records the plain backward's own ops instead.
+The projections around it stay in PyTorch, as the JAX package left them to
+XLA.
 """
 
 from __future__ import annotations
@@ -17,7 +24,8 @@ import torch
 from encdiff_tpu_torch.nn.kernels import (build, check_cuda_tensor,
                                           check_rows_aligned, head_strides,
                                           kernel_rows, launch_stream,
-                                          raise_on_error, takes_plain)
+                                          plain_route, raise_on_error,
+                                          takes_plain)
 
 #: head sizes the kernels take (csrc/attention_core.cu), forward and backward
 HEAD_SIZES = (8, 16, 32, 64, 128)
@@ -76,9 +84,58 @@ def _scratch_fn():
     return fn
 
 
+def attention_core_bwd_vjp(q, k, v, do, dq_bar, dk_bar, dv_bar,
+                           scale: float):
+    """The gradients (of q, k, v, do) of <dq_bar, dq> + <dk_bar, dk> +
+    <dv_bar, dv>, where (dq, dk, dv) = ``attention_core_bwd(q, k, v, do)``:
+    the backward of the attention backward, in PyTorch ops (matmuls and a
+    softmax) on any device. No TPU kernel computes it: the JAX package
+    takes it from XLA's autodiff of its VJP. The MCL step runs it once, at
+    the VQ decoder's (B, 1, 256, 256, 128).
+
+    With S = scale q kᵀ, P = softmax(S) by rows, dP = do vᵀ, D =
+    rowsum(P ∘ dP) and dS = P ∘ (dP - D), the backward is dq = scale dS k,
+    dk = scale dSᵀ q, dv = Pᵀ do. Its scalar is <dS, W> + <P, do dv_barᵀ>
+    with W = scale (dq_bar kᵀ + q dk_barᵀ); with E = rowsum(P ∘ W):
+
+    - through dS, dP gets dP̄ = P ∘ (W - E) and P gets (dP - D) ∘ W - E dP;
+      with <P, do dv_barᵀ>, P̄ = (dP - D) ∘ W - E dP + do dv_barᵀ, and
+      through the softmax S̄ = P ∘ (P̄ - rowsum(P ∘ P̄));
+    - q: scale (S̄ k + dS dk_bar)   (S, and dk = scale dSᵀ q);
+    - k: scale (S̄ᵀ q + dSᵀ dq_bar) (S, and dq = scale dS k);
+    - v: dP̄ᵀ do                    (dP = do vᵀ);
+    - do: dP̄ v + P dv_bar          (dP, and dv = Pᵀ do).
+
+    Counted in ``attention_core_bwd_vjp.calls``."""
+    q, k, v, do = q.float(), k.float(), v.float(), do.float()
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    dpc = dp - (p * dp).sum(dim=-1, keepdim=True)       # dP - D
+    ds = p * dpc
+    w = scale * (torch.matmul(dq_bar, k.transpose(-1, -2))
+                 + torch.matmul(q, dk_bar.transpose(-1, -2)))
+    e = (p * w).sum(dim=-1, keepdim=True)
+    dp_bar = p * (w - e)
+    p_bar = dpc * w - e * dp + torch.matmul(do, dv_bar.transpose(-1, -2))
+    s_bar = p * (p_bar - (p * p_bar).sum(dim=-1, keepdim=True))
+    gq = scale * (torch.matmul(s_bar, k) + torch.matmul(ds, dk_bar))
+    gk = scale * (torch.matmul(s_bar.transpose(-1, -2), q)
+                  + torch.matmul(ds.transpose(-1, -2), dq_bar))
+    gv = torch.matmul(dp_bar.transpose(-1, -2), do)
+    gdo = torch.matmul(dp_bar, v) + torch.matmul(p, dv_bar)
+    attention_core_bwd_vjp.calls += 1
+    return gq, gk, gv, gdo
+
+
+attention_core_bwd_vjp.calls = 0
+
+
 class _AttentionCore(torch.autograd.Function):
     """``attention_core`` with the recompute-P backward: only q, k and v are
-    saved, as the JAX custom VJP saves them."""
+    saved, as the JAX custom VJP saves them. When autograd records inside
+    the backward (``create_graph``), the backward is ``_AttentionCoreBwd``:
+    the same kernel, differentiable once more; on the plain route autograd
+    records the plain backward's ops."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -88,11 +145,45 @@ class _AttentionCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        # the backward kernels read rows 16 bytes at a time; the forward
-        # took any rows, and the cotangent is whatever autograd hands over
-        q, k, v, do = (kernel_rows(t) for t in (*ctx.saved_tensors, do))
-        dq, dk, dv = attention_core_bwd(q, k, v, do, ctx.scale)
+        if torch.is_grad_enabled() and not plain_route(do):
+            dq, dk, dv = _AttentionCoreBwd.apply(*ctx.saved_tensors, do,
+                                                 ctx.scale)
+        else:
+            dq, dk, dv = _attention_bwd(*ctx.saved_tensors, do, ctx.scale)
         return dq, dk, dv, None
+
+
+def _attention_bwd(q, k, v, do, scale):
+    # the backward kernels read rows 16 bytes at a time; the forward took
+    # any rows, and the cotangent is whatever autograd hands over
+    q, k, v, do = (kernel_rows(t) for t in (q, k, v, do))
+    return attention_core_bwd(q, k, v, do, scale)
+
+
+class _AttentionCoreBwd(torch.autograd.Function):
+    """The attention backward as a differentiable function of (q, k, v,
+    do): its values from ``attention_core_bwd``, its backward
+    ``attention_core_bwd_vjp``. A third order (autograd recording inside
+    this backward: the Hutchinson divergence of ``fisher_sm``) raises
+    ``NotImplementedError``; the plain route, which ``_AttentionCore``
+    takes on the CPU, has every order."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, do, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, do)
+        return _attention_bwd(q, k, v, do, scale)
+
+    @staticmethod
+    def backward(ctx, dq_bar, dk_bar, dv_bar):
+        q, k, v, do = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "a third derivative through attention_core (the Hutchinson "
+                "divergence of mcl_type fisher_sm) is not ported to the "
+                f"card; q {tuple(q.shape)}")
+        return (*attention_core_bwd_vjp(q, k, v, do, dq_bar, dk_bar, dv_bar,
+                                        ctx.scale), None)
 
 
 def attention_core(q, k, v, scale: float):

@@ -5,11 +5,12 @@ whose hooks the harness calls. Two differences: the machine with the card
 has neither PIL nor a YAML writer, so image grids are written as uint8
 ``.npy`` arrays (``<key>_gs-<step>.npy`` where the JAX package writes
 ``.png``) and ``SetupCallback`` dumps the configs as JSON.
-``SwapVisualizationCallback`` (used only by ``configs/mcl/``) is not ported.
+``SwapVisualizationCallback`` (:298-348) writes its grids as ``.npy`` too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import os
@@ -21,6 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from encdiff_tpu_torch.core import ema as ema_lib
 from encdiff_tpu_torch.core.config import instantiate_from_config
 
 
@@ -285,3 +287,65 @@ class DeviceStatsCallback:
               + (f"peak_mem {stats['peak_bytes_in_use'] / 2**20:.0f}MiB"
                  if stats else ""), flush=True)
         return out
+
+
+class SwapVisualizationCallback:
+    """Fixed-input swap grids at the end of validation
+    (``swap_training_end.py:10-252`` of the reference): ``num_samples``
+    rows of the validation grid chosen by ``np.random.RandomState(seed)``,
+    ``evalx.swap.swap_sample`` at DDIM ``ddim_steps`` and ``eta`` on the
+    EMA's weights, its noise from a ``torch.Generator`` seeded with
+    ``seed`` (the JAX callback's ``PRNGKey(seed)`` draws other numbers).
+    Writes the inputs over all swaps, ``swap_grid_e<epoch>_s<step>.npy``,
+    and one page per factor, ``factor_<k>_e<epoch>.npy``, under
+    ``<logdir>/swap_visualization``.
+
+    The JAX harness catches and prints this callback's errors; the port's
+    lets them raise, since a caught error here would hide a kernel failure
+    in the DDIM swap."""
+
+    def __init__(self, num_samples=8, ddim_steps=200, eta=1.0, seed=42,
+                 every_n_epochs=1, **kwargs):
+        del kwargs
+        self.num_samples = num_samples
+        self.ddim_steps = ddim_steps
+        self.eta = eta
+        self.seed = seed
+        self.every_n_epochs = every_n_epochs
+        self.logdir = None
+
+    def bind(self, logdir: str):
+        self.logdir = logdir
+        return self
+
+    @torch.no_grad()
+    def on_validation_epoch_end(self, model, ema, images, epoch: int,
+                                step: int):
+        """``images``: the validation grid (N, S, S, 3) uint8 on the
+        model's device; ``ema``: the UNet's ``EmaState`` or None."""
+        if epoch % self.every_n_epochs:
+            return
+        from encdiff_tpu_torch.evalx.swap import swap_sample
+
+        rs = np.random.RandomState(self.seed)
+        idx = rs.choice(len(images), size=self.num_samples, replace=False)
+        batch, _ = model.split_batch(
+            images[torch.from_numpy(idx).to(images.device)])
+        gen = torch.Generator(model.device).manual_seed(self.seed)
+        params = dict(model.unet.named_parameters())
+        with ema_lib.applied(ema, params) if ema is not None else \
+                contextlib.nullcontext():
+            x = swap_sample(model, batch, ddim_steps=self.ddim_steps,
+                            eta=self.eta, generator=gen)
+        batch, x = batch.cpu().numpy(), x.cpu().numpy()
+        root = os.path.join(self.logdir or ".", "swap_visualization")
+        save_image_grid(np.concatenate([batch, x], axis=0),
+                        os.path.join(root, f"swap_grid_e{epoch:03}_"
+                                           f"s{step:07}.npy"),
+                        nrow=self.num_samples)
+        for cdx in range(x.shape[0] // self.num_samples):
+            blk = x[cdx * self.num_samples:(cdx + 1) * self.num_samples]
+            save_image_grid(np.concatenate([batch, blk], axis=0),
+                            os.path.join(root, f"factor_{cdx:02}_"
+                                               f"e{epoch:03}.npy"),
+                            nrow=self.num_samples)

@@ -8,7 +8,8 @@ compact ``.npz`` that both packages read. A checkpoint of the port is a
 directory:
 
 - ``model.npz``: the compact file (fp16 weights; UNet, Encoder4 with its
-  batch statistics, EMA, scale factor and step; the frozen first stage),
+  batch statistics, the MCL heads under ``params/mcl`` where the model has
+  them, EMA, scale factor and step; the frozen first stage),
   on the JAX package's paths where the run was restored from one of its
   files, so that ``encdiff_tpu``'s loaders read it;
 - ``train_state.pt``: what the compact file lacks to resume bit for bit:
@@ -18,7 +19,8 @@ directory:
 
 The restore is lenient, as the JAX one: a leaf that the checkpoint lacks,
 or holds at another shape, keeps its value from the seeded init, and the
-count of such leaves is printed. A compact ``.npz`` alone restores weights,
+count of such leaves is printed (an MCL fine-tune from a file of a run
+without MCL, such as ``v4purify_final_fp16.npz``, keeps its fresh heads). A compact ``.npz`` alone restores weights,
 step and scale factor; the optimizer starts afresh (the LR warmup starts
 again, as in the JAX package), and the EMA keeps its init unless the file
 holds one.
@@ -50,28 +52,37 @@ def fresh_variables(model) -> dict:
     params = convert.state_dict_tree(
         {k: v for k, v in cond.items() if not k.endswith(_STATS)})
     params["warp"] = params.pop("warp_mlps")
-    return {
+    out = {
         "unet": {"params": convert.state_dict_tree(model.unet.state_dict())},
         "cond": {"params": params, "batch_stats": convert.state_dict_tree(
             {k: v for k, v in cond.items() if k.endswith(_STATS[:2])})},
         "first_stage": {"params": convert.state_dict_tree(
             model.first_stage_model.state_dict())},
     }
+    if model.mcl is not None:
+        # with the flax wrapper levels: the JAX restore merges by path
+        out["mcl"] = {head: {"params": convert.flax_variables(
+            model.mcl[head])[0]} for head in convert.MCL_HEADS}
+    return out
 
 
 def save_checkpoint(path: str, model, state, variables: dict) -> str:
-    """The trained UNet, Encoder4 (params and batch statistics), EMA, scale
-    factor and step, under the paths of ``variables``, with its frozen
-    first stage, as one compact ``.npz``; no optimizer state, as the JAX
-    package's compact files."""
+    """The trained UNet, Encoder4 (params and batch statistics), MCL heads,
+    EMA, scale factor and step, under the paths of ``variables``, with its
+    frozen first stage, as one compact ``.npz``; no optimizer state, as the
+    JAX package's compact files."""
     unet_tree = variables["unet"]["params"]
     cond, stats = convert.encoder4_to_flax(
         model.cond_stage_model.state_dict(), variables["cond"]["params"],
         variables["cond"]["batch_stats"])
+    params = {"unet": convert.state_dict_to_flax(model.unet.state_dict(),
+                                                 unet_tree),
+              "cond": cond}
+    if model.mcl is not None:
+        params["mcl"] = convert.mcl_to_flax(model.mcl.state_dict(),
+                                            variables["mcl"])
     train_state = {
-        "params": {"unet": convert.state_dict_to_flax(model.unet.state_dict(),
-                                                      unet_tree),
-                   "cond": cond},
+        "params": params,
         "batch_stats": stats,
         "scale_factor": float(state.scale_factor),
         "step": state.step,
@@ -92,6 +103,7 @@ def save_train_checkpoint(path: str, model, state, variables: dict) -> str:
         "unet": model.unet.state_dict(),
         "cond": model.cond_stage_model.state_dict(),
         "first_stage": model.first_stage_model.state_dict(),
+        "mcl": model.mcl.state_dict() if model.mcl is not None else None,
         "adamw": {k: opt.state[p] for k, p in params.items()
                   if p in opt.state},
         "updates": state.updates,
@@ -120,13 +132,13 @@ def _merge(target: dict, loaded: dict, what: str, kept: list) -> bool:
 
 
 def restore_train_checkpoint(path: str, model, state) -> dict:
-    """Restore ``model`` (UNet, Encoder4, first stage) and ``state`` (step,
-    scale factor, EMA and, from a checkpoint directory's sidecar, the fp32
-    weights, AdamW, its count, the accumulation buffers) from ``path``: a
-    checkpoint directory or a compact ``.npz``. Returns the variable tree a
-    later save should use as its template: the file's own paths for the
-    UNet and for Encoder4 wherever it covered every leaf, the port's
-    elsewhere."""
+    """Restore ``model`` (UNet, Encoder4, first stage, MCL heads) and
+    ``state`` (step, scale factor, EMA and, from a checkpoint directory's
+    sidecar, the fp32 weights, AdamW, its count, the accumulation buffers)
+    from ``path``: a checkpoint directory or a compact ``.npz``. Returns the
+    variable tree a later save should use as its template: the file's own
+    paths for the UNet, Encoder4 and the MCL heads wherever it covered
+    every leaf, the port's elsewhere."""
     npz = os.path.join(path, MODEL_FILE) if os.path.isdir(path) else path
     sidecar = os.path.join(path, STATE_FILE) if os.path.isdir(path) else None
     tree = load_compact(npz)
@@ -147,6 +159,10 @@ def restore_train_checkpoint(path: str, model, state) -> dict:
            convert.first_stage_state_dict(variables["first_stage"]["params"]),
            "first_stage", kept)
     template["first_stage"] = variables["first_stage"]
+    if model.mcl is not None and _merge(
+            model.mcl.state_dict(),
+            convert.mcl_state_dict(variables["mcl"] or {}), "mcl", kept):
+        template["mcl"] = variables["mcl"]
     if variables["ema"] is not None:
         _merge(state.ema.params, convert.flax_to_state_dict(variables["ema"]),
                "ema", kept)
@@ -161,11 +177,13 @@ def restore_train_checkpoint(path: str, model, state) -> dict:
     if sidecar is not None and os.path.exists(sidecar):
         side = torch.load(sidecar, map_location="cpu", weights_only=True)
         kept = [k for k in kept if not k.startswith(
-            ("unet/", "cond/", "first_stage/", "ema/"))]
+            ("unet/", "cond/", "first_stage/", "ema/", "mcl/"))]
         _merge(model.unet.state_dict(), side["unet"], "unet", kept)
         _merge(model.cond_stage_model.state_dict(), side["cond"], "cond", kept)
         _merge(model.first_stage_model.state_dict(), side["first_stage"],
                "first_stage", kept)
+        if model.mcl is not None:
+            _merge(model.mcl.state_dict(), side.get("mcl") or {}, "mcl", kept)
         _merge(state.ema.params, side["ema"], "ema", kept)
         state.ema.num_updates = side["ema_updates"]
         for name, p in params.items():

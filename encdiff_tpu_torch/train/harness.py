@@ -26,7 +26,15 @@ the stage-2 LDM on one device:
   (``evalx.eval_driver``; DCI and beta-VAE need sklearn and are scored
   from those files elsewhere);
 - ``test`` runs ``validate`` on the current or restored weights and writes
-  ``test_results.json``.
+  ``test_results.json``; a ``SwapVisualizationCallback`` in the config
+  writes its swap grids at the end of every ``validate``.
+
+``-b flagship_mcl`` (``configs.FLAGSHIP_MCL_RUN``) is the MCL fine-tune
+that ``scripts/run_mcl_sweep.py`` runs per cell: the model adds the MCL
+term and heads (``models.latent_diffusion``), the train step trains the
+heads beside the UNet and Encoder4, and a ``--resume_ckpt`` without heads
+(the committed ``v4purify_final_fp16.npz``) keeps their seeded fresh init;
+``fit`` runs it as any LDM config, on cached latents.
 
 A config whose ``model.target`` is ``models.autoencoder.VQModel``
 (``-b flagship_vq``, ``configs.FLAGSHIP_VQ_RUN``) trains the VQ-GAN first
@@ -51,6 +59,9 @@ raises without a card.
 
     python -m encdiff_tpu_torch.main_val -b flagship -t --max_steps N \\
         [--resume_ckpt <npz>] [-r <logdir>] [--device cpu] [key=value ...]
+    python -m encdiff_tpu_torch.main_val -b flagship_mcl -t \\
+        --resume_ckpt demo_artifacts/round5/v4purify_final_fp16.npz \\
+        --max_steps N
 """
 
 from __future__ import annotations
@@ -68,7 +79,8 @@ import numpy as np
 import torch
 
 from encdiff_tpu_torch import convert
-from encdiff_tpu_torch.configs import FLAGSHIP_RUN, FLAGSHIP_VQ_RUN
+from encdiff_tpu_torch.configs import (FLAGSHIP_MCL_RUN, FLAGSHIP_RUN,
+                                      FLAGSHIP_VQ_RUN)
 from encdiff_tpu_torch.core.compact_ckpt import save_compact_vq
 from encdiff_tpu_torch.core.config import get_obj_from_str, instantiate_from_config
 from encdiff_tpu_torch.core.device import resolve_device
@@ -87,7 +99,8 @@ from encdiff_tpu_torch.train.loop import (create_train_state, encode_sweep,
                                           precompute_latents, train_step)
 
 #: the configs ``-b`` takes by name
-REGISTERED = {"flagship": FLAGSHIP_RUN, "flagship_vq": FLAGSHIP_VQ_RUN}
+REGISTERED = {"flagship": FLAGSHIP_RUN, "flagship_vq": FLAGSHIP_VQ_RUN,
+              "flagship_mcl": FLAGSHIP_MCL_RUN}
 
 #: the dataset on the device, kept between the runs of one process: at most
 #: one, with the host array it was uploaded from
@@ -324,6 +337,7 @@ class Trainer:
 
     def _build_callbacks(self):
         self.image_logger = None
+        self.swap_cb = None
         self.checkpoints: list = []
         callbacks = self.lightning_config.get("callbacks") or {}
         for name, cfg in callbacks.items():
@@ -336,6 +350,8 @@ class Trainer:
                 self.image_logger = obj.bind(self.logdir)
             elif isinstance(obj, cb.ModelCheckpoint):
                 self.checkpoints.append(obj.bind(self.ckptdir))
+            elif isinstance(obj, cb.SwapVisualizationCallback):
+                self.swap_cb = obj.bind(self.logdir)
         # the default monitor checkpoint of the reference's main_val.py
         monitor = self.model_params.get("monitor")
         if monitor and not any(c.monitor == monitor for c in self.checkpoints):
@@ -698,6 +714,14 @@ class Trainer:
               f"{self.timings['metrics_s']:.3f}s: " + " ".join(
                   f"{k.split('/')[-1]}={v:.4f}" for k, v in out.items()),
               flush=True)
+        if self.swap_cb is not None:
+            # not caught, unlike the JAX harness: an error here would hide a
+            # kernel failure in the DDIM swap
+            t3 = time.perf_counter()
+            self.model.scale_factor = float(self.state.scale_factor)
+            self.swap_cb.on_validation_epoch_end(
+                self.model, self.state.ema, images, epoch, step)
+            self.timings["swap_visualization_s"] = time.perf_counter() - t3
         return out
 
 

@@ -3,8 +3,10 @@ the first-stage latent cache and the representation sweep.
 
 Counterpart of ``encdiff_tpu/train/loop.py:128-250`` (``TrainState``,
 ``scaled_learning_rate``, ``build_optimizer`` with its ``optax.MultiSteps``
-gradient accumulation, ``create_train_state``, ``build_train_step``)
-without MCL, of ``precompute_latents`` (:74-130) and of the encode sweep
+gradient accumulation, ``create_train_state``, ``build_train_step``, the
+MCL heads among the trained leaves as :163-189 puts them; the split-program
+MCL step of :252-383 is not ported, see ``models.latent_diffusion``), of
+``precompute_latents`` (:74-130) and of the encode sweep
 (``build_encode_step``, ``build_encode_sweep``: :637-679). The JAX step is
 one jitted XLA program; here it is eager PyTorch whose GN-SiLU and
 attention run the port's kernels forward and backward. As in the JAX
@@ -26,7 +28,8 @@ step:
   Encoder4's batch statistics and the EMA move on every call, and
   ``grad_norm`` is the micro-batch's.
 
-t and the noise come from an explicit ``torch.Generator``, or are given.
+t and the noise come from an explicit ``torch.Generator``, or are given;
+so does the MCL term's random draw (drawn after them).
 """
 
 from __future__ import annotations
@@ -68,11 +71,14 @@ def scaled_learning_rate(base_lr: float, batch_size: int,
 
 
 def trainable_parameters(model) -> dict:
-    """name -> parameter of what the step trains: the UNet and Encoder4
-    (the JAX ``params`` tree's ``unet`` and ``cond``)."""
+    """name -> parameter of what the step trains: the UNet, Encoder4 and,
+    with MCL, the critic, Pi_g and Pi_u (the JAX ``params`` tree's
+    ``unet``, ``cond`` and ``mcl``)."""
     out = {f"unet.{k}": p for k, p in model.unet.named_parameters()}
     out.update({f"cond.{k}": p
                 for k, p in model.cond_stage_model.named_parameters()})
+    if getattr(model, "mcl", None) is not None:
+        out.update({f"mcl.{k}": p for k, p in model.mcl.named_parameters()})
     return out
 
 
@@ -85,15 +91,17 @@ def build_optimizer(params, learning_rate: float) -> torch.optim.Optimizer:
 
 def create_train_state(model, config: dict, step: int = 0,
                        learning_rate: float | None = None) -> TrainState:
-    """A fresh optimizer and EMA (from the model's current UNet) for
-    ``model``, whose UNet and Encoder4 become trainable; ``step`` is the
+    """A fresh optimizer (AdamW over every leaf of
+    ``trainable_parameters``) and EMA (of the UNet alone, from its current
+    weights) for ``model``, whose UNet, Encoder4 and MCL heads become
+    trainable; ``step`` is the
     global step the weights were saved at. ``config`` gives
     ``base_learning_rate``, ``batch_size``, the ``scheduler_config`` of a
     ``LambdaLinearScheduler`` and optionally ``accumulate_grad_batches``
     (1 by default); the peak LR is ``learning_rate`` if given, else the
     reference's rule (``scaled_learning_rate``)."""
-    model.unet.requires_grad_(True)
-    model.cond_stage_model.requires_grad_(True)
+    for p in trainable_parameters(model).values():
+        p.requires_grad_(True)
     accumulate = config.get("accumulate_grad_batches", 1)
     lr = learning_rate or scaled_learning_rate(
         config["base_learning_rate"], config["batch_size"], accumulate)
@@ -119,10 +127,12 @@ def draw_t_and_noise(model, batch_size: int, generator: torch.Generator):
     return t, noise
 
 
-def loss_and_grads(model, state: TrainState, batch, t, noise):
+def loss_and_grads(model, state: TrainState, batch, t, noise, mcl_draw=None,
+                   generator: torch.Generator | None = None):
     """The loss at ``state`` with its gradients left in the parameters'
-    ``.grad`` and Encoder4's running statistics updated. Returns
-    (loss_dict, scale factor used)."""
+    ``.grad`` and Encoder4's running statistics updated; the MCL term's
+    draw is ``mcl_draw`` or comes from ``generator``. Returns (loss_dict,
+    scale factor used)."""
     x, z = model.split_batch(batch)
     if z is None:
         z = model.encode_first_stage(x)
@@ -130,8 +140,15 @@ def loss_and_grads(model, state: TrainState, batch, t, noise):
     sf = (model.compute_scale_factor(batch)
           if model.scale_by_std and state.step == 0 else state.scale_factor)
     state.optimizer.zero_grad(set_to_none=True)
-    loss, loss_dict = model.loss_fn(batch, t, noise, sf)
+    loss, loss_dict = model.loss_fn(batch, t, noise, sf, mcl_draw=mcl_draw,
+                                    generator=generator)
     loss.backward()
+    # a leaf the loss does not reach (the MCL critic's out.bias: the
+    # mechanism gradient is a derivative in z) gets a zero gradient, as in
+    # jax.grad, so that AdamW's weight decay moves it as optax.adamw does
+    for p in trainable_parameters(model).values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     return loss_dict, sf
 
 
@@ -174,17 +191,20 @@ def end_update(acc, optimizer) -> None:
 
 
 def train_step(model, state: TrainState, batch, *, t=None, noise=None,
+               mcl_draw=None,
                generator: torch.Generator | None = None) -> dict:
     """One step on ``batch`` (B, S, S, 3) uint8 or [-1, 1] floats, or
     ``{"image": those, "z": their cached first-stage code}``, one
-    micro-batch when ``state.accumulate`` > 1; t and noise are drawn from
-    ``generator`` unless given. Updates ``state`` and the model in place;
-    returns the metrics as device scalars: the loss dict, ``grad_norm`` and
-    ``lr`` (the LR of the optimizer's next update)."""
+    micro-batch when ``state.accumulate`` > 1; t and noise, and the MCL
+    term's draw, are drawn from ``generator`` unless given. Updates
+    ``state`` and the model in place; returns the metrics as device
+    scalars: the loss dict, ``grad_norm`` and ``lr`` (the LR of the
+    optimizer's next update)."""
     if t is None or noise is None:
         images = batch["image"] if isinstance(batch, dict) else batch
         t, noise = draw_t_and_noise(model, len(images), generator)
-    loss_dict, sf = loss_and_grads(model, state, batch, t, noise)
+    loss_dict, sf = loss_and_grads(model, state, batch, t, noise,
+                                   mcl_draw=mcl_draw, generator=generator)
     params = list(trainable_parameters(model).values())
     grad_norm = global_norm([p.grad for p in params])
     lr = state.lr_fn(state.updates)

@@ -16,7 +16,7 @@ import torch
 from encdiff_tpu_torch.nn.kernels import plain_path
 from encdiff_tpu_torch.nn.kernels.attention import (
     attention_core, attention_core_bwd, attention_core_bwd_plain,
-    attention_core_plain)
+    attention_core_bwd_vjp, attention_core_plain)
 from encdiff_tpu_torch.nn.kernels.flash_attention import (
     flash_attention, flash_attention_dkdv, flash_attention_dkdv_plain,
     flash_attention_dq, flash_attention_dq_plain, flash_attention_fwd,
@@ -24,7 +24,8 @@ from encdiff_tpu_torch.nn.kernels.flash_attention import (
 from encdiff_tpu_torch.nn.kernels.fused_attention import (
     fused_attention, fused_attention_plain)
 from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (
-    gn_silu_bwd_plan, gn_silu_plan, groupnorm_silu, groupnorm_silu_bwd_plain,
+    gn_silu_bwd_bwd, gn_silu_bwd_bwd_plan, gn_silu_bwd_plan, gn_silu_plan,
+    groupnorm_silu, groupnorm_silu_bwd_bwd_plain, groupnorm_silu_bwd_plain,
     groupnorm_silu_plain, gn_silu_bwd, kernel_plan)
 
 CARD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -764,3 +765,147 @@ def test_fused_attention_counts_launches_and_plain_calls(cuda_device):
     assert fused_attention.launches == launches + 3
     assert fused_attention.plain_calls == plain + 1
     torch.testing.assert_close(out, ref, **CARD_TOL)
+
+
+#: the flagship VQ decoder's GN-SiLU inputs at B = 128 (the MCL step's
+#: second order runs the double backward at each), then a faces-sized group
+#: on a cluster of 8, groups of 1 to 8 channels and a shape whose rows are
+#: not a multiple of 4 (4-byte copies)
+BWD_BWD_SHAPES = [
+    ((128, 128, 16, 16), 1), ((128, 128, 32, 32), 1), ((128, 64, 32, 32), 1),
+    ((128, 64, 64, 64), 1), ((128, 32, 64, 64), 1), ((2, 32, 256, 256), 8),
+    ((4, 256, 8, 8), 1), ((3, 96, 5, 7), 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cluster", BWD_BWD_SHAPES)
+@pytest.mark.parametrize("params", [False, True])
+def test_gn_silu_bwd_bwd_kernel_matches_plain(cuda_device, shape, cluster,
+                                              params):
+    b, c, h, w = shape
+    assert gn_silu_bwd_bwd_plan(b, c, h * w, 32,
+                                _optin(cuda_device)).cluster == cluster
+    gen = torch.Generator(cuda_device).manual_seed(31)
+    x, gamma, beta, _, _ = _gn_inputs(gen, cuda_device, *shape, False)
+    g, du = (torch.randn(shape, generator=gen, device=cuda_device)
+             for _ in range(2))
+    bars = (dict(dgamma_bar=torch.randn(c, generator=gen, device=cuda_device),
+                 dbeta_bar=torch.randn(c, generator=gen, device=cuda_device))
+            if params else {})
+    before = gn_silu_bwd_bwd.launches
+    got = gn_silu_bwd_bwd(du, g, x, gamma, beta, eps=1e-6,
+                          param_grads=params, **bars)
+    torch.cuda.synchronize()
+    assert gn_silu_bwd_bwd.launches == before + 1
+    want = groupnorm_silu_bwd_bwd_plain(du, g, x, gamma, beta, eps=1e-6,
+                                        param_grads=params, **bars)
+    for a, r in zip(got, want):
+        if r is None:
+            assert a is None
+        else:
+            torch.testing.assert_close(a, r, **CARD_TOL)
+    again = gn_silu_bwd_bwd(du, g, x, gamma, beta, eps=1e-6,
+                            param_grads=params, **bars)
+    assert all(a is None or torch.equal(a, r) for a, r in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_gn_silu_bwd_bwd_plan_is_the_kernel_plan(cuda_device):
+    shapes = {(c, hw) for c in (32, 64, 128, 256, 512)
+              for hw in (4, 9, 16, 35, 256, 1024, 4096, 16384, 65536)}
+    for limit in (_optin(cuda_device), 48 * 1024):
+        for c, hw in sorted(shapes):
+            try:
+                want = tuple(gn_silu_bwd_bwd_plan(1, c, hw, 32, limit))[:5]
+            except ValueError:
+                want = None
+            assert kernel_plan(c, hw, 32, limit, bwd_bwd=True) == want, (
+                c, hw, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,m,dh", [(128, 1, 256, 256, 128),
+                                        (4, 8, 64, 20, 16)])
+def test_attention_core_bwd_vjp_matches_autograd_of_plain(cuda_device, b, h,
+                                                          n, m, dh):
+    gen = torch.Generator(cuda_device).manual_seed(32)
+    q, k, v, do, dq_bar, dk_bar, dv_bar = (
+        torch.randn(b, h, length, dh, generator=gen, device=cuda_device)
+        for length in (n, m, m, n, n, m, m))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, do)]
+    want = torch.autograd.grad(
+        attention_core_bwd_plain(*leaves, dh ** -0.5), leaves,
+        (dq_bar, dk_bar, dv_bar))
+    before = attention_core_bwd_vjp.calls
+    got = attention_core_bwd_vjp(q, k, v, do, dq_bar, dk_bar, dv_bar,
+                                 dh ** -0.5)
+    assert attention_core_bwd_vjp.calls == before + 1
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, **CARD_TOL)
+
+
+def _decoder_du(device, route):
+    """d/du of <dec(z, u) . r> differentiated in z once more: the flagship
+    VQ decoder at B = 4 from a seeded init, g = d/dz sum(dec(z, u) w), then
+    the gradient of sum(g v) in u and z. Returns the two gradients."""
+    from encdiff_tpu_torch.configs import FLAGSHIP
+    from encdiff_tpu_torch.core.device import resolve_device
+    from encdiff_tpu_torch.models.autoencoder import (VQModelInterface,
+                                                      init_fresh)
+    resolve_device(device)  # the port's fp32 convolutions (TF32 off)
+    model = VQModelInterface(**FLAGSHIP["first_stage_config"]).to(device)
+    init_fresh(model, torch.Generator(device).manual_seed(33))
+    model.requires_grad_(False)
+    gen = torch.Generator(device).manual_seed(34)
+    z = torch.randn(4, 3, 16, 16, generator=gen, device=device)
+    u = torch.randn(4, 20, generator=gen, device=device)
+    wts = torch.randn(4, 3, 64, 64, generator=gen, device=device)
+    v = torch.randn(4, 3, 16, 16, generator=gen, device=device)
+    z, u = z.requires_grad_(), u.requires_grad_()
+    with route():
+        out = model.decode(z, disentangled_repr=u)
+        g, = torch.autograd.grad((out * wts).sum(), z, create_graph=True)
+        return torch.autograd.grad((g * v).sum(), (u, z))
+
+
+@pytest.mark.cuda
+def test_double_backward_through_the_decoder_reaches_u(cuda_device):
+    """The second order through the decoder's GN-SiLU and attention kernels
+    on the card equals the plain path's (the backward kernels' outputs are
+    differentiable): 23 double-backward GN-SiLU launches and one attention
+    VJP, and d/du, which no path but the second order reaches, matches."""
+    import contextlib
+    counts = (gn_silu_bwd_bwd.launches, attention_core_bwd_vjp.calls)
+    got = _decoder_du(cuda_device, contextlib.nullcontext)
+    torch.cuda.synchronize()
+    assert (gn_silu_bwd_bwd.launches - counts[0],
+            attention_core_bwd_vjp.calls - counts[1]) == (23, 1)
+    want = _decoder_du(cuda_device, plain_path)
+    for a, r in zip(got, want):
+        assert torch.linalg.vector_norm(r) > 0
+        rel = torch.linalg.vector_norm(a - r) / torch.linalg.vector_norm(r)
+        assert rel < 1e-3, rel
+
+
+@pytest.mark.cuda
+def test_second_order_refusals(cuda_device):
+    """FiLM rows in the double backward, and a third order through either
+    Function (autograd recording inside the second backward, as the
+    Hutchinson divergence of fisher_sm does), raise on the card."""
+    gen = torch.Generator(cuda_device).manual_seed(35)
+    x, gamma, beta, scale, shift = _gn_inputs(gen, cuda_device, 2, 64, 8, 8,
+                                              True)
+    g = torch.randn_like(x)
+    with pytest.raises(NotImplementedError, match=r"\(2, 64, 8, 8\)"):
+        gn_silu_bwd_bwd(g, g, x, gamma, beta, scale, shift)
+    xr = x.clone().requires_grad_()
+    y = groupnorm_silu(xr, gamma, beta)
+    d, = torch.autograd.grad(y.sum(), xr, create_graph=True)
+    with pytest.raises(NotImplementedError, match="fisher_sm"):
+        torch.autograd.grad((d * d).sum(), xr, create_graph=True)
+    q, k, v = (torch.randn(2, 1, 16, 32, generator=gen, device=cuda_device)
+               .requires_grad_() for _ in range(3))
+    d, = torch.autograd.grad(attention_core(q, k, v, 0.2).sum(), q,
+                             create_graph=True)
+    with pytest.raises(NotImplementedError, match="fisher_sm"):
+        torch.autograd.grad((d * d).sum(), q, create_graph=True)
