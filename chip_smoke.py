@@ -125,6 +125,35 @@ and the forced-code rule as in train- and vq-reference), for
 raise.
 mcl-profile: one MCL step's device time by kernel.
 
+The faces VQ-GAN first stage (``main_val -b faces_vq``: 256 px, micro-batch
+8 with 4-way accumulation, LPIPS, the PatchGAN and the adaptive GAN weight)
+on the full 34,560-image face grid, from the harness's seeded fresh init;
+its mid blocks run the flash forward, dq and dk/dv at (8, 1, 4096, 128):
+
+faces-vq-shapes: the grid rendered (its masks on the host, its colour
+blocks on the card; the first block held byte for byte against numpy's),
+uploaded as uint8 in place of the flagship grid; hooks record every kernel
+call of one micro-step, of one eval batch and of one image log of 8.
+faces-vq-kernels: every kernel at each of those shapes against its plain
+version, timed beside it, the library call and the card's bound.
+faces-vq-train: ``main_val.main`` trains FACES_VQ_MICRO_STEPS micro-steps
+(4 updates) with the image logger's warm-up logs and ends in ``test()``
+over 4 validation batches, the launch counters set to 0 just before and
+read just after: launches must equal the micro-steps', 5 image logs' and 4
+eval batches', with no plain call; both Adam counts 4; parameters move on
+every 4th micro-step and on no other, and every generator and
+discriminator leaf has moved by the end; ``compact_last.npz`` and
+``test_results.json`` finite. The render's seconds, ms per micro-step and
+per update, peak memory.
+faces-vq-reference: vq-reference's checks at the run's starting weights on
+its first micro-batch of 8, with the adaptive weight's two gradients also
+started from the plain path's at the decoder's output and a 1e-6 absolute
+floor beside 1e-5 on the logs (FACES_VQ_LOG_ATOL). Two witnesses are
+printed: the plain path (no kernel) on the kernel path's reconstruction,
+and on its differences from the plain one shuffled over the pixels.
+faces-vq-profile: one update's device time by kernel, and its busy share
+(the union of the kernels' intervals over the wall).
+
 The faces configuration's stage-2 train step (256 px images, 64x64 latents,
 micro-batch 8, 4-way accumulation) from a fresh seeded init, through the
 same entry points:
@@ -199,6 +228,7 @@ import contextlib
 import copy
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -213,6 +243,7 @@ from encdiff_tpu_torch import main_val
 from encdiff_tpu_torch import train_steps
 from encdiff_tpu_torch.configs import FACES, FACES_TRAIN, FLAGSHIP_TRAIN
 from encdiff_tpu_torch.core.schedules import DDIMSchedule
+from encdiff_tpu_torch.data import synthetic_faces
 from encdiff_tpu_torch.data.synthetic_shapes import (
     TRAIN_GRID, SyntheticShapes3DV4FullTrain, epoch_batches, render_all_v4)
 from encdiff_tpu_torch.evalx import fid as fid_lib
@@ -341,13 +372,33 @@ VQ_LOG_STEPS = (1, 2, 4, 8, 16, 32)
 #: width: the keys' biases (softmax is shift-invariant in each query's
 #: logits), and the biases at the 32-channel levels that reach only
 #: GroupNorms of one channel a group (and, in the decoder, conv_out after
-#: one): their gradients are rounding
+#: one): their gradients are rounding. The faces VQ has the same layout (ch
+#: 32, ch_mult (1, 2, 4), 2 res blocks) at 256 px, so the same leaves
 VQ_EXACT_ZERO = {
     "encoder.mid_attn_1.k.bias", "decoder.mid_attn_1.k.bias",
     "encoder.down_0_block_0.conv1.bias", "encoder.down_0_block_1.conv1.bias",
     *(f"decoder.up_0_block_{i}.conv{j}.bias" for i in range(3)
       for j in (1, 2)),
     "decoder.up_0_block_0.nin_shortcut.bias"}
+#: the faces VQ-GAN first stage (-b faces_vq: 256 px, micro-batch 8, 4-way
+#: accumulation) on the full 34,560-image face grid, from the seeded fresh
+#: init: FACES_VQ_MICRO_STEPS micro-steps (4 updates; the image logger's
+#: warm-up logs at 1, 2, 4, 8 and 16), then test() over
+#: FACES_VQ_VAL_BATCHES validation batches
+FACES_VQ_MICRO_STEPS = 16
+FACES_VQ_VAL_BATCHES = 4
+FACES_VQ_LOG_STEPS = (1, 2, 4, 8, 16)
+#: faces-vq-reference's rules beside vq-reference's. At 256 px the fresh
+#: reconstruction meets the L1's and the PatchGAN's LeakyReLU kinks within
+#: the two paths' rounding at thousands of points (5,552 signs of the
+#: gradient at the decoder's output differ, 206 at the flagship's 64 px),
+#: and the adaptive weight, a ratio of two gradient norms taken through
+#: them, moved by 7e-4: its two gradients start from the plain path's too.
+#: The GAN term's logs (g_loss, logits_fake) are means of PatchGAN logits
+#: that sit near 0 there (-0.043, against 1.72 at the flagship): they get
+#: the absolute floor of 1e-6 that the CPU tests of the VQ losses take
+#: (tests/test_torch_vq_modules.py) beside LOSS_RTOL
+FACES_VQ_LOG_ATOL = 1e-6
 #: the MCL fine-tune (-b flagship_mcl) from the committed checkpoint with
 #: its seeded fresh heads: MCL_STEPS steps at B = 128 on cached latents,
 #: then test(); the other first- and second-order types held kernel path
@@ -1286,7 +1337,9 @@ def profile(fn, calls: int = 3):
     """torch.profiler over ``calls`` calls of ``fn`` after one warm-up:
     (wall ms per call, device-busy ms per call, [(kernel, ms per call,
     launches per call)]) from the CUDA kernel events, or None if the trace
-    holds none."""
+    holds none. Busy is the union of the kernels' intervals: kernels that
+    run at once count once there, and their summed durations are the
+    rows'."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     fn()
@@ -1298,6 +1351,7 @@ def profile(fn, calls: int = 3):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / calls
     by_name = collections.defaultdict(lambda: [0.0, 0])
+    spans = []
     for e in prof.events():
         # kernels only: a GPU-side user annotation (the optimizer step's
         # span) overlaps the kernels it encloses
@@ -1305,9 +1359,14 @@ def profile(fn, calls: int = 3):
                 and not getattr(e, "is_user_annotation", False)):
             by_name[e.name][0] += e.time_range.elapsed_us() / 1e3 / calls
             by_name[e.name][1] += 1
+            spans.append((e.time_range.start, e.time_range.end))
     if not by_name:
         return None
-    busy = sum(v[0] for v in by_name.values())
+    busy_us, reach = 0.0, -math.inf
+    for start, end in sorted(spans):
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    busy = busy_us / 1e3 / calls
     top = sorted(((k, v[0], v[1] / calls) for k, v in by_name.items()),
                  key=lambda r: -r[1])
     return wall, busy, top
@@ -1460,6 +1519,9 @@ def main(argv=None) -> int:
         args.out)
     harness.clear_device_cache()
     torch.cuda.empty_cache()
+    fvq_rows, fvq_other, fvq_launches, per_fvq_step, fvq = faces_vq_phases(
+        smi, card, seen_rows(serve_rows, train_rows, harness_rows, vq_rows,
+                             mcl_rows), args.out)
     faces_rows, faces_launches, per_micro = faces_phases(
         smi, card, seen_rows(serve_rows, train_rows))
     fserve_rows, fserve_other, fserve_launches, per_fserve = faces_serve_phases(
@@ -1473,13 +1535,15 @@ def main(argv=None) -> int:
         parts = {w: summed(name, rows[name]) for w, rows in (
             ("serve", serve_rows), ("train_step", train_rows),
             ("faces_micro_step", faces_rows), ("faces_serve", fserve_rows),
-            ("vq_step", vq_rows), ("mcl_step", mcl_rows))
+            ("vq_step", vq_rows), ("mcl_step", mcl_rows),
+            ("faces_vq_micro_step", fvq_rows))
             if rows.get(name)}
         top = next(iter(parts.values()))
         launches = {"swap": swap_launches[name], "train": train_launches[name],
                     "harness": harness_launches[name],
                     "vq_train": vq_launches[name],
                     "mcl_train": mcl_launches[name],
+                    "faces_vq_train": fvq_launches[name],
                     "faces_train": faces_launches[name],
                     **{path: counts[name]
                        for path, counts in fserve_launches.items()}}
@@ -1489,6 +1553,7 @@ def main(argv=None) -> int:
             "max_abs_err": max([p["max_abs_err"] for p in parts.values()]
                                + [r["err"] for r in fserve_other.get(name, ())]
                                + [r["err"] for r in vq_other.get(name, ())]
+                               + [r["err"] for r in fvq_other.get(name, ())]
                                + [r["err"]
                                   for r in harness_rows.get(name, ())]),
             **{k: top[k] for k in (*fields, BASELINE.get(name)) if k in top}}
@@ -1496,7 +1561,8 @@ def main(argv=None) -> int:
                                 ("faces_micro_step", per_micro),
                                 ("faces_serve", per_fserve),
                                 ("vq_step", per_vq_step),
-                                ("mcl_step", per_mcl_step)):
+                                ("mcl_step", per_mcl_step),
+                                ("faces_vq_micro_step", per_fvq_step)):
             if workload in parts:
                 entry[workload] = {
                     **{k: v for k, v in parts[workload].items()
@@ -1511,10 +1577,12 @@ def main(argv=None) -> int:
           "256 px) for the flash kernels; train_step, faces_micro_step and "
           "faces_serve (one UNet call at B=32 plus one 256 px decode of 32) "
           "hold every kernel's sums over those calls, and vq_step over one "
-          "VQ-GAN train step at B=128 (-b flagship_vq); max_abs_err also "
+          "VQ-GAN train step at B=128 (-b flagship_vq), faces_vq_micro_step "
+          "over one faces VQ-GAN micro-step at micro-batch 8, 256 px "
+          "(-b faces_vq); max_abs_err also "
           "covers the faces serving shapes at B=16 and B=64, the VQ eval "
-          "and image-log shapes and the other VQ backward shapes of "
-          "vq-kernels (attention_core_ms: "
+          "and image-log shapes (both VQ-GANs) and the other VQ backward "
+          "shapes of vq-kernels (attention_core_ms: "
           "attention_core or attention_core_bwd at the flash kernels' shapes; "
           "chain_ms: nn.Linear x3 + attention_core + nn.Linear at "
           "fused_attention's shapes, whose SDPA form is its library_ms; the "
@@ -1534,7 +1602,10 @@ def main(argv=None) -> int:
           f"{HARNESS_STEPS} steps with its image logs, the VQ-GAN run's "
           f"{VQ_STEPS} steps, {len(VQ_LOG_STEPS)} image logs and "
           f"{VQ_VAL_BATCHES} test batches, the MCL run's {MCL_STEPS} steps "
-          "with its latent encode and swap visualization, the "
+          "with its latent encode and swap visualization, the faces VQ-GAN "
+          f"run's {FACES_VQ_MICRO_STEPS} micro-steps, "
+          f"{len(FACES_VQ_LOG_STEPS)} image logs and {FACES_VQ_VAL_BATCHES} "
+          "test batches, the "
           f"{4 * FACES_UPDATES} faces micro-steps, the faces swap request and "
           "the faces FID sampling; mcl_step: one MCL fine-tune step at "
           "B=128 (-b flagship_mcl, infonce_mechgrad), whose second order "
@@ -1544,6 +1615,9 @@ def main(argv=None) -> int:
                                                      "bound_ms", "library_ms"))
           + f", bound by {vjp['bound_by']} at the fp32 peak, "
           f"{len(per_mcl_step['attention_core_bwd_vjp'])} call a step)",
+          flush=True)
+    print("# faces_vq: the faces VQ-GAN run (-b faces_vq) on "
+          f"{smi}: " + ", ".join(f"{k} {v:.6g}" for k, v in fvq.items()),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -1560,7 +1634,8 @@ def print_profile(name, t0, what, prof):
         return
     wall_ms, busy_ms, top = prof
     phase(name, t0, f"{what} under torch.profiler: wall {wall_ms:.3f} ms, "
-          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %), "
+          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %; "
+          f"the kernels' durations sum to {sum(r[1] for r in top):.3f} ms), "
           f"{sum(r[2] for r in top):.0f} kernel launches")
     for i, (kname, ms, n) in enumerate(top):
         if i < 12 or any(k in kname for k in PROFILE_ALWAYS):
@@ -2086,14 +2161,17 @@ def harness_phases(smi, card, seen, out):
 
 
 def vq_model(config, seed: int):
-    """The VQ-GAN of ``config`` (``-b flagship_vq``) on the card with the
-    harness's seeded fresh init, and a fresh train state at its LR."""
+    """The VQ-GAN of ``config`` (``-b flagship_vq`` or ``-b faces_vq``) on
+    the card with the harness's seeded fresh init, and a fresh train state
+    at its LR and accumulation."""
     params = config["model"]["params"]
     model = harness.VQModel(**params).cuda()
     model.init_parameters(torch.Generator("cuda").manual_seed(seed))
     bs = config["data"]["params"]["batch_size"]
-    lr = bs * config["model"]["base_learning_rate"]
-    return model, vq_trainer.create_vq_train_state(model, lr)
+    accumulate = config["lightning"]["trainer"].get(
+        "accumulate_grad_batches", 1)
+    lr = accumulate * bs * config["model"]["base_learning_rate"]
+    return model, vq_trainer.create_vq_train_state(model, lr, accumulate)
 
 
 def vq_snapshot(model):
@@ -2128,26 +2206,33 @@ def forced_quantize(quantizer, z, indices):
     return z + (z_q - z).detach(), loss, (None, None, indices)
 
 
-def vq_reference(t0, model, state, batch):
+def vq_reference(t0, model, state, batch, name="vq-reference",
+                 adaptive_upstream=False, log_atol=0.0):
     """One generator pass (with the adaptive weight) and one discriminator
     pass on ``batch`` at the run's starting weights, on the plain path and
     on the kernel path: the code indices, every logged value and the
-    discriminator's loss to LOSS_RTOL, every generator gradient leaf to
-    GRAD_RTOL relative L2 but VQ_EXACT_ZERO's (within GRAD_ZERO of the
-    global norm on both paths), on each of REFERENCE_REPEATS kernel-path
-    runs. Those runs start their backward at the decoder's output from the
-    plain path's gradient there (the L1 term's sign flips where |x - x_rec|
-    is within the two paths' rounding), and, where a near-tie of the VQ
-    argmin gave a code another index, quantize with the plain path's
+    discriminator's loss to LOSS_RTOL (plus ``log_atol``), every generator
+    gradient leaf to GRAD_RTOL relative L2 but VQ_EXACT_ZERO's (within
+    GRAD_ZERO of the global norm on both paths), on each of
+    REFERENCE_REPEATS kernel-path runs. Those runs start their backward at
+    the decoder's output from the plain path's gradient there (the L1
+    term's sign flips where |x - x_rec| is within the two paths' rounding),
+    with ``adaptive_upstream`` the adaptive weight's two gradients too (the
+    L1's and the PatchGAN's LeakyReLU kinks, both after the decoder's
+    output, each take the plain path's side), and, where a near-tie of the
+    VQ argmin gave a code another index, quantize with the plain path's
     indices; one more kernel-path run on its own indices and upstream
-    gradient is printed, not held."""
+    gradients is printed, not held. So are two witnesses of what the
+    reconstruction's difference does on its own, each the plain path once
+    more with no kernel: its reconstruction moved by the kernel path's own
+    differences from it, as they are and shuffled over the pixels."""
     loss_obj = model.loss
     x = vq_trainer.as_images(batch)
     gen = model.generator_parameters()
     disc0 = {k: v.clone() for k, v in loss_obj.discriminator.state_dict().items()}
 
-    def run(upstream=None, indices=None):
-        seen, handles = {}, []
+    def run(upstream=None, indices=None, shift=None):
+        handles = []
         if indices is not None:
             handles.append(model.quantize.register_forward_hook(
                 lambda m, args, out: forced_quantize(m, args[0], indices)))
@@ -2156,24 +2241,42 @@ def vq_reference(t0, model, state, batch):
         finally:
             for h in handles:
                 h.remove()
+        out = xrec.detach()
+        if shift is not None:
+            xrec = xrec + shift
+
+        # the gradients at the decoder's output, in order: with
+        # adaptive_upstream the nll's and the GAN term's of the adaptive
+        # weight, then the step's own
+        seen = []
 
         def grad_hook(g):
-            seen["upstream"] = g.detach().clone()
-            return upstream
+            seen.append(g.detach().clone())
+            return None if upstream is None else upstream[len(seen) - 1]
+        if adaptive_upstream:
+            xrec.register_hook(grad_hook)
         g_total, log = loss_obj.generator_loss(
             qloss, x, xrec, state.step, last_layer=model.get_last_layer(),
             predicted_indices=ind)
-        # after the adaptive weight's two gradients: only the step's own
-        # backward starts from ``upstream``
-        xrec.register_hook(grad_hook)
+        if not adaptive_upstream:
+            # after the adaptive weight's two gradients: only the step's
+            # own backward starts from ``upstream``
+            xrec.register_hook(grad_hook)
         grads = dict(zip(gen, torch.autograd.grad(g_total, list(gen.values()))))
         d_total, d_log = loss_obj.discriminator_loss(x, xrec, state.step)
         loss_obj.discriminator.load_state_dict(disc0)
-        return ({**log, **d_log}, grads, ind, seen["upstream"])
+        return ({**log, **d_log}, grads, ind, seen, out)
 
     with plain_path():
-        log_p, grads_p, ind_p, up_p = run()
+        log_p, grads_p, ind_p, up_p, xrec_p = run()
     own = run()
+    diff = own[4] - xrec_p
+    shuffle = torch.randperm(diff.numel(), device=diff.device,
+                             generator=torch.Generator(diff.device)
+                             .manual_seed(VQ_SEED))
+    with plain_path():
+        witnesses = [run(shift=d) for d in (
+            diff, diff.flatten()[shuffle].view_as(diff))]
     flips = (own[2] != ind_p).sum().item()
     forced = ind_p if flips else None
     runs = [run(up_p, forced) for _ in range(REFERENCE_REPEATS)]
@@ -2188,9 +2291,10 @@ def vq_reference(t0, model, state, batch):
                 for k, g in grads.items() if k not in zero}
 
     faults, got = [], []
-    for log_k, grads_k, _, _ in runs:
+    for log_k, grads_k, *_ in runs:
         for k, v in log_p.items():
-            if abs(log_k[k].item() - v.item()) > LOSS_RTOL * abs(v.item()):
+            if abs(log_k[k].item() - v.item()) > (LOSS_RTOL * abs(v.item())
+                                                  + log_atol):
                 faults.append(f"{k} kernel {log_k[k].item()} vs plain "
                               f"{v.item()}")
         rel = relative(grads_k)
@@ -2203,7 +2307,15 @@ def vq_reference(t0, model, state, batch):
         worst = max((r, k) for k, r in rel.items())
         got.append(f"{worst[0]:.3e} ({worst[1]})")
     worst_own = max((r, k) for k, r in relative(own[1]).items())
-    own_signs = (own[3].sign() != up_p.sign()).sum().item()
+    own_signs = (own[3][-1].sign() != up_p[-1].sign()).sum().item()
+    witness_signs = " / ".join(
+        str((w[3][-1].sign() != up_p[-1].sign()).sum().item())
+        for w in witnesses)
+    shifts = "; ".join(
+        f"{k.split('/')[-1]} " + " / ".join(
+            f"{abs(r[0][k].item() - log_p[k].item()):.3e}"
+            for r in (own, *witnesses))
+        for k in ("train/d_weight", "train/total_loss", "train/g_loss"))
     kernel_losses = ", ".join(f"{r[0]['train/total_loss'].item():.7f}"
                               for r in runs)
     reading = (f"plain generator loss {log_p['train/total_loss'].item():.7f}, "
@@ -2215,11 +2327,22 @@ def vq_reference(t0, model, state, batch):
                + f"; worst gradient leaf {'; '.join(got)}; on its own "
                f"indices and upstream gradient ({own_signs} signs differ at "
                f"the decoder's output) the kernel path's worst leaf "
-               f"{worst_own[0]:.3e} ({worst_own[1]})")
+               f"{worst_own[0]:.3e} ({worst_own[1]}) and adaptive weight "
+               f"{own[0]['train/d_weight'].item():.7f} (plain "
+               f"{log_p['train/d_weight'].item():.7f}); the plain path on "
+               f"the kernel path's reconstruction / on its differences "
+               f"shuffled (max {diff.abs().max().item():.3e}, relative L2 "
+               f"{(diff.norm() / xrec_p.norm()).item():.3e}): "
+               f"{witness_signs} signs differ, and the logs move (the "
+               f"kernel path on its own / the two witnesses) {shifts}")
     if faults:
-        raise RuntimeError("vq-reference: " + reading + "; " + "; ".join(faults))
-    phase("vq-reference", t0, f"B={len(batch)} at the run's starting weights: "
-          f"every logged value within {LOSS_RTOL}, "
+        raise RuntimeError(f"{name}: " + reading + "; " + "; ".join(faults))
+    phase(name, t0, f"B={len(batch)} at the run's starting weights: "
+          f"every logged value within {LOSS_RTOL}"
+          + (f" + {log_atol} absolute" if log_atol else "")
+          + ", the backward from the plain path's gradients at the "
+          "decoder's output" + (" (the adaptive weight's too)"
+                                if adaptive_upstream else "") + ", "
           f"{len(grads_p) - len(zero)} of {len(grads_p)} generator gradient "
           f"leaves within relative L2 {GRAD_RTOL} on each of "
           f"{REFERENCE_REPEATS} kernel-path runs; the {len(zero)} leaves "
@@ -2228,17 +2351,26 @@ def vq_reference(t0, model, state, batch):
 
 
 @contextlib.contextmanager
-def timed_vq_steps(times):
+def watched_micro_steps(moved, times, start):
     """While on, each VQ-GAN train step appends its own device-synchronised
-    seconds to ``times``."""
+    seconds to ``times`` and to ``moved`` (the step after it, the number of
+    generator and discriminator parameters it changed); the first one puts
+    the model's starting leaves (``vq_snapshot``) into ``start``."""
     step_fn = vq_trainer.train_step
 
-    def train_step(*args, **kwargs):
+    def train_step(model, state, batch):
+        params = lambda: [*model.generator_parameters().values(),
+                          *model.loss.discriminator.parameters()]
+        if not start:
+            start.extend(vq_snapshot(model))
+        before = [p.detach().clone() for p in params()]
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = step_fn(*args, **kwargs)
+        out = step_fn(model, state, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
+        moved.append((state.step, sum(not torch.equal(p, b)
+                                      for p, b in zip(params(), before))))
         return out
 
     vq_trainer.train_step = train_step
@@ -2305,7 +2437,7 @@ def vq_phases(smi, card, seen, out):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with timed_vq_steps(times):
+    with watched_micro_steps([], times, []):
         trainer = main_val.main([
             "-b", "flagship_vq", "-t", "--max_steps", str(VQ_STEPS),
             "--val_batches", str(VQ_VAL_BATCHES), "-l", logroot,
@@ -2393,6 +2525,212 @@ def vq_phases(smi, card, seen, out):
     del trainer, model, state
     torch.cuda.empty_cache()
     return step_rows, other_rows, launches, per_step
+
+
+def faces_vq_phases(smi, card, seen, out):
+    """faces-vq-shapes, faces-vq-kernels, faces-vq-train,
+    faces-vq-reference and faces-vq-profile: the faces VQ-GAN behind
+    ``main_val -b faces_vq`` (256 px, micro-batch 8, 4-way accumulation) on
+    the full face grid, rendered here (its colour blocks on the card) and
+    uploaded by the harness. Returns the checked rows of one micro-step's
+    kernel calls, the other checked rows (eval, image log), the launches of
+    the run, the calls of one micro-step by kernel, and the run's numbers
+    (render seconds, micro-step and update ms, peak memory, device-busy
+    share)."""
+    # ---- faces-vq-shapes: the grid, one micro-step, one eval batch and one
+    # image log
+    t0 = time.perf_counter()
+    config = harness.load_configs(["faces_vq"], [])
+    bs = config["data"]["params"]["batch_size"]
+    accumulate = config["lightning"]["trainer"]["accumulate_grad_batches"]
+    data = harness.instantiate_from_config(config["data"]).setup(device="cuda")
+    train_ds = data.dataset("train")
+    host = train_ds.images
+    render_s = train_ds.render_s
+    # the card's colour blocks against numpy's: the grid's first block
+    # (every geometry, the first background, skin and hair colour)
+    first_block = synthetic_faces.render_faces(
+        host.shape[1], [1, 1, 1, *train_ds.factor_sizes[3:]])
+    if not np.array_equal(first_block, host[:len(first_block)]):
+        raise RuntimeError("faces-vq-shapes: the card's render differs from "
+                           "numpy's on the grid's first block")
+    t_up = time.perf_counter()
+    images = harness.device_images(host, "cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t_up
+    model, state = vq_model(config, VQ_SEED)
+    order = torch.from_numpy(harness.epoch_order(
+        VQ_SEED, 0, len(host), bs, len(host))).cuda()
+    first = images[order[:bs]]
+    per_step = record_vq_calls(
+        model, lambda: vq_trainer.train_step(model, state, first))
+    per_eval = record_vq_calls(
+        model, lambda: vq_trainer.eval_step(model, state, images[:bs]))
+    logx = vq_trainer.as_images(images[:8])
+    with torch.no_grad():
+        per_log = record_vq_calls(model, lambda: model.reconstruct(logx))
+    # the encoder's and the decoder's mid block: one head of C channels over
+    # the latents (4,096 of 128 channels at 256 px)
+    dd = config["model"]["params"]["ddconfig"]
+    side = dd["resolution"] // 2 ** (len(dd["ch_mult"]) - 1)
+    flash = {k: v for k, v in per_step.items() if k in FLASH}
+    want_flash = {k: [(bs, 1, side * side, dd["ch"] * dd["ch_mult"][-1])] * 2
+                  for k in FLASH}
+    if flash != want_flash:
+        raise RuntimeError(f"faces-vq-shapes: flash calls of a micro-step "
+                           f"{flash}, expected {want_flash}")
+    phase("faces-vq-shapes", t0, f"the {len(host)}-image face grid rendered "
+          f"in {render_s:.3f}s (masks on the host, colour blocks on the "
+          f"card; its first block byte-identical to numpy's), uploaded in "
+          f"{upload_s:.3f}s ({host.nbytes / 2**20:.1f} MiB); micro-batch "
+          f"{bs}: per micro-step "
+          f"{ {k: len(v) for k, v in per_step.items()} }, per eval batch "
+          f"{ {k: len(v) for k, v in per_eval.items()} }, per image log of 8 "
+          f"{ {k: len(v) for k, v in per_log.items()} }")
+
+    # ---- faces-vq-kernels: every kernel at every shape of the faces VQ path
+    t0 = time.perf_counter()
+    kgen = torch.Generator("cuda").manual_seed(SEED + 8)
+    step_rows = {name: check_rows(name, per_step[name], kgen, card, seen)
+                 for name in KERNELS if per_step.get(name)}
+    seen = {**seen, **seen_rows(step_rows)}
+    other = {name: [s for part in (per_eval, per_log)
+                    for s in part.get(name, ())] for name in KERNELS}
+    other_rows = {name: check_rows(name, shapes, kgen, card, seen)
+                  for name, shapes in other.items() if shapes}
+    print_yardstick("faces-vq-kernels", step_rows)
+    print_yardstick("faces-vq-kernels (eval, image log)", other_rows)
+    phase("faces-vq-kernels", t0, "each kernel matches its plain version at "
+          "every shape of the faces VQ-GAN micro-step, eval and image log "
+          f"(tol {KERNEL_TOL})")
+    del model, state
+
+    # ---- faces-vq-train: main_val -b faces_vq, counters read around it
+    t0 = time.perf_counter()
+    logroot = os.path.join(out, "faces_vq")
+    times, moved, start = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with watched_micro_steps(moved, times, start):
+        trainer = main_val.main(
+            ["-b", "faces_vq", "-t", "--max_steps", str(FACES_VQ_MICRO_STEPS),
+             "--val_batches", str(FACES_VQ_VAL_BATCHES), "-l", logroot,
+             "--seed", str(VQ_SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches, plain_calls = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    model, state = trainer.model, trainer.state
+    faults = []
+    want = {k: FACES_VQ_MICRO_STEPS * len(per_step.get(k, ()))
+            + len(FACES_VQ_LOG_STEPS) * len(per_log.get(k, ()))
+            + FACES_VQ_VAL_BATCHES * len(per_eval.get(k, ())) for k in KERNELS}
+    if launches != want or any(plain_calls.values()):
+        faults.append(f"launches {launches}, expected {want} "
+                      f"({FACES_VQ_MICRO_STEPS} micro-steps, "
+                      f"{len(FACES_VQ_LOG_STEPS)} image logs, "
+                      f"{FACES_VQ_VAL_BATCHES} eval batches); plain calls "
+                      f"{plain_calls}")
+    updates = FACES_VQ_MICRO_STEPS // accumulate
+    counts = (vq_trainer.optimizer_count(state.gen_opt),
+              vq_trainer.optimizer_count(state.disc_opt))
+    if counts != (updates, updates) or state.step != FACES_VQ_MICRO_STEPS:
+        faults.append(f"Adam counts {counts}, step {state.step}")
+    n_params = (len(model.generator_parameters())
+                + len(list(model.loss.discriminator.parameters())))
+    off = [(s, n) for s, n in moved
+           if (n != 0) != (s % accumulate == 0)]
+    if len(moved) != FACES_VQ_MICRO_STEPS or off:
+        faults.append(f"parameters moved on other micro-steps than every "
+                      f"{accumulate}th: (step, leaves moved) {moved}")
+    start_gen, start_disc = start
+    end_gen, end_disc = vq_snapshot(model)
+    still = ([k for k, v in end_gen.items() if torch.equal(v, start_gen[k])]
+             + [k for k, v in end_disc.items()
+                if torch.equal(v, start_disc[k])
+                and not k.endswith("num_batches_tracked")])
+    if still:
+        faults.append(f"{len(still)} leaves unchanged: {still[:8]}")
+    ckdir = os.path.join(trainer.logdir, "checkpoints")
+    compact = os.path.join(ckdir, "compact_last.npz")
+    results_path = os.path.join(trainer.logdir, "test_results.json")
+    for path in (compact, results_path,
+                 os.path.join(ckdir, "last", STATE_FILE),
+                 *(os.path.join(trainer.logdir, "images", "train",
+                                f"{k}_gs-{s:06}.npy")
+                   for s in FACES_VQ_LOG_STEPS
+                   for k in ("inputs", "reconstructions"))):
+        if not os.path.exists(path):
+            faults.append(f"no {path}")
+    n_keys = 0
+    if os.path.exists(compact):
+        with np.load(compact) as f:
+            bad = [k for k in f.files if not np.isfinite(
+                f[k].astype(np.float64)).all()]
+            n_keys = len(f.files)
+        if bad:
+            faults.append(f"non-finite values in {compact}: {bad[:8]}")
+    test_results = {}
+    if os.path.exists(results_path):
+        with open(results_path) as f:
+            test_results = json.load(f)
+        if not test_results or not all(np.isfinite(v)
+                                       for v in test_results.values()):
+            faults.append(f"test_results.json {test_results}")
+    if faults:
+        raise RuntimeError("faces-vq-train: " + "; ".join(faults))
+    # micro-steps after the first update; an update's ms: its 4 micro-steps
+    steady = times[accumulate:]
+    micro_ms = sorted(steady)[len(steady) // 2] * 1e3
+    update_ms = sorted(sum(times[i:i + accumulate]) for i in range(
+        accumulate, len(times), accumulate))
+    update_ms = update_ms[len(update_ms) // 2] * 1e3
+    numbers = dict(render_s=render_s, upload_s=upload_s, micro_ms=micro_ms,
+                   update_ms=update_ms, peak_mib=peak / 2**20,
+                   first_micro_ms=times[0] * 1e3)
+    phase("faces-vq-train", t0, f"main_val -b faces_vq -t --max_steps "
+          f"{FACES_VQ_MICRO_STEPS} --val_batches {FACES_VQ_VAL_BATCHES} from "
+          f"the seeded fresh init (seed {VQ_SEED}), micro-batch {bs} x "
+          f"accumulation {accumulate} on the {len(host)}-image grid "
+          f"(rendered in {render_s:.3f}s): {micro_ms:.3f} ms per micro-step "
+          f"(median of micro-steps {accumulate + 1}-{FACES_VQ_MICRO_STEPS}; "
+          f"first {times[0] * 1e3:.1f} ms), {update_ms:.3f} ms per update "
+          f"(median of updates 2-{updates}), {bs * accumulate * 1e3 / update_ms:.1f} "
+          f"images/s, peak memory {peak / 2**20:.1f} MiB (the grid's "
+          f"{host.nbytes / 2**20:.1f} MiB included); launches {launches} "
+          f"(expected), plain calls {plain_calls}; Adam counts {counts}; "
+          f"parameters moved on micro-steps "
+          f"{[s for s, n in moved if n]} only ({n_params} leaves each); every "
+          f"generator and discriminator leaf moved; compact_last.npz "
+          f"({n_keys} keys) and test_results.json finite: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in sorted(test_results.items()))
+          + f" | {smi}")
+
+    # ---- faces-vq-reference: kernel path vs plain path at the start
+    t0 = time.perf_counter()
+    ref_model, ref_state = vq_model(config, VQ_SEED)
+    vq_reference(t0, ref_model, ref_state, first, name="faces-vq-reference",
+                 adaptive_upstream=True, log_atol=FACES_VQ_LOG_ATOL)
+    del ref_model, ref_state
+
+    # ---- faces-vq-profile: one update's device time (not pass/fail)
+    t0 = time.perf_counter()
+    batches = [images[order[(i + 1) * bs:(i + 2) * bs]]
+               for i in range(accumulate)]
+
+    def update():
+        for b in batches:
+            vq_trainer.train_step(model, state, b)
+    prof = profile(update, calls=1)
+    print_profile("faces-vq-profile", t0, f"one faces VQ-GAN update "
+                  f"({accumulate} micro-steps of {bs})", prof)
+    if prof is not None:
+        numbers.update(profile_wall_ms=prof[0], busy_ms=prof[1],
+                       busy=prof[1] / prof[0])
+    del trainer, model, state, images
+    harness.clear_device_cache()
+    torch.cuda.empty_cache()
+    return step_rows, other_rows, launches, per_step, numbers
 
 
 def mcl_trainer(config, lightning, out):

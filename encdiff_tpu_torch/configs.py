@@ -26,6 +26,14 @@ discriminator and the adaptive GAN weight, B = 128 on the full v4 grid, the
 image logger every 2,000 steps with its power-of-2 warm-up, 2 epochs.
 ``tests/test_torch_vq_harness.py`` holds it equal to the YAML.
 
+``FACES_VQ_RUN`` is the whole ``configs/demo/synthetic-faces-vq.yaml``
+(``-b faces_vq``): the faces configuration's VQ-GAN first stage, the
+flagship VQ's layout at 256 px (64x64x3 latents, so that the encoder's and
+the decoder's mid blocks attend over 4,096 latents with one head of 128),
+micro-batch 8 with 4-way accumulation on the full 34,560-image face grid,
+the image logger every 2,000 steps with its warm-up, 2 epochs.
+``tests/test_torch_faces_vq_harness.py`` holds it equal to the YAML.
+
 ``FLAGSHIP_MCL_RUN`` (``-b flagship_mcl``) is the MCL fine-tune of the
 flagship as ``scripts/run_mcl_sweep.py`` runs each cell: ``FLAGSHIP_RUN``
 (the v4 model and the full v4 grid, which the committed
@@ -254,6 +262,34 @@ FLAGSHIP_VQ_RUN = {
             },
         },
         "trainer": {"benchmark": True, "accumulate_grad_batches": 1,
+                    "max_epochs": 2},
+    },
+}
+
+
+FACES_VQ_RUN = {
+    "model": {
+        **FLAGSHIP_VQ_RUN["model"],
+        "params": {
+            **FLAGSHIP_VQ_RUN["model"]["params"],
+            "ddconfig": dict(FACES["first_stage_config"]["ddconfig"]),
+        },
+    },
+    "data": {
+        "target": "encdiff_tpu_torch.train.data.DataModuleFromConfig",
+        "params": {
+            "batch_size": 8,
+            "num_workers": 8,
+            "wrap": True,
+            "train": {"target": "encdiff_tpu_torch.data.synthetic_faces."
+                                "SyntheticFacesTrain"},
+            "validation": {"target": "encdiff_tpu_torch.data.synthetic_faces."
+                                     "SyntheticFacesTrain"},
+        },
+    },
+    "lightning": {
+        "callbacks": FLAGSHIP_VQ_RUN["lightning"]["callbacks"],
+        "trainer": {"benchmark": True, "accumulate_grad_batches": 4,
                     "max_epochs": 2},
     },
 }

@@ -6,7 +6,8 @@
 // and dk/dv call (_dkv_kernel). The JAX package routes self-attention there
 // when N == M >= 1024 and N % 512 == 0: the UNet's 64x64 and 32x32 levels
 // (dh 8 and 16) and the VQ encoder's mid AttnBlock (dh 128, forward only) of
-// the faces configuration.
+// the faces configuration, whose VQ-GAN first stage trains it (dh 128,
+// both directions).
 //
 // The arithmetic is the TPU kernels': the scale is folded into q, so the
 // logsumexp lse = m + log(l) is in units of the scaled scores, and
@@ -49,8 +50,11 @@
 //   error of an fp32 sum over dh, where one tf32 pass (2^-11) would miss the
 //   1e-4 gate at dh 128 with logits of order 10. Each term runs over four
 //   accumulators before the next (four key groups of S; key and output
-//   groups of O, with 4 or 2 partial sums of O at dh 8 and 16), so that
-//   four mma chains overlap instead of one waiting on the last.
+//   groups of O), so that four mma chains overlap instead of one waiting on
+//   the last. Every sum starts from zero a tile: a score at most 4 k-steps
+//   at a time, and each tile's P v per group of output columns, then added
+//   in fp32 to the running sum: a running sum fed by every mma over 4,096
+//   keys drifted by about 1e-4 of its size (the truncation of add_tile).
 // - Layouts: the sum over dh runs in a permuted order, chosen so that a
 //   lane's B values of a k-step (of two k-steps at dh >= 16) are neighbours
 //   in a K row: one 8- or 16-byte shared read; q is read in the same order.
@@ -110,6 +114,24 @@
 //   the exponential amplifies their error.
 // - q, k, v and dO rows must start on 16 bytes (the wrapper checks); rows
 //   past N store nothing.
+// - At dh 128 (the VQ's mid blocks: one head of 128 over 4,096 latents) the
+//   registers cannot hold the rows a warp owns as split A operands (256 a
+//   thread an m16 tile), nor a warp's 16 x 128 output sums beside their
+//   per-tile partial sums (dk and dv: 128 registers each). So one kernel
+//   template (flash_bwd128_kernel) takes both directions with another
+//   plan: a block of 8 warps owns 64 fixed rows (queries for dq, keys for
+//   dk/dv), held raw in shared memory (the first tensor times scale log2 e);
+//   the other two tensors stream through a 3-stage cp.async ring of 32 rows
+//   at pitch 132 (4 mod 32: every fragment read, along a row or down a
+//   column, is free of bank conflicts), and every operand is split where it
+//   is read. The warps pair up on 16 fixed rows: one computes S - lse, the
+//   other dP - delta (each 12 mma a chunk of 4 k-steps, summed from zero and
+//   added, since a sum over all of dh near -lse would drift), they swap them
+//   through shared memory, and each forms P and dS and takes half of the
+//   output columns (dq += dS k; dk += dS^T q and dv += P^T dO), summing each
+//   tile into fresh registers as above. That keeps 32 (dq) or 64 (dk/dv)
+//   output registers a thread, and no product is computed twice. 186 KB of
+//   shared memory: one block of 8 warps an SM.
 // - Bound on the H100: the tensor cores, three tf32 passes of 3 (dq) or 4
 //   (dk/dv) products of 2 N^2 dh flops per (batch, head) at 495 TFLOP/s; the
 //   N^2 exponentials at 16 per SM and clock come second (dq at dh 8: 0.31
@@ -125,6 +147,7 @@
 
 #include <mutex>
 
+#include "launch.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -155,10 +178,17 @@ struct Fwd {
   static constexpr int kStage = kKeys * (kLdk + kLdv);    // floats per stage
   static constexpr int kSmem = (kQFloats + kFwdStages * kStage) * 4;  // bytes
   // P v runs over kJG key groups x kDG output groups at a time: four
-  // independent accumulators, so that the mma chains overlap (at dh 8 and 16
-  // the key groups go to kJG partial sums of o)
+  // independent accumulators, so that the mma chains overlap
   static constexpr int kJG = DH == 8 ? 4 : DH == 16 ? 2 : 1;
   static constexpr int kDG = 4 / kJG;
+  // Every sum starts from zero a tile: a score sums at most 4 k-steps (12
+  // mma), and each output group a tile's P v over its kJG key groups; both
+  // are then added in fp32 (the tensor cores truncate each mma's sum: a
+  // running sum fed by 1,536 mma over 4,096 keys drifts by about 1e-4 of
+  // its size, see add_tile). At dh 8 and 16 a score is one chunk, summed
+  // into s itself, and o's rescaling by the softmax's correction is the
+  // same FMA that adds a tile
+  static constexpr int kScoreChunks = kChunks < 2 ? kChunks : 2;  // fragment reads
 };
 
 template <int VEC>
@@ -236,13 +266,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
               qhi[p], qlo[p]);
   }
 
-  float oacc[JG][DT][4];
+  float oacc[DT][4];
 #pragma unroll
-  for (int a = 0; a < JG; ++a)
+  for (int d = 0; d < DT; ++d)
 #pragma unroll
-    for (int d = 0; d < DT; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[a][d][e] = 0.f;
+    for (int e = 0; e < 4; ++e) oacc[d][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
 
@@ -279,53 +307,71 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // S = q k^T: rows g, g + 8; keys 8 j + 2t, 8 j + 2t + 1 of the tile.
     // Four key groups at a time, each product term over the four before the
     // next term, so that four accumulator chains overlap.
+    constexpr int SCH = F::kScoreChunks;
     float s[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      uint32_t ahi[KS][4], alo[KS][4];
-      if constexpr (F::kQShared) {
-        const float* qr = qs + (warp * 16 + g) * LDQ + c * 4 * VEC + VEC * t;
-        float x0[VEC], x1[VEC];
-        load_vec<VEC>(qr, x0);
-        load_vec<VEC>(qr + 8 * LDQ, x1);
+    for (int c0 = 0; c0 < NCH; c0 += SCH) {
+      float sc[NT][4];
+      float (&acc)[NT][4] = c0 == 0 ? s : sc;  // the first chunk sums into s
+      if (c0 > 0) {
 #pragma unroll
-        for (int p = 0; p < KS; ++p)
-          split_a(x0[2 * p], x1[2 * p], x0[2 * p + 1], x1[2 * p + 1], ahi[p], alo[p]);
-      } else {
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int p = 0; p < KS; ++p)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            ahi[p][e] = qhi[p][e];
-            alo[p][e] = qlo[p][e];
-          }
+          for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
       }
 #pragma unroll
-      for (int j0 = 0; j0 < NT; j0 += 4) {
-        uint32_t bhi[4][VEC], blo[4][VEC];
+      for (int c = c0; c < c0 + SCH; ++c) {
+        uint32_t ahi[KS][4], alo[KS][4];
+        if constexpr (F::kQShared) {
+          const float* qr = qs + (warp * 16 + g) * LDQ + c * 4 * VEC + VEC * t;
+          float x0[VEC], x1[VEC];
+          load_vec<VEC>(qr, x0);
+          load_vec<VEC>(qr + 8 * LDQ, x1);
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          float kv[VEC];
-          load_vec<VEC>(ks + ((j0 + jj) * 8 + g) * LDK + c * 4 * VEC + VEC * t, kv);
+          for (int p = 0; p < KS; ++p)
+            split_a(x0[2 * p], x1[2 * p], x0[2 * p + 1], x1[2 * p + 1], ahi[p], alo[p]);
+        } else {
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) split(kv[i], bhi[jj][i], blo[jj][i]);
+          for (int p = 0; p < KS; ++p)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              ahi[p][e] = qhi[p][e];
+              alo[p][e] = qlo[p][e];
+            }
         }
 #pragma unroll
-        for (int p = 0; p < KS; ++p) {
+        for (int j0 = 0; j0 < NT; j0 += 4) {
+          uint32_t bhi[4][VEC], blo[4][VEC];
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-            mma_tf32(s[j0 + jj], alo[p], bhi[jj][2 * p], bhi[jj][2 * p + 1]);
+          for (int jj = 0; jj < 4; ++jj) {
+            float kv[VEC];
+            load_vec<VEC>(ks + ((j0 + jj) * 8 + g) * LDK + c * 4 * VEC + VEC * t, kv);
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-            mma_tf32(s[j0 + jj], ahi[p], blo[jj][2 * p], blo[jj][2 * p + 1]);
+            for (int i = 0; i < VEC; ++i) split(kv[i], bhi[jj][i], blo[jj][i]);
+          }
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-            mma_tf32(s[j0 + jj], ahi[p], bhi[jj][2 * p], bhi[jj][2 * p + 1]);
+          for (int p = 0; p < KS; ++p) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              mma_tf32(acc[j0 + jj], alo[p], bhi[jj][2 * p], bhi[jj][2 * p + 1]);
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              mma_tf32(acc[j0 + jj], ahi[p], blo[jj][2 * p], blo[jj][2 * p + 1]);
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              mma_tf32(acc[j0 + jj], ahi[p], bhi[jj][2 * p], bhi[jj][2 * p + 1]);
+          }
         }
+      }
+      if (c0 > 0) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] += sc[j][e];
       }
     }
     const int key0 = tile * KT;
@@ -354,15 +400,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l[r] *= corr[r];
     }
 #pragma unroll
-    for (int a = 0; a < JG; ++a)
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        oacc[a][d][0] *= corr[0];
-        oacc[a][d][1] *= corr[0];
-        oacc[a][d][2] *= corr[1];
-        oacc[a][d][3] *= corr[1];
-      }
-#pragma unroll
     for (int j = 0; j < NT; ++j) {
       s[j][0] = exp2_sfu(s[j][0] - m[0]);
       s[j][1] = exp2_sfu(s[j][1] - m[0]);
@@ -374,16 +411,25 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // O += P v: the 8 keys of group j are one k-step, key 2t in slot t and
     // key 2t + 1 in slot t + 4, so V's rows are read in that order: row
-    // 2t for slot t and row 2t + 1 for slot t + 4
+    // 2t for slot t and row 2t + 1 for slot t + 4. Every key group's P is
+    // split first; then each DG output groups sum the tile from zero over
+    // JG key groups at a time (JG x DG chains), and o's running sum takes
+    // them as o corr + the tile's sum
+    uint32_t phi[NT][4], plo[NT][4];
 #pragma unroll
-    for (int j0 = 0; j0 < NT; j0 += JG) {
-      uint32_t phi[JG][4], plo[JG][4];
+    for (int j = 0; j < NT; ++j)
+      split_a(s[j][0], s[j][2], s[j][1], s[j][3], phi[j], plo[j]);
+#pragma unroll
+    for (int d0 = 0; d0 < DT; d0 += DG) {
+      float f[JG][DG][4];
 #pragma unroll
       for (int jj = 0; jj < JG; ++jj)
-        split_a(s[j0 + jj][0], s[j0 + jj][2], s[j0 + jj][1], s[j0 + jj][3],
-                phi[jj], plo[jj]);
 #pragma unroll
-      for (int d0 = 0; d0 < DT; d0 += DG) {
+        for (int dd = 0; dd < DG; ++dd)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) f[jj][dd][e] = 0.f;
+#pragma unroll
+      for (int j0 = 0; j0 < NT; j0 += JG) {
         uint32_t vhi[JG][DG][2], vlo[JG][DG][2];
 #pragma unroll
         for (int jj = 0; jj < JG; ++jj) {
@@ -398,18 +444,27 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int jj = 0; jj < JG; ++jj)
 #pragma unroll
           for (int dd = 0; dd < DG; ++dd)
-            mma_tf32(oacc[jj][d0 + dd], plo[jj], vhi[jj][dd][0], vhi[jj][dd][1]);
+            mma_tf32(f[jj][dd], plo[j0 + jj], vhi[jj][dd][0], vhi[jj][dd][1]);
 #pragma unroll
         for (int jj = 0; jj < JG; ++jj)
 #pragma unroll
           for (int dd = 0; dd < DG; ++dd)
-            mma_tf32(oacc[jj][d0 + dd], phi[jj], vlo[jj][dd][0], vlo[jj][dd][1]);
+            mma_tf32(f[jj][dd], phi[j0 + jj], vlo[jj][dd][0], vlo[jj][dd][1]);
 #pragma unroll
         for (int jj = 0; jj < JG; ++jj)
 #pragma unroll
           for (int dd = 0; dd < DG; ++dd)
-            mma_tf32(oacc[jj][d0 + dd], phi[jj], vhi[jj][dd][0], vhi[jj][dd][1]);
+            mma_tf32(f[jj][dd], phi[j0 + jj], vhi[jj][dd][0], vhi[jj][dd][1]);
       }
+#pragma unroll
+      for (int dd = 0; dd < DG; ++dd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float tile_sum = f[0][dd][e];
+#pragma unroll
+          for (int jj = 1; jj < JG; ++jj) tile_sum += f[jj][dd][e];
+          oacc[d0 + dd][e] = fmaf(oacc[d0 + dd][e], corr[e >> 1], tile_sum);
+        }
     }
   }
 
@@ -426,15 +481,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float inv = 1.f / l[r];
       float* orow = ob + (long long)row * osn + 2 * t;
 #pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        float o0 = 0.f, o1 = 0.f;
-#pragma unroll
-        for (int a = 0; a < JG; ++a) {
-          o0 += oacc[a][d][2 * r];
-          o1 += oacc[a][d][2 * r + 1];
-        }
-        *reinterpret_cast<float2*>(orow + d * 8) = make_float2(o0 * inv, o1 * inv);
-      }
+      for (int d = 0; d < DT; ++d)
+        *reinterpret_cast<float2*>(orow + d * 8) =
+            make_float2(oacc[d][2 * r] * inv, oacc[d][2 * r + 1] * inv);
       if (t == 0) lse[(long long)bh * N + row] = (m[r] + log2f(l[r])) * kLn2;
     }
   }
@@ -853,6 +902,311 @@ flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
+// ---- backward at dh 128: dq and dk/dv from one kernel template (see the
+// head of this file)
+
+// A (B, H, N, 128) tensor: its base and its batch, head and row strides.
+struct Rows {
+  const float* p;
+  int sb, sh, sn;
+};
+struct OutRows {
+  float* p;
+  int sb, sh, sn;
+};
+
+namespace b128 {
+constexpr int kDH = 128;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps / 2;  // fixed rows a block owns, 16 a warp pair
+constexpr int kTile = 32;               // streamed rows a tile
+constexpr int kStages = 3;              // tiles in the shared ring
+constexpr int kLd = kDH + 4;            // row pitch, 4 mod 32: no bank conflicts
+constexpr int kGroups = kTile / 8;      // 8-row groups of a tile
+constexpr int kChunk = 4;               // k-steps over dh a score sum takes from zero
+constexpr int kHalf = kDH / 16;         // 8-column groups of a warp's half of an output
+// floats: the fixed rows of both tensors; a ring stage (the streamed rows of
+// both tensors, then their lse and delta); a warp's scores in the
+// accumulator layout
+constexpr int kFixed = 2 * kRows * kLd;
+constexpr int kStage = 2 * kTile * kLd + 2 * kTile;
+constexpr int kSwapWarp = kGroups * 4 * 32;
+constexpr int kSmem = (kFixed + kStages * kStage + kWarps * kSwapWarp) * 4;  // bytes
+static_assert(kSmem <= 227 * 1024, "one block an SM");
+}  // namespace b128
+
+// x += (a warp's 16 fixed rows) (the tile's kTile streamed rows)^T over all
+// 128 dims: rows g, g + 8; streamed rows 8 j + 2t, 8 j + 2t + 1. Both
+// operands are split where they are read (the rounded split). The sum runs
+// over dh in chunks of kChunk k-steps, each from zero (12 mma a chunk) and
+// then added in fp32: the tensor cores truncate each mma's sum, and 48 mma
+// into one accumulator near -lse (up to 43 in log2 units at logits of 30)
+// would drift by ulps of it (see add_tile).
+__device__ __forceinline__ void bwd128_scores(float (&x)[b128::kGroups][4],
+                                              const float* fixed, const float* rows,
+                                              int g, int t) {
+  using namespace b128;
+#pragma unroll
+  for (int c0 = 0; c0 < kDH / 8; c0 += kChunk) {
+    float s[kGroups][4];
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int c = c0; c < c0 + kChunk; ++c) {
+      const float* a = fixed + g * kLd + 8 * c + t;
+      uint32_t ahi[4], alo[4];
+      split_a(a[0], a[8 * kLd], a[4], a[8 * kLd + 4], ahi, alo);
+      uint32_t bh[kGroups][2], bl[kGroups][2];
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) {
+        const float* r = rows + (8 * j + g) * kLd + 8 * c + t;
+        split(r[0], bh[j][0], bl[j][0]);
+        split(r[4], bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) mma_tf32(s[j], alo, bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) mma_tf32(s[j], ahi, bl[j][0], bl[j][1]);
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) mma_tf32(s[j], ahi, bh[j][0], bh[j][1]);
+    }
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] += s[j][e];
+  }
+}
+
+// acc += a (the tile's streamed rows) over the warp's half of the output
+// columns, [col0, col0 + 64): a (ahi, alo) is P or dS in the accumulator
+// layout, whose k-step j holds streamed row 8 j + 2t in slot t and 8 j + 2t
+// + 1 in slot t + 4, so the rows are read in that order (as the dh 8 and 16
+// kernels read their split tiles) and split here. Each 8-column group sums
+// the tile into fresh registers (12 mma), then into acc.
+__device__ __forceinline__ void bwd128_out(float (&acc)[b128::kHalf][4],
+                                           const uint32_t (&ahi)[b128::kGroups][4],
+                                           const uint32_t (&alo)[b128::kGroups][4],
+                                           const float* rows, int col0, int g, int t) {
+  using namespace b128;
+#pragma unroll
+  for (int d0 = 0; d0 < kHalf; d0 += 4) {
+    float f[4][4];
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[dd][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) {
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        const float* r = rows + (8 * j + 2 * t) * kLd + col0 + 8 * (d0 + dd) + g;
+        split(r[0], bh[dd][0], bl[dd][0]);
+        split(r[kLd], bh[dd][1], bl[dd][1]);
+      }
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) mma_tf32(f[dd], alo[j], bh[dd][0], bh[dd][1]);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) mma_tf32(f[dd], ahi[j], bl[dd][0], bl[dd][1]);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) mma_tf32(f[dd], ahi[j], bh[dd][0], bh[dd][1]);
+    }
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d0 + dd][e] += f[dd][e];
+  }
+}
+
+// The warp's half of an output's rows of the pair, times mul; rows past N
+// store nothing.
+__device__ __forceinline__ void bwd128_store(const OutRows& o, int b, int h, int row0,
+                                             int N, int col0, int g, int t,
+                                             const float (&acc)[b128::kHalf][4],
+                                             float mul) {
+  float* base = o.p + (long long)b * o.sb + (long long)h * o.sh + col0 + 2 * t;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= N) continue;
+    float* out = base + (long long)row * o.sn;
+#pragma unroll
+    for (int d = 0; d < b128::kHalf; ++d)
+      *reinterpret_cast<float2*>(out + 8 * d) =
+          make_float2(acc[d][2 * r] * mul, acc[d][2 * r + 1] * mul);
+  }
+}
+
+// dq (DKDV false): fixed rows q (times scale log2 e) and dO, streamed rows
+// k and v, out dq. dk/dv (DKDV true): fixed rows k (times scale log2 e) and
+// v, streamed rows q and dO with their lse and delta, out dk and dv.
+template <bool DKDV>
+__global__ void __launch_bounds__(b128::kThreads, 1)
+flash_bwd128_kernel(Rows fa, Rows fb, Rows sa, Rows sb, const float* __restrict__ lse,
+                    const float* __restrict__ delta, OutRows oa, OutRows ob, int H,
+                    int N, float scale) {
+  using namespace b128;
+  extern __shared__ __align__(16) float smem[];
+  float* fixed = smem;                 // [2][kRows][kLd]
+  float* ring = smem + kFixed;         // kStages stages
+  float* swap = ring + kStages * kStage;  // [kWarps][kSwapWarp]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int pair = warp >> 1, role = warp & 1;
+  const int row0 = blockIdx.y * kRows;
+  const long long stat0 = (long long)bh * N;  // this (batch, head)'s lse and delta
+  const float* sap = sa.p + (long long)b * sa.sb + (long long)h * sa.sh;
+  const float* sbp = sb.p + (long long)b * sb.sb + (long long)h * sb.sh;
+
+  // the fixed rows: A times scale log2 e (the scores in log2 units), B as
+  // it is; rows past N are zeros
+  {
+    const float* fap = fa.p + (long long)b * fa.sb + (long long)h * fa.sh;
+    const float* fbp = fb.p + (long long)b * fb.sb + (long long)h * fb.sh;
+    const float mul = scale * kLog2e;
+    constexpr int CPR = kDH / 4;
+    for (int e = threadIdx.x; e < 2 * kRows * CPR; e += kThreads) {
+      const int which = e / (kRows * CPR), r = (e / CPR) % kRows, c = 4 * (e % CPR);
+      const int row = row0 + r;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < N)
+        x = *reinterpret_cast<const float4*>(
+            which ? fbp + (long long)row * fb.sn + c : fap + (long long)row * fa.sn + c);
+      const float m = which ? 1.f : mul;
+      *reinterpret_cast<float4*>(fixed + (which * kRows + r) * kLd + c) =
+          make_float4(x.x * m, x.y * m, x.z * m, x.w * m);
+    }
+  }  // the first tile's barrier publishes them
+
+  // rows [tile kTile, + kTile) of both streamed tensors into their stage,
+  // 16 bytes a copy, rows past N zero-filled; for dk/dv those rows' lse and
+  // delta behind them, zeros past N
+  auto load = [&](int tile) {
+    constexpr int CPR = kDH / 4, COPIES = 2 * kTile * CPR;
+    static_assert(COPIES % kThreads == 0, "whole rounds");
+    float* st = ring + (tile % kStages) * kStage;
+#pragma unroll
+    for (int i = 0; i < COPIES / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int which = e / (kTile * CPR), r = (e / CPR) % kTile, c = e % CPR;
+      const int row = tile * kTile + r;
+      const bool ok = row < N;
+      const long long rr = ok ? row : 0;
+      const float* src = which ? sbp + rr * sb.sn : sap + rr * sa.sn;
+      cp_async16(st + (which * kTile + r) * kLd + 4 * c, src + 4 * c, ok);
+    }
+    if (DKDV && threadIdx.x < 2 * kTile) {
+      const int row = tile * kTile + threadIdx.x % kTile;
+      const bool ok = row < N;
+      const float* src = (threadIdx.x < kTile ? lse : delta) + stat0 + (ok ? row : 0);
+      cp_async4(st + 2 * kTile * kLd + threadIdx.x, src, ok);
+    }
+  };
+
+  // dq: where each row's scores start, for rows g and g + 8 of the pair:
+  // -lse log2 e (role 0) or -delta (role 1)
+  float bias[2] = {0.f, 0.f};
+  if (!DKDV) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 16 * pair + g + 8 * r;
+      if (row < N) bias[r] = role ? -delta[stat0 + row] : lse[stat0 + row] * -kLog2e;
+    }
+  }
+
+  // the warp's half of the output columns: dq or dk, and dv
+  float acc[kHalf][4], acc2[kHalf][4];
+#pragma unroll
+  for (int d = 0; d < kHalf; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = acc2[d][e] = 0.f;
+  const float* mine = fixed + (role * kRows + 16 * pair) * kLd;
+  float* swap_mine = swap + warp * kSwapWarp;
+  const float* swap_s = swap + (warp & ~1) * kSwapWarp;  // role 0's: S - lse
+  const float* swap_d = swap_s + kSwapWarp;              // role 1's: dP - delta
+  const int col0 = (kDH / 2) * role;
+
+  const int ntiles = (N + kTile - 1) / kTile;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ntiles) load(s);
+    cp_async_commit();
+  }
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of the tile landed
+    __syncthreads();               // everyone's; and tile - 1 and its scores are consumed
+    if (tile + kStages - 1 < ntiles) load(tile + kStages - 1);
+    cp_async_commit();
+    const float* st = ring + (tile % kStages) * kStage;
+
+    // role 0: S - lse log2 e = (fixed A) (streamed A)^T - lse log2 e; role
+    // 1: dP - delta = (fixed B) (streamed B)^T - delta. For dk/dv lse and
+    // delta are the streamed rows', varying along the columns.
+    float x[kGroups][4];
+    if (DKDV) {
+      const float* stat = st + 2 * kTile * kLd + role * kTile;
+      const float m = role ? -1.f : -kLog2e;
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) {
+        const float2 v = *reinterpret_cast<const float2*>(stat + 8 * j + 2 * t);
+        x[j][0] = x[j][2] = v.x * m;
+        x[j][1] = x[j][3] = v.y * m;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) {
+        x[j][0] = x[j][1] = bias[0];
+        x[j][2] = x[j][3] = bias[1];
+      }
+    }
+    bwd128_scores(x, mine, st + role * kTile * kLd, g, t);
+    // the pair swaps its halves of the work: both warps need P and dS
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) swap_mine[(4 * j + e) * 32 + lane] = x[j][e];
+    __syncthreads();
+
+    // P = exp2(S - lse log2 e), dS = P (dP - delta); for dq, keys past N
+    // (the ragged last tile) get P = 0 against K's zero-filled rows. For
+    // dk/dv, query rows past N are zeros with lse and delta 0: their P is 1
+    // and their dS 0, against zero rows of dO and q.
+    float p[kGroups][4], ds[kGroups][4];
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s = swap_s[(4 * j + e) * 32 + lane];
+        if (!DKDV && tile * kTile + 8 * j + 2 * t + (e & 1) >= N) s = -INFINITY;
+        p[j][e] = exp2_sfu(s);
+        ds[j][e] = p[j][e] * swap_d[(4 * j + e) * 32 + lane];
+      }
+    // P and dS enter the sums linearly: split_trunc (see split_acc)
+    uint32_t hi[kGroups][4], lo[kGroups][4];
+    if (DKDV) {  // dv += P^T dO
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j)
+        split_a_trunc(p[j][0], p[j][2], p[j][1], p[j][3], hi[j], lo[j]);
+      bwd128_out(acc2, hi, lo, st + kTile * kLd, col0, g, t);
+    }
+    // dq += dS k, or dk += dS^T q
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+      split_a_trunc(ds[j][0], ds[j][2], ds[j][1], ds[j][3], hi[j], lo[j]);
+    bwd128_out(acc, hi, lo, st, col0, g, t);
+  }
+
+  bwd128_store(oa, b, h, row0 + 16 * pair, N, col0, g, t, acc, scale);
+  if (DKDV) bwd128_store(ob, b, h, row0 + 16 * pair, N, col0, g, t, acc2, 1.f);
+}
+
 
 bool bad_shape(int B, int H, int N, int rows_per_block) {
   if (B <= 0 || H <= 0 || N <= 0) return true;
@@ -941,6 +1295,37 @@ int launch_dkdv(const float* q, const float* k, const float* v, const float* g,
   return (int)cudaGetLastError();
 }
 
+// The dh 128 backward: q, k, v, dO with strides s[0..11], dq or dk (s[12..14])
+// and dv (s[15..17]).
+template <bool DKDV>
+int launch_bwd128(const float* q, const float* k, const float* v, const float* g,
+                  const float* lse, const float* delta, float* o1, float* o2, int B,
+                  int H, int N, const int* s, float scale, cudaStream_t st) {
+  if (bad_shape(B, H, N, b128::kRows)) return (int)cudaErrorInvalidValue;
+  if (!bwd_aligned(q, k, v, g, s) || !out_aligned(o1, s + 12) ||
+      (DKDV && !out_aligned(o2, s + 15)))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  long long optin = 0;
+  int err = kernel_launch::device_optin(&dev, &optin);
+  if (err != 0) return err;
+  if (optin < b128::kSmem) return (int)cudaErrorInvalidValue;
+  err = kernel_launch::opt_in<flash_bwd128_kernel<DKDV>>(dev, b128::kSmem);
+  if (err != 0) return err;
+  const Rows rq{q, s[0], s[1], s[2]}, rk{k, s[3], s[4], s[5]}, rv{v, s[6], s[7], s[8]},
+      rg{g, s[9], s[10], s[11]};
+  const OutRows out1{o1, s[12], s[13], s[14]};
+  const OutRows out2 = DKDV ? OutRows{o2, s[15], s[16], s[17]} : OutRows{nullptr, 0, 0, 0};
+  const dim3 grid(B * H, (N + b128::kRows - 1) / b128::kRows);
+  if constexpr (DKDV)
+    flash_bwd128_kernel<true><<<grid, b128::kThreads, b128::kSmem, st>>>(
+        rk, rv, rq, rg, lse, delta, out1, out2, H, N, scale);
+  else
+    flash_bwd128_kernel<false><<<grid, b128::kThreads, b128::kSmem, st>>>(
+        rq, rg, rk, rv, lse, delta, out1, out2, H, N, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Every function below runs on `stream`, allocates nothing and returns
@@ -985,6 +1370,9 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
   switch (DH) {
     case 8: return launch_dq<8>(qf, kf, vf, gf, lf, df, dqf, B, H, N, strides, scale, st);
     case 16: return launch_dq<16>(qf, kf, vf, gf, lf, df, dqf, B, H, N, strides, scale, st);
+    case 128:
+      return launch_bwd128<false>(qf, kf, vf, gf, lf, df, dqf, nullptr, B, H, N, strides,
+                                  scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1009,6 +1397,9 @@ extern "C" int flash_attention_dkdv(const void* q, const void* k, const void* v,
       return launch_dkdv<8>(qf, kf, vf, gf, lf, df, dkf, dvf, B, H, N, strides, scale, st);
     case 16:
       return launch_dkdv<16>(qf, kf, vf, gf, lf, df, dkf, dvf, B, H, N, strides, scale, st);
+    case 128:
+      return launch_bwd128<true>(qf, kf, vf, gf, lf, df, dkf, dvf, B, H, N, strides, scale,
+                                 st);
     default:
       return (int)cudaErrorInvalidValue;
   }

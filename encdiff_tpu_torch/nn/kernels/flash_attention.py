@@ -27,7 +27,7 @@ from encdiff_tpu_torch.nn.kernels import (build, check_cuda_tensor,
 
 #: head sizes the kernels take (csrc/flash_attention.cu)
 FWD_HEAD_SIZES = (8, 16, 128)
-BWD_HEAD_SIZES = (8, 16)
+BWD_HEAD_SIZES = (8, 16, 128)
 
 
 def flash_attention_fwd_plain(q, k, v, scale: float):

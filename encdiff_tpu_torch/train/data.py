@@ -36,9 +36,13 @@ class DataModuleFromConfig:
             if cfg is not None}
         self.datasets: dict[str, Any] = {}
 
-    def setup(self):
+    def setup(self, device=None):
+        """Every split's dataset; ``device``, where given, is passed to each
+        as its ``device`` (where a dataset that renders on the fly composes
+        its images)."""
+        extra = {} if device is None else {"device": device}
         for name, cfg in self.dataset_configs.items():
-            self.datasets[name] = instantiate_from_config(cfg)
+            self.datasets[name] = instantiate_from_config(cfg, **extra)
         return self
 
     def dataset(self, name: str):

@@ -37,8 +37,10 @@ heads beside the UNet and Encoder4, and a ``--resume_ckpt`` without heads
 ``fit`` runs it as any LDM config, on cached latents.
 
 A config whose ``model.target`` is ``models.autoencoder.VQModel``
-(``-b flagship_vq``, ``configs.FLAGSHIP_VQ_RUN``) trains the VQ-GAN first
-stage instead (``fit_vq``, :550-704 of the JAX harness): from a seeded
+(``-b flagship_vq``, ``configs.FLAGSHIP_VQ_RUN``; ``-b faces_vq``,
+``configs.FACES_VQ_RUN``: 256 px, micro-batch 8 with 4-way accumulation on
+the 34,560-image face grid) trains the VQ-GAN first stage instead
+(``fit_vq``, :550-704 of the JAX harness): from a seeded
 fresh init (the JAX ``fit_vq`` does not resume), the two optimizers of
 ``train.vq_trainer`` on the device-resident grid in the epoch order above,
 the step counted from 0; the image logger writes inputs and
@@ -62,6 +64,8 @@ raises without a card.
     python -m encdiff_tpu_torch.main_val -b flagship_mcl -t \\
         --resume_ckpt demo_artifacts/round5/v4purify_final_fp16.npz \\
         --max_steps N
+    python -m encdiff_tpu_torch.main_val -b faces_vq -t --max_steps N \\
+        [--val_batches K]
 """
 
 from __future__ import annotations
@@ -79,8 +83,8 @@ import numpy as np
 import torch
 
 from encdiff_tpu_torch import convert
-from encdiff_tpu_torch.configs import (FLAGSHIP_MCL_RUN, FLAGSHIP_RUN,
-                                      FLAGSHIP_VQ_RUN)
+from encdiff_tpu_torch.configs import (FACES_VQ_RUN, FLAGSHIP_MCL_RUN,
+                                      FLAGSHIP_RUN, FLAGSHIP_VQ_RUN)
 from encdiff_tpu_torch.core.compact_ckpt import save_compact_vq
 from encdiff_tpu_torch.core.config import get_obj_from_str, instantiate_from_config
 from encdiff_tpu_torch.core.device import resolve_device
@@ -100,7 +104,7 @@ from encdiff_tpu_torch.train.loop import (create_train_state, encode_sweep,
 
 #: the configs ``-b`` takes by name
 REGISTERED = {"flagship": FLAGSHIP_RUN, "flagship_vq": FLAGSHIP_VQ_RUN,
-              "flagship_mcl": FLAGSHIP_MCL_RUN}
+              "flagship_mcl": FLAGSHIP_MCL_RUN, "faces_vq": FACES_VQ_RUN}
 
 #: the dataset on the device, kept between the runs of one process: at most
 #: one, with the host array it was uploaded from
@@ -109,18 +113,25 @@ _DEVICE_CACHE: dict = {}
 
 def device_images(images_host: np.ndarray, device) -> torch.Tensor:
     """``images_host`` (N, S, S, 3) uint8 on ``device``, uploaded once per
-    process for the same host array."""
+    process for the same host array. Another array first releases the one
+    the cache holds (the flagship's 5.9 GB grid before the faces' 6.8 GB),
+    and the card's allocator returns its memory."""
     hit = _DEVICE_CACHE.get("images")
     if hit is not None and hit[0] is images_host and hit[1] == str(device):
         return hit[2]
-    _DEVICE_CACHE.clear()
+    del hit
+    clear_device_cache()
     images = torch.from_numpy(images_host).to(device)
     _DEVICE_CACHE["images"] = (images_host, str(device), images)
     return images
 
 
 def clear_device_cache() -> None:
+    held = _DEVICE_CACHE.pop("images", None)
     _DEVICE_CACHE.clear()
+    if held is not None and held[2].is_cuda:
+        del held
+        torch.cuda.empty_cache()
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -319,7 +330,8 @@ class Trainer:
         eval_name = self.model_params.get("eval_name")
         self.label_dataset = (get_index_dataset(eval_name) if eval_name
                               else None)
-        self.data = instantiate_from_config(config["data"]).setup()
+        self.data = instantiate_from_config(config["data"]).setup(
+            device=self.device)
         self.batch_size = self.data.batch_size
         self.accumulate = accumulate
         # the reference's rule: accum x ndev x bs x base_lr, on one device

@@ -504,12 +504,37 @@ def test_flash_attention_fwd_holds_logits_of_30(cuda_device, b, h, n, dh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,dh", [(1, 128), (8, 8), (8, 16)])
+def test_flash_attention_fwd_sums_4096_keys_in_fp32(cuda_device, h, dh):
+    """4,096 keys with nearly flat scores, so that o averages v's common
+    part over every key: the faces VQ's mid block (one head of 128) and the
+    faces UNet's head sizes. A running sum fed by every mma of the 4,096
+    keys drifts by about 1e-4 of its size (the tensor cores truncate each
+    mma's sum); summed a tile at a time from zero, o stays within fp32's
+    few ulps of the plain version."""
+    gen = torch.Generator(cuda_device).manual_seed(13)
+    q, k, v = (_heads_view(gen, cuda_device, 8, 4096, h, dh)
+               for _ in range(3))
+    q, k = q * 0.3, k * 0.3
+    v = v * 0.01 + 1.0
+    o, lse = flash_attention_fwd(q, k, v, dh ** -0.5)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, dh ** -0.5)
+    torch.testing.assert_close(o, o_ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse, lse_ref, **CARD_TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,h,n,dh,gain", [
     (2, 2, 256, 8, 1.0), (1, 4, 1024, 16, 1.0), (1, 3, 333, 8, 1.0),
     (2, 2, 130, 16, 1.0),
     (8, 8, 4096, 8, 1.0), (8, 8, 1024, 16, 1.0),   # the faces micro-step's
     (1, 2, 7, 8, 1.0), (2, 3, 40, 16, 1.0),        # N below one tile
-    (4, 8, 4096, 8, 2.5), (2, 8, 1024, 16, 2.5)])  # logits of ±30
+    (4, 8, 4096, 8, 2.5), (2, 8, 1024, 16, 2.5),   # logits of ±30
+    # dh 128: the faces VQ's mid blocks, another shape, N below one tile
+    # and not a multiple of it, logits of ±30
+    (8, 1, 4096, 128, 1.0), (2, 2, 1024, 128, 1.0), (1, 1, 20, 128, 1.0),
+    (2, 1, 333, 128, 1.0), (1, 2, 1000, 128, 1.0), (2, 1, 1024, 128, 2.5)])
 def test_flash_attention_bwd_kernels_match_plain(cuda_device, b, h, n, dh,
                                                  gain):
     """dq and dk/dv against their plain versions on the callers' strided
@@ -537,7 +562,8 @@ def test_flash_attention_bwd_kernels_match_plain(cuda_device, b, h, n, dh,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,n,dh", [(8750, 8, 7, 8), (8750, 8, 20, 16)])
+@pytest.mark.parametrize("b,h,n,dh", [(8750, 8, 7, 8), (8750, 8, 20, 16),
+                                      (17500, 4, 7, 128)])
 def test_flash_attention_bwd_takes_more_than_65535_slices(cuda_device, b, h,
                                                           n, dh):
     """B * H = 70,000: both backward kernels put B * H on gridDim.x."""
@@ -574,7 +600,7 @@ def test_flash_attention_autograd_runs_all_three_kernels(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["attention_core", "flash_attention",
-                                  "groupnorm_silu"])
+                                  "flash_attention_dh128", "groupnorm_silu"])
 def test_backward_from_out_sum(cuda_device, name):
     """out.sum().backward() hands each Function an expanded cotangent of
     strides 0; the backward kernels run on it and match the plain path."""
@@ -584,13 +610,13 @@ def test_backward_from_out_sum(cuda_device, name):
                   _gn_inputs(gen, cuda_device, 4, 128, 8, 8, True)]
         fn, wrapper = groupnorm_silu, gn_silu_bwd
     else:
-        n = 1024 if name == "flash_attention" else 64
-        leaves = [_heads_view(gen, cuda_device, 2, n, 4, 16).requires_grad_()
-                  for _ in range(3)]
-        fn = lambda *a: (flash_attention if name == "flash_attention"
-                         else attention_core)(*a, 0.25)
-        wrapper = (flash_attention_dq if name == "flash_attention"
-                   else attention_core_bwd)
+        flash = name.startswith("flash_attention")
+        h, dh = (1, 128) if name == "flash_attention_dh128" else (4, 16)
+        leaves = [_heads_view(gen, cuda_device, 2, 1024 if flash else 64, h,
+                              dh).requires_grad_() for _ in range(3)]
+        fn = lambda *a: (flash_attention if flash
+                         else attention_core)(*a, dh ** -0.5)
+        wrapper = flash_attention_dq if flash else attention_core_bwd
     before = wrapper.launches
     fn(*leaves).sum().backward()
     torch.cuda.synchronize()
@@ -618,9 +644,13 @@ def test_flash_wrappers_reject_what_they_do_not_take(cuda_device):
         lambda: flash_attention_fwd(*(torch.zeros(1, 2, 256, 32,
                                                   device=cuda_device),) * 3,
                                     0.3),
-        lambda: flash_attention_dq(*(torch.zeros(1, 1, 256, 128,
+        # a head size the backward kernels do not take
+        lambda: flash_attention_dq(*(torch.zeros(1, 1, 256, 32,
                                                  device=cuda_device),) * 4,
                                    lse[:, :1], lse[:, :1], 0.3),
+        lambda: flash_attention_dkdv(*(torch.zeros(1, 1, 256, 64,
+                                                   device=cuda_device),) * 4,
+                                     lse[:, :1], lse[:, :1], 0.3),
         lambda: flash_attention_dq(q, q, q, q, lse.transpose(1, 2)
                                    .contiguous().transpose(1, 2), lse, 0.3),
         lambda: flash_attention_dkdv(q, q, q, q, lse, lse[:, :, :128], 0.3),

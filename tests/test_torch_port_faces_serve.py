@@ -9,17 +9,16 @@
 - The chunked ``swap_sample`` at a small-width, faces-shaped model (64x64
   latents, 256 px, 40 samples: DDIM chunks of 32 and 8, decodes of 32 and
   8) against the JAX ``swap_sample``.
-- FID: the Inception features from converted flax variables, the bilinear
-  resize, the Fréchet distance on rank-deficient statistics and a
-  pytorch-fid-named state_dict through both packages.
-- The ``generate_swap --config faces`` and ``fid`` CLIs at a small width.
+
+The FID pieces are in ``test_torch_port_faces_fid.py``, the chunks'
+injected noise and the serving CLIs in
+``test_torch_port_faces_serve_cli.py`` (three files, so that the test
+run's workers take them in parallel).
 
 Inputs are made with numpy from a seed; the JAX side runs on the CPU.
 Tolerances: modules 2e-5, networks and sampler chains 1e-4 (fp32 sums in
 another order, as in ``test_torch_port_slice.py``).
 """
-
-import json
 
 import jax
 import jax.numpy as jnp
@@ -28,16 +27,12 @@ import pytest
 import torch
 
 from encdiff_tpu.core.config import instantiate_from_config
-from encdiff_tpu.evalx import fid as jfid
 from encdiff_tpu.evalx import swap as jswap
 from encdiff_tpu.nn import attention as jattn
 from encdiff_tpu.nn.pallas.attention import (fused_attention as jfused,
                                              reference_attention)
-from encdiff_tpu_torch import convert, generate_swap
-from encdiff_tpu_torch import fid as fid_cli
+from encdiff_tpu_torch import convert
 from encdiff_tpu_torch.configs import FACES
-from encdiff_tpu_torch.data import synthetic_faces
-from encdiff_tpu_torch.evalx import fid as tfid
 from encdiff_tpu_torch.evalx.swap import swap_sample
 from encdiff_tpu_torch.models.latent_diffusion import LatentDiffusion
 from encdiff_tpu_torch.nn import attention as tattn
@@ -297,146 +292,3 @@ def test_chunked_swap_matches_jax(monkeypatch, routes):
                 force_not_quantize=True).numpy() for i in (0, 32)])
     np.testing.assert_allclose(img, ref, **NET_TOL)
     assert np.isfinite(out.numpy()).all()
-
-
-def test_swap_chunks_slice_injected_noise(monkeypatch):
-    """At eta 1 with x_T and the per-step noises injected, 40 samples in
-    DDIM chunks of 16, 16 and 8 give what one chunk of 40 gives: each chunk
-    takes its own slice of both."""
-    from encdiff_tpu_torch.evalx import swap as tswap
-    tiny = {**CLI_FACES, "image_size": 16,
-            "unet_config": {**CLI_FACES["unet_config"], "image_size": 16},
-            "first_stage_config": {
-                **CLI_FACES["first_stage_config"],
-                "ddconfig": {**CLI_FACES["first_stage_config"]["ddconfig"],
-                             "resolution": 64}}}
-    model = LatentDiffusion(tiny, device="cpu")
-    model.init_parameters(torch.Generator().manual_seed(50))
-    with torch.no_grad():  # no zero output convolution: ε is not 0
-        gen = torch.Generator().manual_seed(51)
-        for p in model.parameters():
-            p.add_(0.05 * torch.randn(p.shape, generator=gen))
-    images = np.tanh(_randn(52, 2, 64, 64, 3))
-    x_T = _randn(53, 40, 16, 16, 3)
-    noises = _randn(54, 2, 40, 16, 16, 3)
-    calls = []
-    sample = model.sample_ddim
-
-    def record(tokens, **kw):
-        calls.append(len(tokens))
-        return sample(tokens, **kw)
-    monkeypatch.setattr(model, "sample_ddim", record)
-    whole = swap_sample(model, images, ddim_steps=2, eta=1.0, x_T=x_T,
-                        noises=noises)
-    monkeypatch.setattr(tswap, "TOKEN_BUDGET", 16 * 16 * 16)
-    chunked = swap_sample(model, images, ddim_steps=2, eta=1.0, x_T=x_T,
-                          noises=noises)
-    assert calls == [40, 16, 16, 8]
-    assert chunked.shape == (40, 64, 64, 3)
-    np.testing.assert_allclose(chunked.numpy(), whole.numpy(), rtol=1e-5,
-                               atol=1e-5)
-
-
-# ---- FID -------------------------------------------------------------------
-
-@pytest.fixture(scope="module")
-def fid_variables():
-    return jax.tree.map(np.asarray,
-                        jfid.init_fid_variables(jax.random.PRNGKey(0)))
-
-
-def _features(variables, images, **kw):
-    return np.asarray(jfid.InceptionV3FID(**kw).apply(
-        jax.tree.map(jnp.asarray, variables), jnp.asarray(images)))
-
-
-def test_inception_features_match_jax(fid_variables):
-    images = np.random.RandomState(40).rand(2, 75, 75, 3).astype(np.float32)
-    ref = _features(fid_variables, images, resize_input=False)
-    model = tfid.InceptionV3FID(resize_input=False)
-    model.load_state_dict(convert.inception_state_dict(fid_variables),
-                          strict=False)
-    out = model(_t(images)).numpy()
-    assert out.shape == (2, 2048)
-    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-6)
-
-
-@pytest.mark.parametrize("side", [64, 256])
-def test_bilinear_resize_matches_jax(side):
-    x = np.random.RandomState(side).rand(2, side, side, 3).astype(np.float32)
-    ref = np.asarray(jax.image.resize(jnp.asarray(x), (2, 299, 299, 3),
-                                      method="bilinear"))
-    out = tfid.resize_bilinear(_t(x).permute(0, 3, 1, 2))
-    np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref,
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_frechet_distance_rank_deficient():
-    """10 samples of 32 features: both covariances have rank 9, and the
-    square root of their product comes out complex (its real part is
-    kept)."""
-    rs = np.random.RandomState(41)
-    a, b = rs.randn(10, 32), rs.randn(10, 32) * 1.5 + 0.3
-    stats = [*tfid.activation_statistics(a), *tfid.activation_statistics(b)]
-    assert np.linalg.matrix_rank(stats[1]) == 9
-    got = tfid.frechet_distance(*stats)
-    want = jfid.frechet_distance(*jfid.activation_statistics(a),
-                                 *jfid.activation_statistics(b))
-    assert np.isfinite(got)
-    assert got == pytest.approx(want, rel=1e-10)
-
-
-def test_pytorch_fid_state_dict_loads_into_both(fid_variables):
-    """A state_dict under pytorch-fid's names (with its classifier, without
-    num_batches_tracked) loads into the port and, through
-    ``load_torch_fid_inception``, into the JAX tree: the same features."""
-    model = tfid.InceptionV3FID()
-    model.init_parameters(torch.Generator().manual_seed(42))
-    rs = np.random.RandomState(43)
-    sd = {}
-    for k, v in model.state_dict().items():
-        if k.endswith("num_batches_tracked"):
-            continue
-        if ".bn." in k:  # non-trivial BatchNorm statistics and affine
-            noise = torch.from_numpy(rs.rand(*v.shape).astype(np.float32))
-            v = 0.5 + noise if k.endswith(("running_var", "weight")) \
-                else 0.2 * noise - 0.1
-        sd[k] = v.clone()
-    sd["fc.weight"], sd["fc.bias"] = torch.zeros(1008, 2048), torch.zeros(1008)
-    port = tfid.fid_inception("cpu", state_dict=sd)
-    jvars = jfid.load_torch_fid_inception(fid_variables, sd)
-    images = rs.rand(2, 64, 64, 3).astype(np.float32)
-    ref = _features(jvars, images)
-    out = port(_t(images)).numpy()
-    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-6)
-    with pytest.raises(KeyError):
-        tfid.load_pt_inception(tfid.InceptionV3FID(),
-                               {k: v for k, v in sd.items()
-                                if "Mixed_7c" not in k})
-
-
-# ---- the CLIs --------------------------------------------------------------
-
-def test_faces_serving_clis_at_a_small_width(tmp_path, capsys, monkeypatch):
-    """``generate_swap --config faces`` and ``fid`` from a fresh init on
-    the CPU, on a faces-shaped config at a small width and a 4-image grid."""
-    monkeypatch.setitem(generate_swap.CONFIGS, "faces", CLI_FACES)
-    monkeypatch.setattr(synthetic_faces, "TRAIN_GRID", (2, 1, 1, 2, 1, 1, 1))
-    generate_swap.main(["--config", "faces", "--num_samples", "2",
-                        "--ddim_steps", "2", "--device", "cpu",
-                        "--out", str(tmp_path)])
-    grid = np.load(tmp_path / "swap_full_grid.npy")
-    assert grid.shape == (42, 128, 128, 3)
-    assert np.isfinite(grid).all()
-    corr = json.loads((tmp_path / "factor_correspondence.json").read_text())
-    assert len(corr) == 20
-
-    out = tmp_path / "fid.json"
-    result = fid_cli.main(["--config", "faces", "--num", "4",
-                           "--batch_size", "2", "--ddim_steps", "2",
-                           "--device", "cpu", "--out", str(out)])
-    assert result["mode"] == "random_features"
-    assert result["calibrated"] is False and result["num"] == 4
-    assert np.isfinite(result["fid"])
-    assert json.loads(out.read_text()) == result
-    assert "uncalibrated" in capsys.readouterr().out

@@ -152,9 +152,10 @@ def _rel(a, b):
     return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
 
 
-def compare(port, want, before, split):
+def compare(port, want, before, split, rel=LEAF_REL):
     """Every leaf of ``port`` against ``want`` (both ``port_leaves``-shaped;
-    ``before`` the weights before the first step). Returns the faults."""
+    ``before`` the weights before the first step), to ``rel`` relative L2.
+    Returns the faults."""
     faults = []
     for part, opt in (("generator", "gen_opt"), ("discriminator", "disc_opt")):
         zero, masks, total = split[part]
@@ -167,7 +168,7 @@ def compare(port, want, before, split):
             w = w.numpy()
             if k.endswith(("running_mean", "running_var")) or (
                     k not in zero and masks[k].all()):
-                if _rel(got, w) > LEAF_REL:
+                if _rel(got, w) > rel:
                     faults.append(f"{part} {k}: {_rel(got, w):.3e}")
                 continue
             free = (np.ones_like(w, bool) if k in zero else ~masks[k])
@@ -177,7 +178,7 @@ def compare(port, want, before, split):
                     np.abs(w - b)[free].max() > moved:
                 faults.append(f"{part} {k}: rounding-zero elements moved "
                               "more than 2 lr a step")
-            if k not in zero and _rel(got[~free], w[~free]) > LEAF_REL:
+            if k not in zero and _rel(got[~free], w[~free]) > rel:
                 faults.append(f"{part} {k}: {_rel(got[~free], w[~free]):.3e}")
         for i, (name, got_m, want_m) in enumerate((("mu", pmu, wmu),
                                                    ("nu", pnu, wnu))):
@@ -189,16 +190,16 @@ def compare(port, want, before, split):
                     if max(w.abs().max(), got_m[k].abs().max()) > bound:
                         faults.append(f"{opt} {name} {k}: zero-gradient "
                                       "leaf above rounding")
-                elif _rel(got_m[k].numpy(), w.numpy()) > LEAF_REL:
+                elif _rel(got_m[k].numpy(), w.numpy()) > rel:
                     faults.append(f"{opt} {name} {k}: "
                                   f"{_rel(got_m[k].numpy(), w.numpy()):.3e}")
     return faults
 
 
-def compare_logs(port, want):
+def compare_logs(port, want, rtol=LOG_REL):
     assert set(port) == set(want)
     for k, v in want.items():
-        np.testing.assert_allclose(port[k].item(), float(v), rtol=LOG_REL,
+        np.testing.assert_allclose(port[k].item(), float(v), rtol=rtol,
                                    atol=1e-7, err_msg=k)
 
 
@@ -290,7 +291,7 @@ def test_leaves_moments_and_statistics_match_jax(narrow, step):
     assert unmoved(port, before, "discriminator") == []
 
 
-def check_leaves(port, want, before):
+def check_leaves(port, want, before, rel=LEAF_REL):
     """``compare`` with the split of this step's gradients, which Adam's
     first moments give: mu' = 0.5 mu + 0.5 g, so g = 2 mu' - mu."""
     split = {}
@@ -298,7 +299,7 @@ def check_leaves(port, want, before):
         grads = {k: 2.0 * v - before[opt][1][k]
                  for k, v in want[opt][1].items()}
         split[part] = _split(grads)
-    assert compare(port, want, before, split) == []
+    assert compare(port, want, before, split, rel) == []
 
 
 def unmoved(port, before, part) -> list:
