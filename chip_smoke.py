@@ -200,6 +200,40 @@ make ε identically zero):
     FID, with the launch counters read around the sampling.
 23. faces-serve-profile: one UNet call at B = 32, device time by kernel.
 
+The faces EncDiff stage and its eval chain, as ``scripts/round3_pipeline.sh``
+stages 3 and 3b run them, over the faces VQ-GAN run of faces-vq-train:
+
+faces-harness: ``main_val -b faces -t --max_steps 8`` (two updates of 4
+micro-steps of 8) with the pipeline's override
+``model.params.first_stage_config.params.ckpt_path=<faces VQ-GAN
+run>/checkpoints/last`` and the image logger forced to the last
+micro-step, on the full face grid (uploaded again) with its latents cached
+(chunks of 128 through the VQ encoder, whose mid block runs the flash
+forward at (128, 1, 4096, 128)), the launch counters set to 0 just before
+and read just after: launches must equal the micro-steps', the latent
+encode's and the image log's recorded calls. The first stage must be the
+VQ-GAN run's generator with the 20 widened input rows of
+``post_quant_conv`` at the seeded init; the cached latents must match a
+direct encode of 128 sampled rows (1e-5) and the scale factor the first
+micro-batch's; the parameters may move on the 4th and 8th micro-steps only,
+AdamW must step every leaf twice, with an exp_avg equal (1e-4 of each
+leaf's norm) to that of the 8 micro-steps run again through
+``loop.train_step`` outside the harness on the same batches and draws,
+and the EMA must move
+from the 4th on; the LR
+is 4 x 8 x 2e-6 = 6.4e-5 times the warm-up; ``last`` restored by ``-r``
+must equal the run's state bit for bit; ``test()`` writes ``{}`` (no
+validation metrics). Every kernel at every recorded shape against its
+plain version. Upload, latent-cache and image-log seconds, ms per
+micro-step and update, peak memory.
+faces-eval: ``python -m encdiff_tpu_torch.faces_eval -r <that run>/
+checkpoints/last --tad_num 512 --fid_num 128`` (DDIM 50; the port
+of ``scripts/round3_faces_eval.sh``): ``tad`` on an eval file of 512
+faces, ``fid --num 128`` (eta 1; real rows drawn from the full grid) and
+``generate_swap --config faces --num_samples 4``, each CLI with its
+launches equal to its recorded calls, and every kernel at every recorded
+shape against its plain version; the chain's walls.
+
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -238,8 +272,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from encdiff_tpu_torch import faces_eval
 from encdiff_tpu_torch import fid as fid_cli
-from encdiff_tpu_torch import main_val
+from encdiff_tpu_torch import generate_swap, main_val
+from encdiff_tpu_torch import tad as tad_cli
 from encdiff_tpu_torch import train_steps
 from encdiff_tpu_torch.configs import FACES, FACES_TRAIN, FLAGSHIP_TRAIN
 from encdiff_tpu_torch.core.schedules import DDIMSchedule
@@ -250,6 +286,7 @@ from encdiff_tpu_torch.evalx import fid as fid_lib
 from encdiff_tpu_torch.evalx.swap import (TOKEN_BUDGET, swap_conditions,
                                           swap_sample)
 from encdiff_tpu_torch.generate_swap import pick_inputs
+from encdiff_tpu_torch.models.autoencoder import generator_state
 from encdiff_tpu_torch.models.latent_diffusion import LatentDiffusion
 from encdiff_tpu_torch.nn import attention as port_attention
 from encdiff_tpu_torch.nn import layers as port_layers
@@ -274,7 +311,8 @@ from encdiff_tpu_torch.train import callbacks as port_callbacks
 from encdiff_tpu_torch.train import harness, vq_trainer
 from encdiff_tpu_torch.train.callbacks import make_grid
 from encdiff_tpu_torch.train.checkpoint_io import MODEL_FILE, STATE_FILE
-from encdiff_tpu_torch.train.loop import (draw_t_and_noise, loss_and_grads,
+from encdiff_tpu_torch.train.loop import (create_train_state,
+                                          draw_t_and_noise, loss_and_grads,
                                           precompute_latents,
                                           trainable_parameters, train_step)
 
@@ -403,6 +441,20 @@ FACES_VQ_LOG_ATOL = 1e-6
 #: its seeded fresh heads: MCL_STEPS steps at B = 128 on cached latents,
 #: then test(); the other first- and second-order types held kernel path
 #: against plain path at B = MCL_TYPES_BATCH
+#: the faces EncDiff stage behind ``main_val -b faces`` (faces-harness):
+#: two updates of 4 micro-steps of 8 over the faces VQ-GAN run's
+#: ``checkpoints/last``, the image log forced to the last micro-step; the
+#: latent cache held against a direct encode of LATENT_ROWS sampled rows
+FACES_LDM_MICRO_STEPS = 8
+FACES_LDM_SEED = 23
+FACES_LDM_LR = 6.4e-5  # accumulate 4 x micro-batch 8 x base LR 2e-6
+FACES_LATENT_ROWS = 128
+LATENT_TOL = dict(rtol=1e-5, atol=1e-5)
+#: the eval chain on that run's ``checkpoints/last`` (faces-eval): TAD on an
+#: eval file of FACES_TAD_NUM faces, FID of FACES_EVAL_FID_NUM in batches of
+#: 64, the swap of FACES_INPUTS faces; DDIM 50 (``faces_eval``'s)
+FACES_TAD_NUM = 512
+FACES_EVAL_FID_NUM = 128
 MCL_STEPS = 20
 MCL_TYPES = ("nce_logistic", "denoise_sm", "jacobian_vjp_infonce")
 MCL_TYPES_BATCH = 16
@@ -1519,13 +1571,22 @@ def main(argv=None) -> int:
         args.out)
     harness.clear_device_cache()
     torch.cuda.empty_cache()
-    fvq_rows, fvq_other, fvq_launches, per_fvq_step, fvq = faces_vq_phases(
+    (fvq_rows, fvq_other, fvq_launches, per_fvq_step, fvq,
+     fvq_dir) = faces_vq_phases(
         smi, card, seen_rows(serve_rows, train_rows, harness_rows, vq_rows,
                              mcl_rows), args.out)
     faces_rows, faces_launches, per_micro = faces_phases(
         smi, card, seen_rows(serve_rows, train_rows))
     fserve_rows, fserve_other, fserve_launches, per_fserve = faces_serve_phases(
         smi, card, seen_rows(serve_rows, train_rows, faces_rows))
+    torch.cuda.empty_cache()
+    fh_rows, fh_other, fh_launches, per_fh_step, fh, fh_dir = \
+        faces_harness_phases(smi, card, seen_rows(
+            serve_rows, train_rows, harness_rows, fvq_rows, fvq_other,
+            faces_rows, fserve_rows, fserve_other), args.out, fvq_dir)
+    feval_rows, feval_launches = faces_eval_phase(smi, card, seen_rows(
+        serve_rows, train_rows, fvq_rows, fvq_other, faces_rows, fserve_rows,
+        fserve_other, fh_rows, fh_other), args.out, fh_dir)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "device_ms", "library_device_ms", "tc_ms", "exp_ms", "simt_ms",
@@ -1536,7 +1597,8 @@ def main(argv=None) -> int:
             ("serve", serve_rows), ("train_step", train_rows),
             ("faces_micro_step", faces_rows), ("faces_serve", fserve_rows),
             ("vq_step", vq_rows), ("mcl_step", mcl_rows),
-            ("faces_vq_micro_step", fvq_rows))
+            ("faces_vq_micro_step", fvq_rows),
+            ("faces_harness_micro_step", fh_rows))
             if rows.get(name)}
         top = next(iter(parts.values()))
         launches = {"swap": swap_launches[name], "train": train_launches[name],
@@ -1546,7 +1608,10 @@ def main(argv=None) -> int:
                     "faces_vq_train": fvq_launches[name],
                     "faces_train": faces_launches[name],
                     **{path: counts[name]
-                       for path, counts in fserve_launches.items()}}
+                       for path, counts in fserve_launches.items()},
+                    "faces_harness": fh_launches[name],
+                    **{f"faces_eval_{cli}": counts[name]
+                       for cli, counts in feval_launches.items()}}
         entry = {
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": sum(launches.values()), "launches_by_path": launches,
@@ -1554,6 +1619,8 @@ def main(argv=None) -> int:
                                + [r["err"] for r in fserve_other.get(name, ())]
                                + [r["err"] for r in vq_other.get(name, ())]
                                + [r["err"] for r in fvq_other.get(name, ())]
+                               + [r["err"] for r in fh_other.get(name, ())]
+                               + [r["err"] for r in feval_rows.get(name, ())]
                                + [r["err"]
                                   for r in harness_rows.get(name, ())]),
             **{k: top[k] for k in (*fields, BASELINE.get(name)) if k in top}}
@@ -1562,7 +1629,8 @@ def main(argv=None) -> int:
                                 ("faces_serve", per_fserve),
                                 ("vq_step", per_vq_step),
                                 ("mcl_step", per_mcl_step),
-                                ("faces_vq_micro_step", per_fvq_step)):
+                                ("faces_vq_micro_step", per_fvq_step),
+                                ("faces_harness_micro_step", per_fh_step)):
             if workload in parts:
                 entry[workload] = {
                     **{k: v for k, v in parts[workload].items()
@@ -1579,7 +1647,9 @@ def main(argv=None) -> int:
           "hold every kernel's sums over those calls, and vq_step over one "
           "VQ-GAN train step at B=128 (-b flagship_vq), faces_vq_micro_step "
           "over one faces VQ-GAN micro-step at micro-batch 8, 256 px "
-          "(-b faces_vq); max_abs_err also "
+          "(-b faces_vq), faces_harness_micro_step over one faces "
+          "EncDiff micro-step at micro-batch 8 on cached latents (-b faces); "
+          "max_abs_err also "
           "covers the faces serving shapes at B=16 and B=64, the VQ eval "
           "and image-log shapes (both VQ-GANs) and the other VQ backward "
           "shapes of vq-kernels (attention_core_ms: "
@@ -1606,8 +1676,14 @@ def main(argv=None) -> int:
           f"run's {FACES_VQ_MICRO_STEPS} micro-steps, "
           f"{len(FACES_VQ_LOG_STEPS)} image logs and {FACES_VQ_VAL_BATCHES} "
           "test batches, the "
-          f"{4 * FACES_UPDATES} faces micro-steps, the faces swap request and "
-          "the faces FID sampling; mcl_step: one MCL fine-tune step at "
+          f"{4 * FACES_UPDATES} faces micro-steps, the faces swap request, "
+          "the faces FID sampling, the faces EncDiff run's "
+          f"{FACES_LDM_MICRO_STEPS} micro-steps with its latent encode and "
+          "image log (faces_harness), and the faces eval chain's tad, fid "
+          f"--num {FACES_EVAL_FID_NUM} and generate_swap on its last "
+          "(faces_eval_*); max_abs_err also covers the faces EncDiff "
+          "run's latent encode and image log shapes and the eval chain's; "
+          "mcl_step: one MCL fine-tune step at "
           "B=128 (-b flagship_mcl, infonce_mechgrad), whose second order "
           "runs gn_silu_bwd_bwd and the attention VJP (PyTorch ops, not a "
           "kernel of the port: "
@@ -1619,6 +1695,9 @@ def main(argv=None) -> int:
     print("# faces_vq: the faces VQ-GAN run (-b faces_vq) on "
           f"{smi}: " + ", ".join(f"{k} {v:.6g}" for k, v in fvq.items()),
           flush=True)
+    print("# faces_harness: the faces EncDiff run (-b faces over the faces "
+          f"VQ-GAN run's last) on {smi}: " + ", ".join(
+              f"{k} {v:.6g}" for k, v in fh.items()), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     phase("total", t_all, "chip_smoke passed")
@@ -2534,9 +2613,10 @@ def faces_vq_phases(smi, card, seen, out):
     the full face grid, rendered here (its colour blocks on the card) and
     uploaded by the harness. Returns the checked rows of one micro-step's
     kernel calls, the other checked rows (eval, image log), the launches of
-    the run, the calls of one micro-step by kernel, and the run's numbers
+    the run, the calls of one micro-step by kernel, the run's numbers
     (render seconds, micro-step and update ms, peak memory, device-busy
-    share)."""
+    share) and its run directory (faces-harness trains over its
+    ``checkpoints/last``)."""
     # ---- faces-vq-shapes: the grid, one micro-step, one eval batch and one
     # image log
     t0 = time.perf_counter()
@@ -2727,10 +2807,11 @@ def faces_vq_phases(smi, card, seen, out):
     if prof is not None:
         numbers.update(profile_wall_ms=prof[0], busy_ms=prof[1],
                        busy=prof[1] / prof[0])
+    logdir = trainer.logdir
     del trainer, model, state, images
     harness.clear_device_cache()
     torch.cuda.empty_cache()
-    return step_rows, other_rows, launches, per_step, numbers
+    return step_rows, other_rows, launches, per_step, numbers, logdir
 
 
 def mcl_trainer(config, lightning, out):
@@ -3463,7 +3544,7 @@ def faces_serve_phases(smi, card, seen):
 
     # ---- 22: FID of 64 reconstructions against their 64 real faces
     t0 = time.perf_counter()
-    real = fid_cli.real_images(FACES_FID_NUM)
+    real = fid_cli.real_images(FACES_FID_NUM, device="cuda")
     expected = {k: len(per_unet.get(k, ())) * FACES_DDIM_STEPS
                 + len(per_decode.get(k, ())) for k in KERNELS}
     torch.cuda.synchronize()
@@ -3502,6 +3583,500 @@ def faces_serve_phases(smi, card, seen):
                       x_T, t_first, tokens[:chunk])))
     return (rows, other_rows,
             {"faces_swap": swap_launches, "faces_fid": fid_launches}, per_call)
+
+
+@contextlib.contextmanager
+def timed_calls(module, name, seconds):
+    """While on, each call of ``module.name`` appends its device-synchronised
+    seconds to ``seconds``."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def replayable_ldm_steps(replay):
+    """While on, the harness's first stage-2 train step puts a copy of the
+    model as it stands before it into ``replay["model"]``, and every train
+    step appends (a copy of its batch, its generator's state) to
+    ``replay["steps"]``, so that ``replayed_state`` can run the same
+    micro-steps outside the harness. Enter it last: its copy is taken
+    before the other wrappers' hooks are on the model."""
+    step_fn = harness.train_step
+
+    def train_step(model, state, batch, **kwargs):
+        if "model" not in replay:
+            replay["model"] = copy.deepcopy(model)
+        replay.setdefault("steps", []).append((
+            {k: v.clone() for k, v in batch.items()},
+            kwargs["generator"].get_state()))
+        return step_fn(model, state, batch, **kwargs)
+
+    harness.train_step = train_step
+    try:
+        yield
+    finally:
+        harness.train_step = step_fn
+
+
+def replayed_state(replay, trainer):
+    """The model and train state that ``loop.train_step`` gives, outside the
+    harness, from the copy ``replayable_ldm_steps`` took over the micro-steps
+    it recorded, each on its batch with its generator's state."""
+    model = replay["model"]
+    state = create_train_state(model, {
+        **trainer.model_params, "batch_size": trainer.batch_size,
+        "accumulate_grad_batches": trainer.accumulate},
+        learning_rate=trainer.learning_rate)
+    for batch, gen_state in replay["steps"]:
+        gen = torch.Generator(model.device)
+        gen.set_state(gen_state)
+        train_step(model, state, batch, generator=gen)
+    return model, state
+
+
+def adam_moments_off(model, state, ref_model, ref_state):
+    """The names of the trainable leaves whose AdamW exp_avg differs from
+    the reference's by more than 1e-4 of the leaf's L2 norm (a sum taken in
+    another order may differ in its last bits; a leaf at exactly zero must
+    stay so), the count of leaves whose exp_avg is nonzero, and the largest
+    error relative to the leaf's norm."""
+    ref = trainable_parameters(ref_model)
+    off, nonzero, worst = [], 0, 0.0
+    for k, p in trainable_parameters(model).items():
+        got = state.optimizer.state[p]["exp_avg"]
+        want = ref_state.optimizer.state[ref[k]]["exp_avg"]
+        err = torch.linalg.vector_norm(got - want).item()
+        norm = torch.linalg.vector_norm(want).item()
+        if err > 1e-4 * norm:
+            off.append(k)
+        if norm > 0:
+            nonzero += 1
+            worst = max(worst, err / norm)
+    return off, nonzero, worst
+
+
+@contextlib.contextmanager
+def watched_ldm_steps(moved, ema_moved, times):
+    """While on, each stage-2 train step of the harness appends its own
+    device-synchronised seconds to ``times``, (its global step, the number
+    of trainable leaves it changed) to ``moved`` and whether it changed the
+    EMA to ``ema_moved``; the snapshots and comparisons stay outside the
+    timed span."""
+    step_fn = harness.train_step
+
+    def train_step(model, state, batch, **kwargs):
+        params = trainable_parameters(model)
+        before = {k: p.detach().clone() for k, p in params.items()}
+        ema = {k: v.clone() for k, v in state.ema.params.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(model, state, batch, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        moved.append((state.step, sum(not torch.equal(p, before[k])
+                                      for k, p in params.items())))
+        ema_moved.append(any(not torch.equal(v, ema[k])
+                             for k, v in state.ema.params.items()))
+        return out
+
+    harness.train_step = train_step
+    try:
+        yield
+    finally:
+        harness.train_step = step_fn
+
+
+def same_state(a, b):
+    """The names of the trainable leaves, AdamW entries, EMA leaves,
+    Encoder4 and first-stage entries (batch statistics included) and
+    accumulation buffers in which two stage-2 trainers differ, and the
+    step, counts and scale factor where they differ."""
+    pa, pb = trainable_parameters(a.model), trainable_parameters(b.model)
+    sa, sb = a.state, b.state
+    off = [k for k, p in pa.items() if not torch.equal(p, pb[k])]
+    for k, p in pa.items():
+        for name, v in sa.optimizer.state[p].items():
+            w = sb.optimizer.state[pb[k]].get(name)
+            if w is None or not torch.equal(torch.as_tensor(v).cpu(),
+                                            torch.as_tensor(w).cpu()):
+                off.append(f"adamw/{k}/{name}")
+    off += [f"ema/{k}" for k, v in sa.ema.params.items()
+            if not torch.equal(v, sb.ema.params[k])]
+    for part in ("cond_stage_model", "first_stage_model"):
+        sda = getattr(a.model, part).state_dict()
+        sdb = getattr(b.model, part).state_dict()
+        off += [f"{part}/{k}" for k, v in sda.items()
+                if not torch.equal(v, sdb[k])]
+    if (sa.acc_grads is None) != (sb.acc_grads is None) or (
+            sa.acc_grads is not None and not all(
+                torch.equal(x, y) for x, y in zip(sa.acc_grads,
+                                                  sb.acc_grads))):
+        off.append("acc_grads")
+    for field in ("step", "updates", "mini_step"):
+        if getattr(sa, field) != getattr(sb, field):
+            off.append(field)
+    if not torch.equal(sa.scale_factor.cpu(), sb.scale_factor.cpu()) or \
+            sa.ema.num_updates != sb.ema.num_updates:
+        off.append("scale_factor or EMA count")
+    return off
+
+
+def faces_harness_phases(smi, card, seen, out, vq_logdir):
+    """faces-harness: ``main_val -b faces -t`` (the faces EncDiff stage of
+    ``scripts/round3_pipeline.sh``) over the faces VQ-GAN run's
+    ``checkpoints/last``, on the full face grid (cached on the host since
+    faces-vq-shapes, uploaded again), with the latents cached, 4-way
+    accumulation, the image log forced to the last micro-step, ``last``
+    and ``test()``. ``seen`` holds the rows checked in earlier phases.
+    Returns the checked rows of one micro-step's kernel calls, the other
+    checked rows (the latent encode, the image log), the run's launches,
+    the calls of one micro-step by kernel, its numbers and run
+    directory."""
+    t0 = time.perf_counter()
+    last_vq = os.path.join(vq_logdir, "checkpoints", "last")
+    n = FACES_LDM_MICRO_STEPS
+    stamps, times, moved, ema_moved, upload_s, latents_s, log_s = \
+        [], [], [], [], [], [], []
+    replay = {}
+    argv = ["-b", "faces", "-t", "--max_steps", str(n), "-l",
+            os.path.join(out, "faces"), "--seed", str(FACES_LDM_SEED),
+            "--device", "cuda",
+            f"model.params.first_stage_config.params.ckpt_path={last_vq}",
+            f"lightning.callbacks.image_logger.params.batch_frequency={n}"]
+    with contextlib.ExitStack() as stack:
+        records = stack.enter_context(recording_harness(stamps))
+        stack.enter_context(watched_ldm_steps(moved, ema_moved, times))
+        stack.enter_context(timed_calls(harness, "device_images", upload_s))
+        stack.enter_context(timed_calls(harness, "precompute_latents",
+                                        latents_s))
+        stack.enter_context(timed_calls(harness, "log_images", log_s))
+        stack.enter_context(replayable_ldm_steps(replay))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t_run = time.perf_counter()
+        trainer = main_val.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        launches, plain_calls = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        records["on"] = False
+    model, state = trainer.model, trainer.state
+    params = trainer.model_params
+    faults = []
+
+    # the first stage: the faces VQ-GAN run's generator, the widened rows of
+    # post_quant_conv at the seeded init's draws
+    fresh = LatentDiffusion({**params, "first_stage_config": {
+        **params["first_stage_config"], "ckpt_path": None}}, "cuda")
+    fresh.init_parameters(torch.Generator("cuda").manual_seed(FACES_LDM_SEED))
+    init_rows = fresh.first_stage_model.post_quant_conv.weight[:, 3:].clone()
+    del fresh
+    run_gen = generator_state(last_vq)
+    loaded = model.first_stage_model.state_dict()
+    wide = loaded["post_quant_conv.weight"]
+    off = [k for k, v in run_gen.items() if k != "post_quant_conv.weight"
+           and not torch.equal(loaded[k].cpu(), v)]
+    if off or not torch.equal(wide[:, :3].cpu(),
+                              run_gen["post_quant_conv.weight"]) \
+            or not torch.equal(wide[:, 3:], init_rows):
+        faults.append(f"first stage: {len(off)} leaves differ from the faces "
+                      f"VQ-GAN run's ({off[:4]}), or post_quant_conv's rows")
+
+    # the latent cache against a direct encode of sampled rows; scale_by_std
+    # from the first micro-batch's cached code
+    _, z = records["latents"]
+    images = harness.device_images(trainer.data.dataset("train").images,
+                                   "cuda")
+    rows = torch.from_numpy(np.sort(np.random.RandomState(SEED).choice(
+        len(images), FACES_LATENT_ROWS, replace=False))).cuda()
+    direct = model.encode_first_stage(model.split_batch(images[rows])[0])
+    torch.cuda.synchronize()
+    z_err = (z[rows] - direct).abs().max().item()
+    try:
+        torch.testing.assert_close(z[rows], direct, **LATENT_TOL)
+    except AssertionError as e:
+        faults.append(f"latent cache against a direct encode: {e}")
+    _, first = records["step"]
+    want_sf = 1.0 / first["batch"]["z"].float().reshape(-1).std(
+        unbiased=False)
+    if not torch.allclose(state.scale_factor, want_sf, rtol=1e-6, atol=0):
+        faults.append(f"scale factor {state.scale_factor.item()}, 1/std of "
+                      f"the first micro-batch's code {want_sf.item()}")
+    del direct
+
+    # the updates: the parameters move on every 4th micro-step only, AdamW
+    # steps every leaf on each update, the EMA moves from the first update
+    # on; the LR is accumulate x batch x base LR times the warm-up
+    accumulate, bs = trainer.accumulate, trainer.batch_size
+    boundary = [s for s in range(1, n + 1) if s % accumulate == 0]
+    counts = {int(st["step"]) for st in state.optimizer.state.values()}
+    if [s for s, k in moved if k] != boundary or counts != {n // accumulate} \
+            or len(state.optimizer.state) != len(
+                trainable_parameters(model)):
+        faults.append(f"(micro-step, leaves moved) {moved}; AdamW counts "
+                      f"{counts} over {len(state.optimizer.state)} leaves")
+    if ema_moved != [s >= accumulate for s in range(1, n + 1)]:
+        faults.append(f"EMA moved at {ema_moved}")
+    # at the warm-up's LRs most leaves cannot move in fp32, so the moments
+    # show the accumulated gradients: AdamW's exp_avg after the two updates
+    # must equal that of loop.train_step run outside the harness on the
+    # same micro-batches and draws
+    ref_model, ref_state = replayed_state(replay, trainer)
+    moments_off, nonzero, moments_err = adam_moments_off(
+        model, state, ref_model, ref_state)
+    if len(replay["steps"]) != n or moments_off:
+        faults.append(f"AdamW exp_avg against {len(replay['steps'])} "
+                      f"micro-steps replayed outside the harness: "
+                      f"{len(moments_off)} leaves differ "
+                      f"({moments_off[:6]})")
+    del ref_model, ref_state, replay
+    peak_lr = accumulate * bs * trainer.base_lr
+    sched = params["scheduler_config"]
+    warm = lambda k: (sched["f_start"][0] + (sched["f_max"][0]
+                      - sched["f_start"][0]) * k / sched["warm_up_steps"][0])
+    lrs = trainer.lr_monitor.history
+    if abs(trainer.learning_rate - FACES_LDM_LR) > 1e-12 * FACES_LDM_LR \
+            or abs(peak_lr - FACES_LDM_LR) > 1e-12 * FACES_LDM_LR \
+            or [s for s, _ in lrs] \
+            != list(range(1, n + 1)) or any(
+                abs(lr - peak_lr * warm((s - 1) // accumulate))
+                > 1e-6 * peak_lr * warm((s - 1) // accumulate)
+                for s, lr in lrs):
+        faults.append(f"LR {trainer.learning_rate}: (step, lr) {lrs}")
+
+    # last, test() and the image log
+    last = os.path.join(trainer.ckptdir, "last")
+    for name in (MODEL_FILE, STATE_FILE):
+        if not os.path.exists(os.path.join(last, name)):
+            faults.append(f"no {name} in {last}")
+    results_path = os.path.join(trainer.logdir, "test_results.json")
+    test_results = None
+    if os.path.exists(results_path):
+        with open(results_path) as f:
+            test_results = json.load(f)
+    if test_results != {}:
+        faults.append(f"test_results.json {test_results}, {{}} expected "
+                      "(eval_name null)")
+    root = os.path.join(trainer.logdir, "images", "train")
+    logged = sorted(os.listdir(root)) if os.path.isdir(root) else []
+    want_logs = sorted(f"{k}_gs-{n:06}.npy" for k in (
+        "inputs", "reconstruction", "conditioning", "diffusion_row",
+        "samples"))
+    if logged != want_logs or not all(np.isfinite(np.load(
+            os.path.join(root, f))).all() for f in logged):
+        faults.append(f"image logs {logged}, {want_logs} expected")
+
+    # last resumes bit for bit: -r builds a trainer whose restored state
+    # equals the run's
+    resumed = main_val.main(["-r", trainer.logdir, "--no-test", "--device",
+                             "cuda"])
+    resumed._ensure_state()
+    differ = same_state(trainer, resumed)
+    if differ:
+        faults.append(f"-r {trainer.logdir}: the restored state differs in "
+                      f"{len(differ)} entries: {differ[:6]}")
+    del resumed
+
+    # the launches: the micro-steps', the latent encode's and the image log's
+    step_shapes, _ = records["step"]
+    latent_shapes, _ = records["latents"]
+    want = {k: n * len(step_shapes.get(k, ()))
+            + len(latent_shapes.get(k, ()))
+            + sum(len(p.get(k, ())) for p in records["logs"]) for k in KERNELS}
+    if launches != want or any(plain_calls.values()) \
+            or len(records["logs"]) != 1:
+        faults.append(f"launches {launches}, expected {want} ({n} "
+                      f"micro-steps, the latent encode, "
+                      f"{len(records['logs'])} image log); plain calls "
+                      f"{plain_calls}")
+    kgen = torch.Generator("cuda").manual_seed(SEED + 9)
+    step_rows = {name: check_rows(name, step_shapes[name], kgen, card, seen)
+                 for name in KERNELS if step_shapes.get(name)}
+    seen = {**seen, **seen_rows(step_rows)}
+    other = {name: [s for part in (latent_shapes, *records["logs"])
+                    for s in part.get(name, ())] for name in KERNELS}
+    other_rows = {name: check_rows(name, shapes, kgen, card, seen)
+                  for name, shapes in other.items() if shapes}
+    print_yardstick("faces-harness (micro-step)", step_rows)
+    print_yardstick("faces-harness (latent encode, image log)", other_rows)
+    if faults:
+        raise RuntimeError("faces-harness: " + "; ".join(faults))
+    steady = times[1:]  # micro-steps 2..n, each timed on its own
+    micro_ms = sorted(steady)[len(steady) // 2] * 1e3
+    update_ms = sum(times[-accumulate:]) * 1e3
+    host = trainer.data.dataset("train").images
+    numbers = dict(upload_s=upload_s[0], latents_s=latents_s[0],
+                   micro_ms=micro_ms, update_ms=update_ms,
+                   image_log_s=log_s[0], peak_mib=peak / 2**20,
+                   run_s=run_s, first_micro_ms=times[0] * 1e3)
+    phase("faces-harness", t0, f"main_val -b faces -t --max_steps {n} over "
+          f"{last_vq} (seed {FACES_LDM_SEED}), micro-batch {bs} x "
+          f"accumulation {accumulate} on the {len(host)}-image grid: upload "
+          f"{upload_s[0]:.3f}s, latent cache {latents_s[0]:.3f}s "
+          f"({tuple(z.shape)}, {z.numel() * 4 / 2**20:.1f} MiB, chunks of "
+          f"{latent_shapes['groupnorm_silu'][0][0][0]}), {micro_ms:.3f} ms "
+          f"per micro-step (median of micro-steps 2-{n}, each timed on its "
+          f"own; first {times[0] * 1e3:.1f} ms), {update_ms:.3f} ms per "
+          f"update (micro-steps {n - accumulate + 1}-{n}), image log "
+          f"{log_s[0]:.3f}s, the run {run_s:.3f}s, peak memory "
+          f"{peak / 2**20:.1f} MiB (the grid's {host.nbytes / 2**20:.1f} "
+          f"MiB included); launches {launches} (expected), plain calls "
+          f"{plain_calls}; the first stage is the faces VQ-GAN run's with "
+          f"post_quant_conv's 20 widened rows at the seeded init; the "
+          f"latent cache matches a direct encode of {FACES_LATENT_ROWS} rows "
+          f"(max_abs_err {z_err:.3e}, tol {LATENT_TOL}); scale factor "
+          f"{state.scale_factor.item():.7f}; parameters moved at "
+          f"micro-steps {boundary} only ({[k for _, k in moved if k]} of "
+          f"{len(trainable_parameters(model))} leaves: the warm-up's LRs "
+          f"{[f'{lr:.3e}' for _, lr in lrs[accumulate - 1::accumulate]]}), "
+          f"AdamW count {n // accumulate} on every leaf, its exp_avg equal "
+          f"to that of {n} micro-steps of loop.train_step replayed outside "
+          f"the harness (nonzero on {nonzero} of "
+          f"{len(state.optimizer.state)} leaves, largest error "
+          f"{moments_err:.3e} of the leaf's norm, tol 1e-4), "
+          f"the EMA from "
+          f"micro-step {accumulate} on; LR {trainer.learning_rate:.3e} x "
+          f"warm-up; -r restores the run's state bit for bit; test() "
+          f"{test_results}; every kernel matches its plain version at every "
+          f"shape of the run (tol {KERNEL_TOL}) | {smi}")
+    logdir = trainer.logdir
+    del trainer, model, state, images, z
+    records.clear()
+    harness.clear_device_cache()
+    torch.cuda.empty_cache()
+    return step_rows, other_rows, launches, step_shapes, numbers, logdir
+
+
+@contextlib.contextmanager
+def recorded_models(calls):
+    """While on, every model the eval CLIs load (``load_model`` of
+    ``generate_swap``, ``fid`` and ``tad``) records the shape of each kernel
+    call into ``calls`` (kernel -> shapes)."""
+    modules = (generate_swap, fid_cli, tad_cli)
+    load = generate_swap.load_model
+    removers = []
+
+    def load_model(*args, **kwargs):
+        model = load(*args, **kwargs)
+        records, remove = record_shapes(model)
+        removers.append(remove)
+        calls.append(records)
+        return model
+
+    for m in modules:
+        m.load_model = load_model
+    try:
+        yield
+    finally:
+        for m in modules:
+            m.load_model = load
+        for remove in removers:
+            remove()
+
+
+def faces_eval_phase(smi, card, seen, out, run_dir):
+    """faces-eval: ``python -m encdiff_tpu_torch.faces_eval`` (the port of
+    ``scripts/round3_faces_eval.sh``) on the faces-harness run's
+    ``checkpoints/last`` with ``--tad_num FACES_TAD_NUM --fid_num
+    FACES_EVAL_FID_NUM`` (DDIM 50): the eval file,
+    ``tad``, ``fid`` (rows of the full grid) and ``generate_swap --config
+    faces``, each CLI's ``main`` with the launch counters set to 0 just
+    before and read just after, which must equal its recorded calls;
+    every kernel at every recorded shape against its plain version.
+    Returns the checked rows by kernel and the launches by CLI."""
+    t0 = time.perf_counter()
+    last = os.path.join(run_dir, "checkpoints", "last")
+    evaldir = os.path.join(out, "faces_eval")
+    size = FACES["first_stage_config"]["ddconfig"]["resolution"]
+    launches, results, shapes, faults = {}, {}, {}, []
+
+    def counted(name, fn):
+        def main(argv):
+            calls = []
+            with recorded_models(calls):
+                torch.cuda.synchronize()
+                reset_counts()
+                results[name] = fn(argv)
+                torch.cuda.synchronize()
+                launches[name], plain_calls = read_counts()
+            recorded = {k: [s for c in calls for s in c.get(k, ())]
+                        for k in KERNELS}
+            shapes[name] = recorded
+            want = {k: len(v) for k, v in recorded.items()}
+            if launches[name] != want or any(plain_calls.values()) \
+                    or len(calls) != 1:
+                faults.append(f"{name}: launches {launches[name]}, recorded "
+                              f"{want}; plain calls {plain_calls}; "
+                              f"{len(calls)} models")
+            return results[name]
+        return main
+
+    clis = {"tad": tad_cli, "fid": fid_cli, "swap": generate_swap}
+    mains = {name: m.main for name, m in clis.items()}
+    for name, m in clis.items():
+        m.main = counted(name, mains[name])
+    try:
+        chain = faces_eval.main([
+            "-r", last, "--out", evaldir, "--tad_num", str(FACES_TAD_NUM),
+            "--fid_num", str(FACES_EVAL_FID_NUM), "--device", "cuda"])
+    finally:
+        for name, m in clis.items():
+            m.main = mains[name]
+    walls = chain["walls_s"]
+    if sorted(results) != sorted(clis) or sorted(walls) != sorted(
+            ["eval_npz", *clis]):
+        faults.append(f"faces_eval ran {sorted(results)}, timed "
+                      f"{sorted(walls)}")
+    with np.load(os.path.join(evaldir, "test_faces.npz")) as f:
+        if f["data"].shape != (FACES_TAD_NUM, size, size, 3):
+            faults.append(f"eval file {f['data'].shape}")
+    tad_r = results["tad"]
+    if not 0 <= tad_r["tad_score"] or not np.isfinite(tad_r["tad_score"]) \
+            or len(tad_r["max_auroc"]) != len(synthetic_faces.FACE_ATTR_NAMES):
+        faults.append(f"tad {tad_r['tad_score']}")
+    fid_r = results["fid"]
+    if fid_r["num"] != FACES_EVAL_FID_NUM or not np.isfinite(fid_r["fid"]):
+        faults.append(f"fid {fid_r}")
+    grid = np.load(os.path.join(evaldir, "swap", "swap_full_grid.npy"))
+    n_units = FACES["unet_config"]["latent_unit"]
+    if grid.shape != (FACES_INPUTS * (1 + n_units), size, size, 3) or not \
+            np.isfinite(grid).all():
+        faults.append(f"swap grid {grid.shape}")
+    kgen = torch.Generator("cuda").manual_seed(SEED + 10)
+    merged = {k: [s for v in shapes.values() for s in v[k]] for k in KERNELS}
+    rows = {name: check_rows(name, v, kgen, card, seen)
+            for name, v in merged.items() if v}
+    print_yardstick("faces-eval", rows)
+    if faults:
+        raise RuntimeError("faces-eval: " + "; ".join(faults))
+    phase("faces-eval", t0, f"faces_eval -r {last}: eval file of "
+          f"{FACES_TAD_NUM} faces {walls['eval_npz']:.3f}s; tad "
+          f"{walls['tad']:.3f}s (TAD "
+          f"{tad_r['tad_score']:.6f}, {tad_r['attributes_captured']} "
+          f"attributes captured); fid --num {FACES_EVAL_FID_NUM} --ddim_steps "
+          f"{faces_eval.DDIM_STEPS} --eta 1 {walls['fid']:.3f}s (FID "
+          f"{fid_r['fid']:.6f}, uncalibrated); generate_swap --num_samples "
+          f"{FACES_INPUTS} --ddim_steps {faces_eval.DDIM_STEPS} "
+          f"{walls['swap']:.3f}s ({grid.shape[0]} images); launches "
+          f"{ {k: {n: c for n, c in v.items() if c} for k, v in launches.items()} } "
+          f"(each the recorded calls), no plain call; every kernel matches "
+          f"its plain version at every recorded shape (tol {KERNEL_TOL}) "
+          f"| {smi}")
+    return rows, launches
 
 
 if __name__ == "__main__":

@@ -46,6 +46,18 @@ callback (8 samples, DDIM 200). That YAML's own dataset, the v1 renderer's
 committed checkpoint was trained on v4. ``tests/test_torch_mcl_config.py``
 holds it to both YAMLs.
 
+``FACES_RUN`` is the whole ``configs/demo/synthetic-faces-encdiff.yaml``
+(``-b faces``): ``FACES`` with the YAML's other model fields (no
+validation metrics, ``eval_name`` null; the default monitor checkpoint on
+``train/loss_simple``; the LR warm-up of 10,000), the first stage's
+``monitor``, ``dtype``, ``ckpt_path`` (null: the pipeline passes a
+``-b faces_vq`` run's ``checkpoints/last`` by override) and identity
+``lossconfig``; ``SyntheticFacesTrain`` at 256 px as train and validation
+data, micro-batch 8; the image logger every 10,000 steps (8 images, no
+swap, inpainting or progressive rows), 4-way accumulation, 4 epochs,
+validation every epoch. ``tests/test_torch_faces_ldm_ingest.py`` holds it
+equal to the YAML.
+
 ``FACES`` and ``FACES_TRAIN`` hold the model and training fields of
 ``configs/demo/synthetic-faces-encdiff.yaml``: 256 px images of the
 procedural face grid on 64x64x3 latents, micro-batch 8 with 4-way gradient
@@ -331,5 +343,67 @@ FLAGSHIP_MCL_RUN = {
                 "params": {"num_samples": 8, "ddim_steps": 200},
             },
         },
+    },
+}
+
+
+FACES_RUN = {
+    "model": {
+        "base_learning_rate": 2.0e-06,
+        "params": {
+            **FACES,
+            "num_timesteps_cond": 1,
+            "log_every_t": 200,
+            "first_stage_key": "image",
+            "cond_stage_key": "image",
+            "cond_stage_trainable": True,
+            "concat_mode": False,
+            "monitor": "train/loss_simple",
+            "conditioning_key": "crossattn",
+            "eval_name": None,
+            "scheduler_config": dict(FLAGSHIP_TRAIN["scheduler_config"]),
+            "first_stage_config": {
+                **FACES["first_stage_config"],
+                "monitor": "val/rec_loss",
+                "dtype": "bfloat16",
+                "ckpt_path": None,
+                "lossconfig": {"target": "torch.nn.Identity"},
+            },
+        },
+    },
+    "data": {
+        "target": "encdiff_tpu_torch.train.data.DataModuleFromConfig",
+        "params": {
+            "batch_size": 8,
+            "num_workers": 8,
+            "wrap": True,
+            "train": {"target": "encdiff_tpu_torch.data.synthetic_faces."
+                                "SyntheticFacesTrain",
+                      "params": {"image_size": 256}},
+            "validation": {"target": "encdiff_tpu_torch.data.synthetic_faces."
+                                     "SyntheticFacesTrain",
+                           "params": {"image_size": 256}},
+        },
+    },
+    "lightning": {
+        "callbacks": {
+            "image_logger": {
+                "target": "encdiff_tpu_torch.train.callbacks.ImageLogger",
+                "params": {
+                    "log_config": {
+                        "target": "encdiff_tpu_torch.train.callbacks.Record",
+                        "params": {"plot_image": True},
+                    },
+                    "batch_frequency": 10000,
+                    "max_images": 8,
+                    "increase_log_steps": False,
+                    "log_images_kwargs": {"inpaint": False,
+                                          "sample_swap": False,
+                                          "plot_progressive_rows": False},
+                },
+            },
+        },
+        "trainer": {"benchmark": True, "accumulate_grad_batches": 4,
+                    "max_epochs": 4, "check_val_every_n_epoch": 1},
     },
 }

@@ -11,6 +11,8 @@ the flax variable tree, with weight tensors stored as float16 and scalars
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 _SEP = "/"
@@ -48,6 +50,18 @@ def load_compact(path: str) -> dict:
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     return _unflatten(flat)
+
+
+#: the compact file of a harness checkpoint directory
+#: (``train.checkpoint_io``)
+MODEL_FILE = "model.npz"
+
+
+def checkpoint_npz(path: str) -> str:
+    """The compact ``.npz`` of ``path``: ``path`` itself, or a harness
+    checkpoint directory's ``model.npz`` (``checkpoints/last``,
+    ``checkpoints/<monitor>``)."""
+    return os.path.join(path, MODEL_FILE) if os.path.isdir(path) else path
 
 
 def load_model_variables(path: str) -> tuple[dict, float]:

@@ -19,6 +19,12 @@ about 7 minutes for the 240 blocks of the full grid.
 
 Factor order: background, skin, hair_color, hair_length, face_width, smile,
 eye_size.
+
+``face_attributes`` and ``write_eval_npz`` are copies of the JAX module's
+(:176-200, :291-304): the 18 CelebA-style binary attributes of each face,
+and the eval file of the TAD protocol (``data`` images, ``targ``
+attributes, ``attr_names``) drawn from the full grid, which
+``python -m encdiff_tpu_torch.tad`` reads.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 FACE_FACTOR_SIZES = [8, 5, 6, 4, 4, 3, 3]
+N_FACES = int(np.prod(FACE_FACTOR_SIZES))  # 34,560
 #: the sub-grid the port trains on: 512 images, every geometry extreme
 TRAIN_GRID = (4, 2, 2, 4, 2, 2, 2)
 
@@ -216,6 +223,29 @@ def face_factors(n: int | None = None, factor_sizes=None) -> np.ndarray:
                     axis=1)
 
 
+_HAIR_NAMES = ["Black_Hair", "Brown_Hair", "Blond_Hair", "Red_Hair",
+               "Gray_Hair", "Dyed_Hair"]
+#: binary attribute names (CelebA-style) derived from the factor grid
+FACE_ATTR_NAMES = _HAIR_NAMES + [
+    "Bald", "Long_Hair", "Short_Hair", "Wide_Face", "Narrow_Face",
+    "Smiling", "Frowning", "Big_Eyes", "Small_Eyes", "Pale_Skin",
+    "Dark_Skin", "Cool_Background",
+]
+
+
+def face_attributes(n: int | None = None, factor_sizes=None) -> np.ndarray:
+    """(N, 18) float32 binary attributes (``FACE_ATTR_NAMES``) of the grid's
+    images in index order, for the TAD protocol. The geometry factors'
+    extremes name the attributes of the full grid's sizes."""
+    f = face_factors(n, factor_sizes)
+    bg, sk, hc, ln, wd, sm, ey = (f[:, i] for i in range(7))
+    cols = [hc == i for i in range(6)]  # hair colours
+    cols += [ln == 0, ln == 3, ln == 1, wd == 3, wd == 0,
+             sm == 2, sm == 0, ey == 2, ey == 0, sk == 0, sk == 4,
+             np.isin(bg, [0, 2, 5])]
+    return np.stack(cols, axis=1).astype(np.float32)
+
+
 _CACHE: dict[tuple, np.ndarray] = {}
 
 
@@ -252,3 +282,19 @@ class SyntheticFaces:
 
 class SyntheticFacesTrain(SyntheticFaces):
     pass
+
+
+def write_eval_npz(path: str, image_size: int = 256, num: int = 4096,
+                   seed: int = 0, device=None) -> str:
+    """Write the TAD protocol's eval file (``test_celeba.npz``'s format:
+    ``data`` uint8 images, ``targ`` binary attributes, ``attr_names``):
+    ``num`` faces drawn with ``RandomState(seed).choice`` from the grid of
+    ``SyntheticFaces`` (composed on ``device``), in index order."""
+    rs = np.random.RandomState(seed)
+    ds = SyntheticFaces(image_size, device=device)
+    sel = np.sort(rs.choice(len(ds.images), size=min(num, len(ds.images)),
+                            replace=False))
+    targ = face_attributes(factor_sizes=ds.factor_sizes)[sel]
+    np.savez(path, data=ds.images[sel], targ=targ,
+             attr_names=np.array(FACE_ATTR_NAMES))
+    return path

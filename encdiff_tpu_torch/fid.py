@@ -1,20 +1,22 @@
 """FID between real images and DDIM reconstructions.
 
 Counterpart of ``scripts/celeba_fid.py`` for the faces configuration,
-without ``--feature_probe_npz``. Real images are drawn with
-``RandomState(0).choice`` from the face renderer's ``TRAIN_GRID`` (512
-images at 256 px; the full 34,560-image grid takes 6.8 GB), so ``--num`` is
-at most 512. Each batch is reconstructed as the script's ``sample_batch``
+without ``--feature_probe_npz``. Real images are drawn as the script draws
+them, ``RandomState(0).choice(34560, num)``, from the full face grid of
+``SyntheticFacesTrain`` (6.8 GB at 256 px, its colour blocks composed on
+``--device``), so ``--num`` may be up to 34,560 (the eval chain's is
+2,048). Each batch is reconstructed as the script's ``sample_batch``
 does it: Encoder4's code of the real images conditions a DDIM chain from
 noise (a generator seeded with the batch's first index), and the VQ decoder
 maps the latents to images. Inception pool3 features of both sets give the
 Fréchet distance: with ``--inception_weights`` (a pytorch-fid
 ``pt_inception`` state_dict) calibrated, else from a seeded random init,
-uncalibrated. Without ``-r`` the model is a fresh init drawn from
-``--seed`` (no faces weights are committed). Prints and optionally writes
-``{"fid", "num", "mode", "calibrated"}``.
+uncalibrated. ``-r`` takes a compact ``.npz`` or a harness checkpoint
+directory (``<run>/checkpoints/last``); without it the model is a fresh
+init drawn from ``--seed``. Prints and optionally writes ``{"fid", "num",
+"mode", "calibrated"}``.
 
-    python -m encdiff_tpu_torch.fid --config faces [-r <ckpt.npz>] \\
+    python -m encdiff_tpu_torch.fid --config faces [-r <ckpt>] \\
         --num 2048 --batch_size 64 --ddim_steps 50 [--eta 1] \\
         [--inception_weights pt.pth] [--out fid.json] [--device cuda]
 """
@@ -27,17 +29,24 @@ import json
 import numpy as np
 import torch
 
+from encdiff_tpu_torch.data import synthetic_faces
 from encdiff_tpu_torch.evalx import fid as fid_lib
-from encdiff_tpu_torch.generate_swap import input_grid, load_model
+from encdiff_tpu_torch.generate_swap import CONFIGS, load_model
 
 
-def real_images(num: int, config: str = "faces") -> np.ndarray:
-    """``num`` uint8 images of ``input_grid(config)``, drawn as the script
-    draws them."""
-    images = input_grid(config)
-    idx = np.random.RandomState(0).choice(len(images), size=num,
-                                          replace=False)
-    return images[idx]
+def real_indices(num: int, n: int) -> np.ndarray:
+    """The grid rows of the real images: ``RandomState(0).choice(n, num)``
+    without replacement, in the drawn order."""
+    return np.random.RandomState(0).choice(n, size=num, replace=False)
+
+
+def real_images(num: int, config: str = "faces", device=None) -> np.ndarray:
+    """``num`` uint8 images of the configuration's full face grid, at
+    ``real_indices``; the grid's colour blocks are composed on ``device``
+    (``SyntheticFaces``) and it stays cached for the process."""
+    size = CONFIGS[config]["first_stage_config"]["ddconfig"]["resolution"]
+    images = synthetic_faces.SyntheticFacesTrain(size, device=device).images
+    return images[real_indices(num, len(images))]
 
 
 @torch.no_grad()
@@ -70,7 +79,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", choices=("faces",), default="faces")
     ap.add_argument("-r", "--ckpt", default=None,
-                    help="compact .npz; a fresh init from --seed without")
+                    help="compact .npz or harness checkpoint directory; a "
+                         "fresh init from --seed without")
     ap.add_argument("--num", type=int, default=512)
     ap.add_argument("--batch_size", type=int, default=64)
     ap.add_argument("--ddim_steps", type=int, default=200)
@@ -82,7 +92,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     model = load_model(args.config, args.ckpt, args.seed, args.device)
-    real = real_images(args.num, args.config)
+    real = real_images(args.num, args.config, model.device)
     gen = reconstructions(model, real, args.batch_size, args.ddim_steps,
                           args.eta)
     if args.inception_weights:

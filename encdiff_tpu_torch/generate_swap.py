@@ -6,13 +6,15 @@ drawn with ``RandomState(seed).choice``, as the script draws them, from a
 sub-grid of the configuration's renderer: the v4 Shapes3D stand-in's
 ``INPUT_GRID`` (64 images at 64 px; the full 480,000-image grid takes
 5.9 GB) or the face renderer's ``TRAIN_GRID`` (512 images at 256 px; the
-full grid takes 6.8 GB). Without ``-r`` the model is a fresh init drawn
-from ``--seed`` (no faces weights are committed). Writes
+full grid takes 6.8 GB). ``-r`` takes a compact ``.npz`` or a harness
+checkpoint directory (``<run>/checkpoints/last``, read through its
+``model.npz``); without it the model is a fresh init drawn from
+``--seed``. Writes
 ``swap_full_grid.npy`` (inputs, then the factor-major swaps, NHWC in
 [-1, 1]) and ``factor_correspondence.json``.
 
     python -m encdiff_tpu_torch.generate_swap [--config faces] \
-        [-r <ckpt.npz>] --num_samples 8 --ddim_steps 200 --eta 0 \
+        [-r <ckpt>] --num_samples 8 --ddim_steps 200 --eta 0 \
         --seed 42 --out <dir> [--device cuda]
 
 The faces eval chain (``scripts/round3_faces_eval.sh``) runs it as
@@ -78,8 +80,9 @@ def pick_inputs(num_samples: int, seed: int,
 
 def load_model(config: str, ckpt: str | None, seed: int,
                device) -> LatentDiffusion:
-    """The model of ``CONFIGS[config]`` with a compact checkpoint's weights,
-    or without ``ckpt`` a fresh init drawn from ``seed``."""
+    """The model of ``CONFIGS[config]`` with the weights of ``ckpt`` (a
+    compact ``.npz`` or a harness checkpoint directory), or without
+    ``ckpt`` a fresh init drawn from ``seed``."""
     if ckpt:
         return LatentDiffusion.from_checkpoint(ckpt, device=device,
                                                config=CONFIGS[config])
@@ -92,7 +95,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", choices=tuple(CONFIGS), default="flagship")
     ap.add_argument("-r", "--ckpt", default=None,
-                    help="compact .npz; a fresh init from --seed without")
+                    help="compact .npz or harness checkpoint directory; a "
+                         "fresh init from --seed without")
     ap.add_argument("--num_samples", type=int, default=8)
     ap.add_argument("--ddim_steps", type=int, default=200)
     ap.add_argument("--eta", type=float, default=0.0)

@@ -10,19 +10,28 @@ gives (reconstruction, codebook loss, code indices).
 ``VQModelInterface`` encodes without quantizing (the LDM diffuses the
 continuous pre-quant latent); its ``decode`` quantizes, concatenates the
 disentangled scalars broadcast over the latent grid (zero-filled when none
-are given), then runs ``post_quant_conv`` and the Decoder.
+are given), then runs ``post_quant_conv`` and the Decoder. Its
+``ckpt_path`` names a trained first stage, which ``load_ckpt_path`` loads
+over the seeded fresh init (``load_generator``: the JAX ``init_variables``
+with ``load_reference_checkpoint``, :230-291); ``LatentDiffusion``'s
+``init_parameters`` calls it after its draws.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 from torch import nn
 
+from encdiff_tpu_torch import convert
+from encdiff_tpu_torch.core.compact_ckpt import load_compact
 from encdiff_tpu_torch.core.config import instantiate_from_config
 from encdiff_tpu_torch.nn.encoder4 import BatchNorm
 from encdiff_tpu_torch.nn.layers import GNSiLU, TorchConv
 from encdiff_tpu_torch.nn.quantize import VectorQuantizer
 from encdiff_tpu_torch.nn.vae import Decoder, Encoder
+from encdiff_tpu_torch.train.checkpoint_io import STATE_FILE
 
 #: the generator's submodules: what the generator's optimizer trains
 GENERATOR = ("encoder", "quant_conv", "quantize", "post_quant_conv",
@@ -176,16 +185,89 @@ class VQModel(nn.Module):
         return self(x, disentangled_repr)[0]
 
 
+def generator_state(path: str) -> dict[str, torch.Tensor]:
+    """The VQ generator's state dict (``GENERATOR`` leaves) of a trained
+    first stage: a compact ``.npz`` (``state/gen_params``: a VQ-GAN run's
+    ``compact_last.npz``, the JAX package's ``v4vq_fp16.npz``) or a VQ-GAN
+    checkpoint directory of the port (``<path>/train_state.pt``, whose
+    ``model`` entry ``train.harness`` writes as the fp32 state dict). A
+    Lightning ``.ckpt`` raises ``NotImplementedError``."""
+    if path.endswith(".ckpt"):
+        raise NotImplementedError(
+            f"{path}: importing a Lightning .ckpt first stage "
+            "(core/checkpoints.load_torch_vq_checkpoint) is not ported "
+            "(ROADMAP queue 1 #15)")
+    if os.path.isdir(path):
+        saved = torch.load(os.path.join(path, STATE_FILE),
+                           map_location="cpu", weights_only=True)["model"]
+        return {k: v for k, v in saved.items()
+                if k.split(".", 1)[0] in GENERATOR}
+    if path.endswith(".npz"):
+        tree = load_compact(path)
+        state = tree.get("state", tree)
+        return convert.flax_to_state_dict(state.get("gen_params", state))
+    raise ValueError(f"{path}: a first-stage checkpoint is a compact .npz "
+                     "or a VQ-GAN checkpoint directory")
+
+
 class VQModelInterface(VQModel):
     """The VQ model as EncDiff's first stage: ``encode`` does not quantize;
-    built from the config's ``first_stage_config`` fields."""
+    built from the config's ``first_stage_config`` fields. ``ignore_keys``
+    filters only a Lightning ``.ckpt`` in the JAX interface, which is not
+    ported; the frozen first stage computes no loss, so ``lossconfig`` may
+    only name the configs' ``torch.nn.Identity``; parameters are fp32
+    whatever ``dtype`` names."""
 
     def __init__(self, embed_dim: int, n_embed: int, ddconfig: dict,
                  use_disentangled_concat: bool = False,
-                 disentangled_dim: int = 0):
+                 disentangled_dim: int = 0, ckpt_path: str | None = None,
+                 ignore_keys=(), monitor=None, lossconfig=None, dtype=None):
+        del ignore_keys, dtype
+        if lossconfig is not None and lossconfig.get("target") != \
+                "torch.nn.Identity":
+            raise NotImplementedError(
+                f"first_stage_config.lossconfig {lossconfig.get('target')!r}"
+                ": the frozen first stage trains no loss")
         super().__init__(ddconfig, n_embed=n_embed, embed_dim=embed_dim,
+                         monitor=monitor,
                          use_disentangled_concat=use_disentangled_concat,
                          disentangled_dim=disentangled_dim)
+        self.ckpt_path = ckpt_path
+
+    def load_ckpt_path(self) -> None:
+        """Load the generator of ``ckpt_path``, if one is set, over the
+        current weights (``load_generator``)."""
+        if self.ckpt_path is not None:
+            self.load_generator(generator_state(self.ckpt_path))
+
+    @torch.no_grad()
+    def load_generator(self, sd: dict) -> None:
+        """Copy a trained generator's leaves (``generator_state``) over this
+        interface's. Where the interface concatenates the disentangled
+        scalars and the checkpoint's ``post_quant_conv`` reads only the
+        latent's channels, those input channels are copied and the
+        ``disentangled_dim`` others keep their values (the JAX widening of
+        :276-283). Raises on any other shape mismatch, and on a leaf
+        missing on either side."""
+        own = self.state_dict()
+        missing = sorted(set(own) - set(sd))
+        unexpected = sorted(set(sd) - set(own))
+        if missing or unexpected:
+            raise KeyError(f"first-stage checkpoint: missing {missing[:4]}, "
+                           f"unexpected {unexpected[:4]}")
+        for k, v in sd.items():
+            dst = own[k]
+            if dst.shape == v.shape:
+                dst.copy_(v)
+            elif (k == "post_quant_conv.weight" and self.disentangled_dim
+                  and v.dim() == 4 and dst.shape[0] == v.shape[0]
+                  and dst.shape[2:] == v.shape[2:]
+                  and dst.shape[1] == v.shape[1] + self.disentangled_dim):
+                dst[:, :v.shape[1]] = v
+            else:
+                raise ValueError(f"first-stage checkpoint: shape mismatch "
+                                 f"at {k}: {tuple(v.shape)} vs "
+                                 f"{tuple(dst.shape)}")
 
     def encode(self, x):
         """x: (B, in_channels, H, W) in [-1, 1] -> the pre-quant latent

@@ -25,7 +25,8 @@ from torch import nn
 
 from encdiff_tpu_torch import convert
 from encdiff_tpu_torch.configs import FLAGSHIP
-from encdiff_tpu_torch.core.compact_ckpt import load_model_variables
+from encdiff_tpu_torch.core.compact_ckpt import (checkpoint_npz,
+                                                 load_model_variables)
 from encdiff_tpu_torch.core.device import resolve_device
 from encdiff_tpu_torch.core.schedules import DDIMSchedule, DiffusionSchedule
 from encdiff_tpu_torch.diffusion.ddim import ddim_sample
@@ -167,9 +168,11 @@ class LatentDiffusion(nn.Module):
     def from_checkpoint(cls, path: str, device="cuda",
                         config: dict = FLAGSHIP) -> "LatentDiffusion":
         """The model of ``config`` (the flagship by default) with the
-        weights of a compact ``.npz`` checkpoint."""
+        weights of a compact ``.npz`` checkpoint, or of a harness checkpoint
+        directory (its ``model.npz``); the file's own first stage replaces
+        any ``ckpt_path``'s."""
         model = cls(config, device)
-        model.load_variables(*load_model_variables(path))
+        model.load_variables(*load_model_variables(checkpoint_npz(path)))
         return model
 
     def load_variables(self, variables: dict, scale_factor: float,
@@ -206,7 +209,11 @@ class LatentDiffusion(nn.Module):
         the zero-initialised outputs (each UNet ResBlock's and the UNet's
         ``out_conv``, each SpatialTransformer's ``proj_out``), the warp MLPs
         U(±1/√fan_in) by layer, the codebook U(±1/n_embed), norms at ones and
-        zeros, BatchNorm statistics at 0 and 1. The scale factor is 1."""
+        zeros, BatchNorm statistics at 0 and 1. The scale factor is 1. A
+        first stage with a ``ckpt_path`` then loads its trained generator
+        over the draws (``VQModelInterface.load_ckpt_path``: the widened
+        rows of ``post_quant_conv`` keep theirs), as the JAX first stage's
+        ``init_variables`` does."""
         zero = {self.unet.out_conv}
         for m in self.unet.modules():
             if isinstance(m, ResBlock):
@@ -247,6 +254,7 @@ class LatentDiffusion(nn.Module):
             done.update(id(t) for t in own)
         assert done == {id(t) for t in self.parameters()}
         self.scale_factor = 1.0
+        self.first_stage_model.load_ckpt_path()
 
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)

@@ -23,7 +23,8 @@ import torch
 from encdiff_tpu_torch.nn.kernels import (build, check_cuda_tensor,
                                           check_rows_aligned, head_strides,
                                           kernel_rows, launch_stream,
-                                          raise_on_error, takes_plain)
+                                          plain_route, raise_on_error,
+                                          takes_plain)
 
 #: head sizes the kernels take (csrc/flash_attention.cu)
 FWD_HEAD_SIZES = (8, 16, 128)
@@ -188,7 +189,12 @@ flash_attention_dkdv.plain_calls = 0
 
 class _FlashAttention(torch.autograd.Function):
     """``flash_attention`` with the saved-lse backward: q, k, v, o and lse
-    are saved, as the JAX ``_flash_core_fwd`` saves them."""
+    are saved, as the JAX ``_flash_core_fwd`` saves them. The dq and dk/dv
+    kernels' outputs have no ``grad_fn``, so a second order (autograd
+    recording inside the backward, ``create_graph``) raises
+    ``NotImplementedError`` on the kernel route rather than treating the
+    attention's terms as constants; the plain route, which the CPU takes,
+    records the plain backward's ops."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -200,6 +206,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        if torch.is_grad_enabled() and not plain_route(do):
+            raise NotImplementedError(
+                "a second derivative through the flash attention "
+                "(create_graph) is not ported to the card (ROADMAP queue 1 "
+                f"#12); q {tuple(q.shape)}")
         do = kernel_rows(do)
         delta = (do.float() * o.float()).sum(dim=-1).contiguous()
         dq = flash_attention_dq(q, k, v, do, lse, delta, ctx.scale)

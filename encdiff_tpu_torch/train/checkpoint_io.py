@@ -34,11 +34,11 @@ import numpy as np
 import torch
 
 from encdiff_tpu_torch import convert
-from encdiff_tpu_torch.core.compact_ckpt import (load_compact, model_variables,
+from encdiff_tpu_torch.core.compact_ckpt import (MODEL_FILE, checkpoint_npz,
+                                                 load_compact, model_variables,
                                                  save_compact)
 from encdiff_tpu_torch.train.loop import trainable_parameters
 
-MODEL_FILE = "model.npz"
 STATE_FILE = "train_state.pt"
 _STATS = ("running_mean", "running_var", "num_batches_tracked")
 
@@ -46,7 +46,8 @@ _STATS = ("running_mean", "running_var", "num_batches_tracked")
 def fresh_variables(model) -> dict:
     """The variable tree of ``model``'s current weights on the paths the
     port gives a model it initialised (``convert.state_dict_tree``: without
-    the flax wrappers' inner levels), as the save template of a run that
+    the flax wrappers' inner levels; the first stage and the MCL heads with
+    them, ``convert.flax_variables``), as the save template of a run that
     was not restored from a JAX file."""
     cond = model.cond_stage_model.state_dict()
     params = convert.state_dict_tree(
@@ -56,8 +57,10 @@ def fresh_variables(model) -> dict:
         "unet": {"params": convert.state_dict_tree(model.unet.state_dict())},
         "cond": {"params": params, "batch_stats": convert.state_dict_tree(
             {k: v for k, v in cond.items() if k.endswith(_STATS[:2])})},
-        "first_stage": {"params": convert.state_dict_tree(
-            model.first_stage_model.state_dict())},
+        # with the flax wrapper levels, as the MCL heads below: the JAX
+        # loaders apply the first stage's tree as it is saved
+        "first_stage": {"params": convert.flax_variables(
+            model.first_stage_model)[0]},
     }
     if model.mcl is not None:
         # with the flax wrapper levels: the JAX restore merges by path
@@ -139,7 +142,7 @@ def restore_train_checkpoint(path: str, model, state) -> dict:
     variable tree a later save should use as its template: the file's own
     paths for the UNet, Encoder4 and the MCL heads wherever it covered
     every leaf, the port's elsewhere."""
-    npz = os.path.join(path, MODEL_FILE) if os.path.isdir(path) else path
+    npz = checkpoint_npz(path)
     sidecar = os.path.join(path, STATE_FILE) if os.path.isdir(path) else None
     tree = load_compact(npz)
     variables, scale_factor = model_variables(tree)

@@ -36,6 +36,17 @@ heads beside the UNet and Encoder4, and a ``--resume_ckpt`` without heads
 (the committed ``v4purify_final_fp16.npz``) keeps their seeded fresh init;
 ``fit`` runs it as any LDM config, on cached latents.
 
+``-b faces`` (``configs.FACES_RUN``) is the faces EncDiff stage of
+``scripts/round3_pipeline.sh``: 256 px faces on 64x64x3 latents,
+micro-batch 8 with 4-way accumulation on the 34,560-image face grid,
+no validation metrics (``eval_name`` null: ``validate`` gives ``{}``, and
+the default monitor checkpoint on ``train/loss_simple`` keeps ``last``).
+Its first stage is a ``-b faces_vq`` run's, named by the pipeline's
+override ``model.params.first_stage_config.params.ckpt_path=<run>/
+checkpoints/last`` (the ``params`` level of a sub-config is folded into the
+port's flattened node, ``flatten_sub_configs``) and loaded over the seeded
+fresh init (``models.autoencoder.VQModelInterface``).
+
 A config whose ``model.target`` is ``models.autoencoder.VQModel``
 (``-b flagship_vq``, ``configs.FLAGSHIP_VQ_RUN``; ``-b faces_vq``,
 ``configs.FACES_VQ_RUN``: 256 px, micro-batch 8 with 4-way accumulation on
@@ -66,6 +77,8 @@ raises without a card.
         --max_steps N
     python -m encdiff_tpu_torch.main_val -b faces_vq -t --max_steps N \\
         [--val_batches K]
+    python -m encdiff_tpu_torch.main_val -b faces -t --max_steps N \\
+        model.params.first_stage_config.params.ckpt_path=<run>/checkpoints/last
 """
 
 from __future__ import annotations
@@ -83,8 +96,9 @@ import numpy as np
 import torch
 
 from encdiff_tpu_torch import convert
-from encdiff_tpu_torch.configs import (FACES_VQ_RUN, FLAGSHIP_MCL_RUN,
-                                      FLAGSHIP_RUN, FLAGSHIP_VQ_RUN)
+from encdiff_tpu_torch.configs import (FACES_RUN, FACES_VQ_RUN,
+                                      FLAGSHIP_MCL_RUN, FLAGSHIP_RUN,
+                                      FLAGSHIP_VQ_RUN)
 from encdiff_tpu_torch.core.compact_ckpt import save_compact_vq
 from encdiff_tpu_torch.core.config import get_obj_from_str, instantiate_from_config
 from encdiff_tpu_torch.core.device import resolve_device
@@ -104,7 +118,8 @@ from encdiff_tpu_torch.train.loop import (create_train_state, encode_sweep,
 
 #: the configs ``-b`` takes by name
 REGISTERED = {"flagship": FLAGSHIP_RUN, "flagship_vq": FLAGSHIP_VQ_RUN,
-              "flagship_mcl": FLAGSHIP_MCL_RUN, "faces_vq": FACES_VQ_RUN}
+              "flagship_mcl": FLAGSHIP_MCL_RUN, "faces_vq": FACES_VQ_RUN,
+              "faces": FACES_RUN}
 
 #: the dataset on the device, kept between the runs of one process: at most
 #: one, with the host array it was uploaded from
@@ -245,11 +260,32 @@ def merge(*configs) -> dict:
     return out
 
 
+#: ``model.params`` sub-configs that the port's run configs hold flattened
+#: to their ``params``
+FLATTENED = ("unet_config", "first_stage_config", "cond_stage_config",
+             "scheduler_config")
+
+
+def flatten_sub_configs(config: dict) -> dict:
+    """``config`` with the ``params`` of each ``FLATTENED`` sub-config of
+    ``model.params`` merged into the sub-config: the YAML spelling of an
+    override, ``model.params.first_stage_config.params.ckpt_path=<path>``
+    (``scripts/round3_pipeline.sh``), reaches the flattened node."""
+    mp = (config.get("model") or {}).get("params") or {}
+    for key in FLATTENED:
+        node = mp.get(key)
+        if isinstance(node, dict) and isinstance(node.get("params"), dict):
+            mp[key] = merge({k: v for k, v in node.items() if k != "params"},
+                            node["params"])
+    return config
+
+
 def load_configs(bases, cli_overrides) -> dict:
     """Merge the base configs (registered names or ``.json`` files) and the
-    dotlist overrides. A ``*-lightning.json`` that ``SetupCallback`` dumped
-    without its ``lightning`` wrapper is wrapped again, so that a resumed
-    run keeps its callbacks."""
+    dotlist overrides, each with its sub-configs flattened
+    (``flatten_sub_configs``). A ``*-lightning.json`` that
+    ``SetupCallback`` dumped without its ``lightning`` wrapper is wrapped
+    again, so that a resumed run keeps its callbacks."""
     configs = []
     for b in bases:
         if b in REGISTERED:
@@ -262,8 +298,8 @@ def load_configs(bases, cli_overrides) -> dict:
         else:
             raise ValueError(f"{b!r}: a base config is one of "
                              f"{sorted(REGISTERED)} or a .json file")
-        configs.append(cfg)
-    return merge(*configs, from_dotlist(cli_overrides))
+        configs.append(flatten_sub_configs(copy.deepcopy(cfg)))
+    return merge(*configs, flatten_sub_configs(from_dotlist(cli_overrides)))
 
 
 def apply_token_num(config, token_num):

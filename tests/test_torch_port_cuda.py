@@ -939,3 +939,46 @@ def test_second_order_refusals(cuda_device):
                              create_graph=True)
     with pytest.raises(NotImplementedError, match="fisher_sm"):
         torch.autograd.grad((d * d).sum(), q, create_graph=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,dh", [(2, 1, 1024, 8), (1, 1, 4096, 128)])
+def test_flash_second_order_refused(cuda_device, b, h, n, dh):
+    """A second order through the flash attention (autograd recording
+    inside its backward) raises on the card: the dq and dk/dv kernels'
+    outputs have no grad_fn, so the attention's terms would otherwise drop
+    out of the second derivative as constants. The first order still
+    runs; the plain route still records a second one."""
+    gen = torch.Generator(cuda_device).manual_seed(36)
+    q, k, v = (_heads_view(gen, cuda_device, b, n, h, dh).requires_grad_()
+               for _ in range(3))
+    o = flash_attention(q, k, v, dh ** -0.5)
+    d, = torch.autograd.grad(o.sum(), q)
+    assert torch.isfinite(d).all()
+    with pytest.raises(NotImplementedError, match=rf"\({b}, {h}, {n}, {dh}\)"):
+        torch.autograd.grad(flash_attention(q, k, v, dh ** -0.5).sum(), q,
+                            create_graph=True)
+    with plain_path():
+        d, = torch.autograd.grad(flash_attention(q, k, v, dh ** -0.5).sum(),
+                                 q, create_graph=True)
+        assert d.grad_fn is not None
+
+
+@pytest.mark.cuda
+def test_flash_attention_fwd_at_the_faces_latent_cache(cuda_device):
+    """The flash forward at (128, 1, 4096, 128): the faces VQ encoder's mid
+    block over a latent-cache chunk of 128 faces at 256 px. The plain
+    version runs in slices of 16 rows (1 GiB of scores each)."""
+    gen = torch.Generator(cuda_device).manual_seed(37)
+    b, h, n, dh = 128, 1, 4096, 128
+    q, k, v = (_heads_view(gen, cuda_device, b, n, h, dh) for _ in range(3))
+    before = flash_attention_fwd.launches
+    o, lse = flash_attention_fwd(q, k, v, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    for i in range(0, b, 16):
+        part = slice(i, i + 16)
+        o_ref, lse_ref = flash_attention_fwd_plain(q[part], k[part], v[part],
+                                                   dh ** -0.5)
+        torch.testing.assert_close(o[part], o_ref, **CARD_TOL)
+        torch.testing.assert_close(lse[part], lse_ref, **CARD_TOL)

@@ -60,9 +60,13 @@ def test_swap_chunks_slice_injected_noise(monkeypatch):
 
 def test_faces_serving_clis_at_a_small_width(tmp_path, capsys, monkeypatch):
     """``generate_swap --config faces`` and ``fid`` from a fresh init on
-    the CPU, on a faces-shaped config at a small width and a 4-image grid."""
+    the CPU, on a faces-shaped config at a small width and a 4-image grid
+    (the swap's inputs are drawn from ``TRAIN_GRID``, the FID's real images
+    from the face grid of ``SyntheticFaces``)."""
     monkeypatch.setitem(generate_swap.CONFIGS, "faces", CLI_FACES)
     monkeypatch.setattr(synthetic_faces, "TRAIN_GRID", (2, 1, 1, 2, 1, 1, 1))
+    monkeypatch.setattr(synthetic_faces.SyntheticFaces, "factor_sizes",
+                        (2, 1, 1, 2, 1, 1, 1))
     generate_swap.main(["--config", "faces", "--num_samples", "2",
                         "--ddim_steps", "2", "--device", "cpu",
                         "--out", str(tmp_path)])
