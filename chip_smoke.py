@@ -55,14 +55,14 @@ harness-eval: a ``Trainer`` restored from the committed checkpoint runs
 and MIG on the host (seconds); it fails unless FactorVAE is 1.0 with 20
 dims and MIG within 0.01 of the checkpoint's recorded 0.17347. The reps
 are written under ``--out`` (for DCI and beta-VAE off the card).
-harness-train: ``main_val.main`` trains 40 steps from the checkpoint with
+harness-train: ``main_val.main`` trains 20 steps from the checkpoint with
 the image logger every 20 steps, the launch counters set to 0 just before
 and read just after, then ``main_val.main -r`` resumes from its ``last``
 checkpoint for 10 steps and ends in ``test()``: ms per step on cached
 latents, peak memory. Hooks record the shape of every kernel call of the
 first run's latent encode (chunks of 2,048), of its first step and of its
 image logs; each kernel is held against its plain version at each of those
-shapes, and its launches must equal 40 steps' plus the encode's plus the
+shapes, and its launches must equal 20 steps' plus the encode's plus the
 logs'. The last chunk of the run's latents is held against the plain
 path's encode of the same rows, and the first step's loss against the
 plain path's on the same batch, t and noise. It fails unless these, the
@@ -227,12 +227,45 @@ validation metrics). Every kernel at every recorded shape against its
 plain version. Upload, latent-cache and image-log seconds, ms per
 micro-step and update, peak memory.
 faces-eval: ``python -m encdiff_tpu_torch.faces_eval -r <that run>/
-checkpoints/last --tad_num 512 --fid_num 128`` (DDIM 50; the port
+checkpoints/last --tad_num 512 --fid_num 64`` (DDIM 50; the port
 of ``scripts/round3_faces_eval.sh``): ``tad`` on an eval file of 512
-faces, ``fid --num 128`` (eta 1; real rows drawn from the full grid) and
+faces, ``fid --num 64`` (eta 1; real rows drawn from the full grid) and
 ``generate_swap --config faces --num_samples 4``, each CLI with its
 launches equal to its recorded calls, and every kernel at every recorded
 shape against its plain version; the chain's walls.
+
+The MPI3D and Cars3D chains, with each pipeline's own commands
+(``scripts/round4b_pipeline.sh:107-116``: Cars3D, the EncDiff stage with
+the HSIC overrides; ``scripts/round5_pipeline.sh:187-200``: MPI3D) cut only
+in --max_steps and the VQ-GAN's --val_batches, at the flagship's full width
+on the full grids:
+
+cars3d-vq: ``main_val -b cars3d_vq -t -s 23 -n carsvq`` on the 17,568-image
+grid (the train view repeated ten times an epoch), 8 steps, the image log
+forced to the last, ``test()`` over 2 validation batches, the launch
+counters set to 0 just before and read just after: launches must equal the
+recorded calls of the steps, the image log and the eval batches; Adam
+counts, ``last``, the train and validation views on one device array.
+cars3d-harness: ``main_val -b cars3d -t -s 23 -n carsld`` with the HSIC
+overrides over that run's ``last``: the latent cache of 17,568, 8 steps,
+the image log forced to the last (DDIM 200 on 8 with the swap rows, so
+``fused_attention`` runs), ``test()`` (the sweep of all 17,568 rows,
+FactorVAE and MIG on the ``cars3d`` table), then ``-r`` and its ``test()``:
+launches equal to the recorded calls; the first stage the VQ-GAN run's;
+one device array for both views; the latents cached once and equal to a
+direct encode of 256 rows; the first batch the device path's epoch order
+with the x10 repeat folded; ``-r`` bit for bit and the same reps.
+mpi3d-shapes: the 1,036,800-image MPI3D grid, its geometry with numpy on
+the host and its 648 blocks composed on the card, where it stays (12.74
+GB); its first 9 blocks (every camera height and background) byte for byte
+against numpy's; geometry, upload and composition seconds, the card's
+memory.
+mpi3d-vq, mpi3d-harness: as the Cars3D phases (``-n mpivq``; ``-n mpild
+--max_epochs 5 --check_val_every_n_epoch 2``), on the grid resident on the
+card, its latents (3.19 GB) cached once a fit, the sweep over 1,036,800
+rows and FactorVAE and MIG on the ``mpi3d`` table.
+Every kernel of these runs is held against its plain version at every
+shape they run.
 
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
@@ -279,10 +312,11 @@ from encdiff_tpu_torch import tad as tad_cli
 from encdiff_tpu_torch import train_steps
 from encdiff_tpu_torch.configs import FACES, FACES_TRAIN, FLAGSHIP_TRAIN
 from encdiff_tpu_torch.core.schedules import DDIMSchedule
-from encdiff_tpu_torch.data import synthetic_faces
+from encdiff_tpu_torch.data import synthetic_faces, synthetic_mpi3d
 from encdiff_tpu_torch.data.synthetic_shapes import (
     TRAIN_GRID, SyntheticShapes3DV4FullTrain, epoch_batches, render_all_v4)
 from encdiff_tpu_torch.evalx import fid as fid_lib
+from encdiff_tpu_torch.evalx.ground_truth.named_data import get_index_dataset
 from encdiff_tpu_torch.evalx.swap import (TOKEN_BUDGET, swap_conditions,
                                           swap_sample)
 from encdiff_tpu_torch.generate_swap import pick_inputs
@@ -378,13 +412,14 @@ FACES_INPUTS = 4
 FACES_DDIM_STEPS = 50
 FACES_FID_NUM = 64
 FACES_REFERENCE_SAMPLES = 20
-# the harness on the flagship: 40 steps with the image logger every 20, then
-# a run resumed from the checkpoint that saved at 40, to 50; the metric
+# the harness on the flagship: 20 steps with the image logger every 20 (one
+# log: the run's time limit holds the MPI3D and Cars3D phases too), then
+# a run resumed from the checkpoint that saved at 20, to 30; the metric
 # gates of the committed checkpoint at step 97,500: FactorVAE 1.0 with 20
 # dims and MIG 0.17347 (demo_artifacts/round5/v4purify_run/97500.json),
 # within 0.01 since the reps come from the H100's fp32 and not the TPU's
-HARNESS_STEPS = 40
-HARNESS_RESUMED_STEPS = 50
+HARNESS_STEPS = 20
+HARNESS_RESUMED_STEPS = 30
 HARNESS_LOG_EVERY = 20
 #: rows a chunk of the harness's latent encode (train.loop.precompute_latents)
 LATENT_CHUNK = 2048
@@ -454,7 +489,7 @@ LATENT_TOL = dict(rtol=1e-5, atol=1e-5)
 #: eval file of FACES_TAD_NUM faces, FID of FACES_EVAL_FID_NUM in batches of
 #: 64, the swap of FACES_INPUTS faces; DDIM 50 (``faces_eval``'s)
 FACES_TAD_NUM = 512
-FACES_EVAL_FID_NUM = 128
+FACES_EVAL_FID_NUM = 64  # one batch: the time limit holds the later phases
 MCL_STEPS = 20
 MCL_TYPES = ("nce_logistic", "denoise_sm", "jacobian_vjp_infonce")
 MCL_TYPES_BATCH = 16
@@ -466,6 +501,25 @@ MCL_TYPES_BATCH = 16
 MCL_EXACT_ZERO = {"mcl.critic.img_conv1.bias", "mcl.critic.img_conv2.bias",
                   "mcl.critic.z_fc.bias", "mcl.critic.u_fc.weight",
                   "mcl.critic.u_fc.bias", "mcl.critic.out.bias"}
+#: the MPI3D and Cars3D chains: each pipeline's own commands
+#: (``scripts/round4b_pipeline.sh:107-116``, the Cars3D EncDiff stage with
+#: its HSIC overrides; ``scripts/round5_pipeline.sh:187-200``, MPI3D) with
+#: only --max_steps and the VQ-GAN's --val_batches cut, at full width on the
+#: full grids; the latent cache held against a direct encode of
+#: CROSS_LATENT_ROWS sampled rows; ``kgen`` offsets the kernel checks' seed
+CROSS_SEED = 23
+CROSS_VQ_STEPS = 8
+CROSS_VQ_VAL_BATCHES = 2
+CROSS_LDM_STEPS = 8
+CROSS_LATENT_ROWS = 256
+CROSS = {
+    "cars3d": dict(vq=["-n", "carsvq"],
+                   ldm=["-n", "carsld", "model.params.indep_type=hsic",
+                        "model.params.lambda_indep=2.0"], kgen=11),
+    "mpi3d": dict(vq=["-n", "mpivq"],
+                  ldm=["-n", "mpild", "--max_epochs", "5",
+                       "--check_val_every_n_epoch", "2"], kgen=13),
+}
 KERNELS = {
     "groupnorm_silu": dict(
         source="encdiff_tpu_torch/csrc/groupnorm_silu.cu",
@@ -1587,6 +1641,16 @@ def main(argv=None) -> int:
     feval_rows, feval_launches = faces_eval_phase(smi, card, seen_rows(
         serve_rows, train_rows, fvq_rows, fvq_other, faces_rows, fserve_rows,
         fserve_other, fh_rows, fh_other), args.out, fh_dir)
+    seen = seen_rows(serve_rows, train_rows, harness_rows, vq_rows, vq_other,
+                     fvq_rows, fvq_other, fh_rows, fh_other)
+    harness.clear_device_cache()
+    torch.cuda.empty_cache()
+    cars = cross_phases(smi, card, seen, args.out, "cars3d")
+    mpi_render = mpi3d_shapes_phase(smi)
+    mpi = cross_phases(smi, card, {**seen, **seen_rows(*cars["rows"])},
+                       args.out, "mpi3d")
+    harness.clear_device_cache()
+    synthetic_mpi3d.clear_cache()
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "device_ms", "library_device_ms", "tc_ms", "exp_ms", "simt_ms",
@@ -1611,7 +1675,9 @@ def main(argv=None) -> int:
                        for path, counts in fserve_launches.items()},
                     "faces_harness": fh_launches[name],
                     **{f"faces_eval_{cli}": counts[name]
-                       for cli, counts in feval_launches.items()}}
+                       for cli, counts in feval_launches.items()},
+                    **{path: counts[name] for chain in (cars, mpi)
+                       for path, counts in chain["launches"].items()}}
         entry = {
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": sum(launches.values()), "launches_by_path": launches,
@@ -1621,6 +1687,9 @@ def main(argv=None) -> int:
                                + [r["err"] for r in fvq_other.get(name, ())]
                                + [r["err"] for r in fh_other.get(name, ())]
                                + [r["err"] for r in feval_rows.get(name, ())]
+                               + [r["err"] for chain in (cars, mpi)
+                                  for table in chain["rows"]
+                                  for r in table.get(name, ())]
                                + [r["err"]
                                   for r in harness_rows.get(name, ())]),
             **{k: top[k] for k in (*fields, BASELINE.get(name)) if k in top}}
@@ -1681,8 +1750,13 @@ def main(argv=None) -> int:
           f"{FACES_LDM_MICRO_STEPS} micro-steps with its latent encode and "
           "image log (faces_harness), and the faces eval chain's tad, fid "
           f"--num {FACES_EVAL_FID_NUM} and generate_swap on its last "
-          "(faces_eval_*); max_abs_err also covers the faces EncDiff "
-          "run's latent encode and image log shapes and the eval chain's; "
+          "(faces_eval_*), and the Cars3D and MPI3D chains' VQ-GAN runs "
+          f"({CROSS_VQ_STEPS} steps, an image log, {CROSS_VQ_VAL_BATCHES} "
+          "test batches: cars3d_vq_train, mpi3d_vq_train) and EncDiff runs "
+          f"({CROSS_LDM_STEPS} steps with the latent encode and an image "
+          "log: cars3d_harness, mpi3d_harness); max_abs_err also covers the "
+          "faces EncDiff run's latent encode and image log shapes, the eval "
+          "chain's and those of the Cars3D and MPI3D chains; "
           "mcl_step: one MCL fine-tune step at "
           "B=128 (-b flagship_mcl, infonce_mechgrad), whose second order "
           "runs gn_silu_bwd_bwd and the attention VJP (PyTorch ops, not a "
@@ -1698,6 +1772,13 @@ def main(argv=None) -> int:
     print("# faces_harness: the faces EncDiff run (-b faces over the faces "
           f"VQ-GAN run's last) on {smi}: " + ", ".join(
               f"{k} {v:.6g}" for k, v in fh.items()), flush=True)
+    for ds, chain in (("cars3d", cars), ("mpi3d", mpi)):
+        print(f"# {ds}: the {ds} chain (-b {ds}_vq, then -b {ds} over its "
+              f"last) on {smi}: " + ", ".join(
+                  f"{k} {v:.6g}" for k, v in chain["numbers"].items()),
+              flush=True)
+    print(f"# mpi3d render on {smi}: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in mpi_render.items()), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     phase("total", t_all, "chip_smoke passed")
@@ -2105,10 +2186,10 @@ def harness_reference(ref, records):
 
 
 def harness_train_phase(smi, card, seen, ref, out):
-    """harness-train: ``main_val.main`` on the flagship, 40 steps from the
+    """harness-train: ``main_val.main`` on the flagship, 20 steps from the
     committed checkpoint with the image logger every 20 steps and no test;
-    then ``main_val.main -r`` to step 50, which ends in ``test()``. Returns
-    the launches of the 40-step run and the checked rows of its kernel
+    then ``main_val.main -r`` to step 30, which ends in ``test()``. Returns
+    the launches of the 20-step run and the checked rows of its kernel
     calls by kernel."""
     t0 = time.perf_counter()
     logroot = os.path.join(out, "harness")
@@ -2181,14 +2262,15 @@ def harness_train_phase(smi, card, seen, ref, out):
             all(np.isfinite(v) for v in test_results.values()):
         faults.append(f"test_results.json {test_results}")
     del resumed, trainer
-    # the launches: 40 steps', the latent encode's and the image logs'
+    # the launches: the steps', the latent encode's and the image logs'
     step_shapes, _ = records["step"]
     latent_shapes, _ = records["latents"]
     parts = (latent_shapes, *records["logs"])
     want = {k: HARNESS_STEPS * len(step_shapes.get(k, ()))
             + sum(len(p.get(k, ())) for p in parts) for k in KERNELS}
     if launches != want or any(plain_calls.values()):
-        faults.append(f"launches {launches}, expected {want} (40 steps of "
+        faults.append(f"launches {launches}, expected {want} "
+                      f"({HARNESS_STEPS} steps of "
                       f"{ {k: len(v) for k, v in step_shapes.items()} }, "
                       f"the latent encode's and {len(records['logs'])} image "
                       f"logs'); plain calls {plain_calls}")
@@ -3776,25 +3858,9 @@ def faces_harness_phases(smi, card, seen, out, vq_logdir):
         records["on"] = False
     model, state = trainer.model, trainer.state
     params = trainer.model_params
-    faults = []
-
     # the first stage: the faces VQ-GAN run's generator, the widened rows of
     # post_quant_conv at the seeded init's draws
-    fresh = LatentDiffusion({**params, "first_stage_config": {
-        **params["first_stage_config"], "ckpt_path": None}}, "cuda")
-    fresh.init_parameters(torch.Generator("cuda").manual_seed(FACES_LDM_SEED))
-    init_rows = fresh.first_stage_model.post_quant_conv.weight[:, 3:].clone()
-    del fresh
-    run_gen = generator_state(last_vq)
-    loaded = model.first_stage_model.state_dict()
-    wide = loaded["post_quant_conv.weight"]
-    off = [k for k, v in run_gen.items() if k != "post_quant_conv.weight"
-           and not torch.equal(loaded[k].cpu(), v)]
-    if off or not torch.equal(wide[:, :3].cpu(),
-                              run_gen["post_quant_conv.weight"]) \
-            or not torch.equal(wide[:, 3:], init_rows):
-        faults.append(f"first stage: {len(off)} leaves differ from the faces "
-                      f"VQ-GAN run's ({off[:4]}), or post_quant_conv's rows")
+    faults = first_stage_faults(model, params, last_vq, FACES_LDM_SEED)
 
     # the latent cache against a direct encode of sampled rows; scale_by_std
     # from the first micro-batch's cached code
@@ -4077,6 +4143,425 @@ def faces_eval_phase(smi, card, seen, out, run_dir):
           f"its plain version at every recorded shape (tol {KERNEL_TOL}) "
           f"| {smi}")
     return rows, launches
+
+
+
+@contextlib.contextmanager
+def recording_vq_run(records):
+    """While on, the VQ-GAN trainer's first train step, first eval batch and
+    every image log record the shape of each kernel call they make
+    (``record_vq_calls``); each train step appends its own
+    device-synchronised seconds to ``records["times"]``, and the eval
+    batches are counted. Yields ``records``."""
+    records.update(step=None, eval=None, logs=[], times=[], evals=0)
+    step_fn, eval_fn = vq_trainer.train_step, vq_trainer.eval_step
+    log_fn = harness.Trainer._log_vq_images
+
+    def recorded(key, fn, model, *args):
+        out = []
+        records[key] = record_vq_calls(model, lambda: out.append(fn(*args)))
+        return out[0]
+
+    def train_step(model, state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = (recorded("step", step_fn, model, model, state, batch)
+               if records["step"] is None else step_fn(model, state, batch))
+        torch.cuda.synchronize()
+        records["times"].append(time.perf_counter() - t)
+        return out
+
+    def eval_step(model, state, batch):
+        records["evals"] += 1
+        if records["eval"] is None:
+            return recorded("eval", eval_fn, model, model, state, batch)
+        return eval_fn(model, state, batch)
+
+    def log_vq_images(self, step, images):
+        records["logs"].append(record_vq_calls(
+            self.model, lambda: log_fn(self, step, images)))
+
+    vq_trainer.train_step, vq_trainer.eval_step = train_step, eval_step
+    harness.Trainer._log_vq_images = log_vq_images
+    try:
+        yield records
+    finally:
+        vq_trainer.train_step, vq_trainer.eval_step = step_fn, eval_fn
+        harness.Trainer._log_vq_images = log_fn
+
+
+def first_stage_faults(model, params, last_vq, seed):
+    """Faults of an EncDiff model's first stage against the VQ-GAN run
+    whose ``checkpoints/last`` it loaded: every generator leaf the run's,
+    ``post_quant_conv``'s 20 widened input rows the seeded init's draws."""
+    fresh = LatentDiffusion({**params, "first_stage_config": {
+        **params["first_stage_config"], "ckpt_path": None}}, "cuda")
+    fresh.init_parameters(torch.Generator("cuda").manual_seed(seed))
+    init_rows = fresh.first_stage_model.post_quant_conv.weight[:, 3:].clone()
+    del fresh
+    run_gen = generator_state(last_vq)
+    loaded = model.first_stage_model.state_dict()
+    wide = loaded["post_quant_conv.weight"]
+    off = [k for k, v in run_gen.items() if k != "post_quant_conv.weight"
+           and not torch.equal(loaded[k].cpu(), v)]
+    if off or not torch.equal(wide[:, :3].cpu(),
+                              run_gen["post_quant_conv.weight"]) \
+            or not torch.equal(wide[:, 3:], init_rows):
+        return [f"first stage: {len(off)} leaves differ from the VQ-GAN "
+                f"run's ({off[:4]}), or post_quant_conv's rows"]
+    return []
+
+
+def cross_vq_phase(smi, card, seen, out, ds):
+    """<ds>-vq: ``main_val -b <ds>_vq`` as the pipeline runs it (``CROSS``)
+    for CROSS_VQ_STEPS steps, the image logger forced to the last step and
+    ``test()`` over CROSS_VQ_VAL_BATCHES validation batches (the pipeline's
+    ``--no-test`` left out so that the validation runs), the launch
+    counters set to 0 just before and read just after: launches must equal
+    the steps', the image log's and the eval batches' recorded calls. Both
+    Adam counts, ``last``, ``compact_last.npz``, ``test_results.json`` and
+    the log are checked, and the train and validation views must hold one
+    array, uploaded once. Returns the checked rows of one step's kernel
+    calls, the other checked rows, the launches, the calls of one step by
+    kernel, the run's numbers and its run directory."""
+    t0 = time.perf_counter()
+    n = CROSS_VQ_STEPS
+    records = {}
+    with recording_vq_run(records):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t_run = time.perf_counter()
+        trainer = main_val.main([
+            "-b", f"{ds}_vq", "-t", "-l", os.path.join(out, "runs_cross"),
+            "-s", str(CROSS_SEED), *CROSS[ds]["vq"], "--max_steps", str(n),
+            "--val_batches", str(CROSS_VQ_VAL_BATCHES), "--device", "cuda",
+            "lightning.callbacks.image_logger.params.increase_log_steps=false",
+            f"lightning.callbacks.image_logger.params.batch_frequency={n}"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        launches, plain_calls = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+    state, faults = trainer.state, []
+    per_step, per_eval, logs = records["step"], records["eval"], records["logs"]
+    want = {k: n * len(per_step.get(k, ()))
+            + records["evals"] * len(per_eval.get(k, ()))
+            + sum(len(p.get(k, ())) for p in logs) for k in KERNELS}
+    if launches != want or any(plain_calls.values()) or len(logs) != 1 \
+            or records["evals"] != CROSS_VQ_VAL_BATCHES:
+        faults.append(f"launches {launches}, expected {want} ({n} steps, "
+                      f"{len(logs)} image logs, {records['evals']} eval "
+                      f"batches); plain calls {plain_calls}")
+    counts = (vq_trainer.optimizer_count(state.gen_opt),
+              vq_trainer.optimizer_count(state.disc_opt))
+    if counts != (n, n) or state.step != n:
+        faults.append(f"Adam counts {counts}, step {state.step}")
+    train_ds = trainer.data.dataset("train")
+    val_ds = trainer.data.dataset("validation")
+    images = harness.device_images(train_ds.images, "cuda")
+    if val_ds.images is not train_ds.images \
+            or harness._DEVICE_CACHE["images"][2] is not images:
+        faults.append("the train and validation views do not share one "
+                      "device array")
+    ckdir = os.path.join(trainer.logdir, "checkpoints")
+    results_path = os.path.join(trainer.logdir, "test_results.json")
+    for path in (os.path.join(ckdir, "compact_last.npz"), results_path,
+                 os.path.join(ckdir, "last", STATE_FILE),
+                 *(os.path.join(trainer.logdir, "images", "train",
+                                f"{k}_gs-{n:06}.npy")
+                   for k in ("inputs", "reconstructions"))):
+        if not os.path.exists(path):
+            faults.append(f"no {path}")
+    test_results = {}
+    if os.path.exists(results_path):
+        with open(results_path) as f:
+            test_results = json.load(f)
+        if not test_results or not all(np.isfinite(v)
+                                       for v in test_results.values()):
+            faults.append(f"test_results.json {test_results}")
+    kgen = torch.Generator("cuda").manual_seed(SEED + CROSS[ds]["kgen"])
+    step_rows = {name: check_rows(name, per_step[name], kgen, card, seen)
+                 for name in KERNELS if per_step.get(name)}
+    seen = {**seen, **seen_rows(step_rows)}
+    other = {name: [s for part in (per_eval, *logs)
+                    for s in part.get(name, ())] for name in KERNELS}
+    other_rows = {name: check_rows(name, shapes, kgen, card, seen)
+                  for name, shapes in other.items() if shapes}
+    print_yardstick(f"{ds}-vq", step_rows)
+    print_yardstick(f"{ds}-vq (eval, image log)", other_rows)
+    if faults:
+        raise RuntimeError(f"{ds}-vq: " + "; ".join(faults))
+    steady = records["times"][2:]
+    step_ms = sorted(steady)[len(steady) // 2] * 1e3
+    bs = trainer.batch_size
+    numbers = dict(step_ms=step_ms, first_step_ms=records["times"][0] * 1e3,
+                   peak_mib=peak / 2**20, run_s=run_s)
+    phase(f"{ds}-vq", t0, f"main_val -b {ds}_vq -t -s {CROSS_SEED} "
+          f"{' '.join(CROSS[ds]['vq'])} --max_steps {n} --val_batches "
+          f"{CROSS_VQ_VAL_BATCHES}, B={bs} on the {len(images)}-image grid "
+          f"(train view of {len(train_ds)} rows, {len(train_ds) // bs} steps "
+          f"an epoch; validation view {len(val_ds)} rows, the same device "
+          f"array): {step_ms:.3f} ms per step (median of steps 3-{n}, each "
+          f"timed on its own; first {records['times'][0] * 1e3:.1f} ms), "
+          f"peak memory {peak / 2**20:.1f} MiB (the grid's "
+          f"{images.numel() / 2**20:.1f} MiB included), the run {run_s:.3f}"
+          f"s; launches {launches} (expected), plain calls {plain_calls}; "
+          f"Adam counts {counts}; one image log at step {n}; test() over "
+          f"{CROSS_VQ_VAL_BATCHES} batches: " + ", ".join(
+              f"{k} {v:.6f}" for k, v in sorted(test_results.items()))
+          + f"; every kernel matches its plain version at every shape of "
+          f"the run (tol {KERNEL_TOL}) | {smi}")
+    logdir = trainer.logdir
+    del trainer, state, images
+    return step_rows, other_rows, launches, per_step, numbers, logdir
+
+
+def cross_harness_phase(smi, card, seen, out, ds, vq_logdir):
+    """<ds>-harness: ``main_val -b <ds> -t -s 23`` as the pipeline runs it
+    (``CROSS``) over the VQ-GAN run's ``checkpoints/last``, for
+    CROSS_LDM_STEPS steps on cached latents with the image logger forced to
+    the last step (DDIM 200 on 8 with the swap rows: ``fused_attention``),
+    ending in ``test()`` (the sweep of every row of the validation grid,
+    FactorVAE and MIG on the dataset's ground-truth table); the launch
+    counters set to 0 just before and read just after: launches must equal
+    the steps', the latent encode's and the image log's recorded calls.
+    The first stage must be the VQ-GAN run's; the grid must be on the card
+    once for the train and validation views and its latents cached once;
+    the cached latents must match a direct encode of sampled rows and the
+    scale factor the first batch's; the first batch must be the rows of
+    the device path's epoch order (Cars3D's x10 repeat folded); ``-r``
+    must restore the run's state bit for bit and its ``test()`` give the
+    same reps. Returns the checked rows of one step's kernel calls, the
+    other checked rows, the launches, the calls of one step by kernel and
+    the run's numbers."""
+    t0 = time.perf_counter()
+    last_vq = os.path.join(vq_logdir, "checkpoints", "last")
+    n = CROSS_LDM_STEPS
+    stamps, latents_s, log_s = [], [], []
+    with contextlib.ExitStack() as stack:
+        records = stack.enter_context(recording_harness(stamps))
+        stack.enter_context(timed_calls(harness, "precompute_latents",
+                                        latents_s))
+        stack.enter_context(timed_calls(harness, "log_images", log_s))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t_run = time.perf_counter()
+        trainer = main_val.main([
+            "-b", ds, "-t", "-l", os.path.join(out, "runs_cross"), "-s",
+            str(CROSS_SEED), *CROSS[ds]["ldm"], "--max_steps", str(n),
+            "--device", "cuda",
+            f"model.params.first_stage_config.params.ckpt_path={last_vq}",
+            f"lightning.callbacks.image_logger.params.batch_frequency={n}"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        launches, plain_calls = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        records["on"] = False
+    model, state, params = trainer.model, trainer.state, trainer.model_params
+    faults = first_stage_faults(model, params, last_vq, CROSS_SEED)
+
+    # one grid on the card for both views, its latents cached once
+    train_ds = trainer.data.dataset("train")
+    val_ds = trainer.data.dataset("validation")
+    images = harness.device_images(train_ds.images, "cuda")
+    held = harness._DEVICE_CACHE["images"]
+    if val_ds.images is not train_ds.images or held[2] is not images or (
+            isinstance(train_ds.images, torch.Tensor)
+            and images.data_ptr() != train_ds.images.data_ptr()):
+        faults.append("the train and validation views do not share one "
+                      "device array")
+    if len(latents_s) != 1:
+        faults.append(f"{len(latents_s)} latent encodes in one fit")
+    _, z = records["latents"]
+    rows = torch.from_numpy(np.sort(np.random.RandomState(SEED).choice(
+        len(images), CROSS_LATENT_ROWS, replace=False))).cuda()
+    direct = model.encode_first_stage(model.split_batch(images[rows])[0])
+    torch.cuda.synchronize()
+    z_err = (z[rows] - direct).abs().max().item()
+    try:
+        torch.testing.assert_close(z[rows], direct, **LATENT_TOL)
+    except AssertionError as e:
+        faults.append(f"latent cache against a direct encode: {e}")
+    del direct
+    # the first batch: the device path's epoch order, modulo the rows held
+    bs = trainer.batch_size
+    order = torch.from_numpy(harness.epoch_order(
+        CROSS_SEED, 0, len(train_ds), bs, len(images))).cuda()
+    _, first = records["step"]
+    if not torch.equal(first["batch"]["image"], images[order[:bs]]) \
+            or not torch.equal(first["batch"]["z"], z[order[:bs]]):
+        faults.append("the first batch is not the epoch order's first rows")
+    want_sf = 1.0 / first["batch"]["z"].float().reshape(-1).std(
+        unbiased=False)
+    if not torch.allclose(state.scale_factor, want_sf, rtol=1e-6, atol=0):
+        faults.append(f"scale factor {state.scale_factor.item()}, 1/std of "
+                      f"the first batch's code {want_sf.item()}")
+    if state.step != n or state.updates != n or abs(
+            trainer.learning_rate - bs * trainer.base_lr) > 1e-18:
+        faults.append(f"step {state.step}, AdamW count {state.updates}, LR "
+                      f"{trainer.learning_rate}")
+
+    # last, test() and the image log
+    last = os.path.join(trainer.ckptdir, "last")
+    for name in (MODEL_FILE, STATE_FILE):
+        if not os.path.exists(os.path.join(last, name)):
+            faults.append(f"no {name} in {last}")
+    with open(os.path.join(trainer.logdir, "test_results.json")) as f:
+        test_results = json.load(f)
+    if sorted(test_results) != ["val/factor_vae_score", "val/mig"] or not \
+            all(np.isfinite(v) for v in test_results.values()):
+        faults.append(f"test_results.json {test_results}")
+    n_rows = len(get_index_dataset(params["eval_name"]).images)
+    reps_path = os.path.join(trainer.logdir, "reps", f"{n}.npy")
+    reps = np.load(reps_path)
+    if reps.shape != (n_rows, 20) or n_rows != len(val_ds) \
+            or not np.isfinite(reps).all():
+        faults.append(f"reps {reps.shape} over the {n_rows}-row table")
+    root = os.path.join(trainer.logdir, "images", "train")
+    logged = sorted(os.listdir(root)) if os.path.isdir(root) else []
+    want_logs = sorted(f"{k}_gs-{n:06}.npy" for k in LOG_KEYS)
+    if logged != want_logs or not all(np.isfinite(np.load(
+            os.path.join(root, f))).all() for f in logged):
+        faults.append(f"image logs {logged}, {want_logs} expected")
+    tm = dict(trainer.timings)
+
+    # -r: the run's state restored bit for bit, test() on it the same reps
+    resumed = main_val.main(["-r", trainer.logdir, "--device", "cuda"])
+    differ = same_state(trainer, resumed)
+    if differ:
+        faults.append(f"-r {trainer.logdir}: the restored state differs in "
+                      f"{len(differ)} entries: {differ[:6]}")
+    with open(os.path.join(resumed.logdir, "test_results.json")) as f:
+        resumed_results = json.load(f)
+    reps_err = float(np.abs(np.load(reps_path) - reps).max())
+    if reps_err > LATENT_TOL["atol"]:
+        faults.append(f"-r test(): reps off by {reps_err}")
+    resumed_tm = dict(resumed.timings)
+    del resumed
+
+    # the launches: the steps', the latent encode's and the image log's
+    step_shapes, _ = records["step"]
+    latent_shapes, _ = records["latents"]
+    want = {k: n * len(step_shapes.get(k, ()))
+            + len(latent_shapes.get(k, ()))
+            + sum(len(p.get(k, ())) for p in records["logs"]) for k in KERNELS}
+    if launches != want or any(plain_calls.values()) \
+            or len(records["logs"]) != 1:
+        faults.append(f"launches {launches}, expected {want} ({n} steps, "
+                      f"the latent encode, {len(records['logs'])} image "
+                      f"log); plain calls {plain_calls}")
+    kgen = torch.Generator("cuda").manual_seed(SEED + CROSS[ds]["kgen"] + 1)
+    step_rows = {name: check_rows(name, step_shapes[name], kgen, card, seen)
+                 for name in KERNELS if step_shapes.get(name)}
+    seen = {**seen, **seen_rows(step_rows)}
+    other = {name: [s for part in (latent_shapes, *records["logs"])
+                    for s in part.get(name, ())] for name in KERNELS}
+    other_rows = {name: check_rows(name, shapes, kgen, card, seen)
+                  for name, shapes in other.items() if shapes}
+    print_yardstick(f"{ds}-harness (step)", step_rows)
+    print_yardstick(f"{ds}-harness (latent encode, image log)", other_rows)
+    records.clear()
+    if faults:
+        raise RuntimeError(f"{ds}-harness: " + "; ".join(faults))
+    steps = [b - a for a, b in zip(stamps, stamps[1:])]  # steps 2..n
+    step_ms = sorted(steps)[len(steps) // 2] * 1e3
+    numbers = dict(latents_s=latents_s[0], step_ms=step_ms,
+                   image_log_s=log_s[0], sweep_s=tm["sweep_s"],
+                   metrics_s=tm["metrics_s"],
+                   resumed_sweep_s=resumed_tm["sweep_s"],
+                   resumed_metrics_s=resumed_tm["metrics_s"],
+                   peak_mib=peak / 2**20, run_s=run_s,
+                   factor_vae=test_results["val/factor_vae_score"],
+                   mig=test_results["val/mig"])
+    phase(f"{ds}-harness", t0, f"main_val -b {ds} -t -s {CROSS_SEED} "
+          f"{' '.join(CROSS[ds]['ldm'])} --max_steps {n} over {last_vq}, "
+          f"B={bs} on the {len(images)}-image grid (train view of "
+          f"{len(train_ds)} rows, {len(train_ds) // bs} steps an epoch; one "
+          f"device array for both views): latent cache {latents_s[0]:.3f}s "
+          f"({tuple(z.shape)}, {z.numel() * 4 / 2**20:.1f} MiB, once), "
+          f"{step_ms:.3f} ms per step on cached latents (median of steps "
+          f"2-{n}), image log {log_s[0]:.3f}s, test(): sweep of "
+          f"{tm['images']} images {tm['sweep_s']:.3f}s, metrics "
+          f"{tm['metrics_s']:.3f}s, FactorVAE "
+          f"{test_results['val/factor_vae_score']:.6f}, MIG "
+          f"{test_results['val/mig']:.6f}; -r restores the run's state bit "
+          f"for bit, its test() (sweep {resumed_tm['sweep_s']:.3f}s, metrics "
+          f"{resumed_tm['metrics_s']:.3f}s) reps within {reps_err:.3e}: "
+          f"{resumed_results}; the run {run_s:.3f}s, peak memory "
+          f"{peak / 2**20:.1f} MiB (the grid's {images.numel() / 2**20:.1f} "
+          f"MiB included); launches {launches} (expected), plain calls "
+          f"{plain_calls}; the first stage is the VQ-GAN run's with "
+          f"post_quant_conv's 20 widened rows at the seeded init; the "
+          f"latent cache matches a direct encode of {CROSS_LATENT_ROWS} rows "
+          f"(max_abs_err {z_err:.3e}, tol {LATENT_TOL}); the first batch "
+          f"is the epoch order's; scale factor "
+          f"{state.scale_factor.item():.7f}; every kernel matches its plain "
+          f"version at every shape of the run (tol {KERNEL_TOL}) | {smi}")
+    del trainer, model, state, images, z
+    return step_rows, other_rows, launches, step_shapes, numbers
+
+
+def mpi3d_shapes_phase(smi):
+    """mpi3d-shapes: the 1,036,800-image MPI3D grid rendered for the MPI3D
+    phases (geometry with numpy on the host, composed on the card, where it
+    stays), its first f_cam x f_bg blocks held byte for byte against
+    numpy's render of the one-object sub-grid (every camera height and
+    background); the seconds of the geometry, its upload and the
+    composition, and the card's memory. Returns those numbers."""
+    t0 = time.perf_counter()
+    harness.clear_device_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grid = synthetic_mpi3d.SyntheticMPI3DFull(device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    tm = grid.render_timings
+    fs = synthetic_mpi3d.MPI3D_FACTOR_SIZES
+    images = grid.images
+    if tuple(images.shape) != (synthetic_mpi3d.N_IMAGES_MPI3D, 64, 64, 3) \
+            or not images.is_cuda or held != images.numel():
+        raise RuntimeError(f"mpi3d-shapes: grid {tuple(images.shape)} on "
+                           f"{images.device}, {held} bytes held")
+    t = time.perf_counter()
+    sub = synthetic_mpi3d.render_mpi3d_all(64, [1, 1, 1, *fs[3:]])
+    if not np.array_equal(images[:len(sub)].cpu().numpy(), sub):
+        raise RuntimeError("mpi3d-shapes: the card's composition differs "
+                           "from numpy's on the grid's first blocks")
+    check_s = time.perf_counter() - t
+    numbers = {**tm, "render_s": sum(tm.values()), "peak_mib": peak / 2**20,
+               "grid_mib": held / 2**20}
+    phase("mpi3d-shapes", t0, f"{len(images)} images {tuple(images.shape)} "
+          f"(factors {fs}): geometry on the host {tm['geometry_s']:.3f}s, its "
+          f"upload {tm['upload_s']:.3f}s, the {int(np.prod(fs[:5]))} "
+          f"composition blocks on the card {tm['compose_s']:.3f}s; the grid "
+          f"holds {held / 2**20:.1f} MiB of the card, peak "
+          f"{peak / 2**20:.1f} MiB during the render (the geometry's "
+          f"blocks beside it); its first {len(sub) // (fs[5] * fs[6])} "
+          f"blocks (every camera height x background) equal numpy's render "
+          f"of the one-object sub-grid ({check_s:.3f}s) | {smi}")
+    return numbers
+
+
+def cross_phases(smi, card, seen, out, ds):
+    """<ds>-vq then <ds>-harness over its ``last``. Returns the checked
+    rows (step and other) and launches of each, the calls of one LDM step
+    by kernel and the numbers of both."""
+    vq_step, vq_other, vq_launches, _, vq_numbers, vq_dir = cross_vq_phase(
+        smi, card, seen, out, ds)
+    seen = {**seen, **seen_rows(vq_step, vq_other)}
+    h_step, h_other, h_launches, per_step, h_numbers = cross_harness_phase(
+        smi, card, seen, out, ds, vq_dir)
+    torch.cuda.empty_cache()
+    return dict(rows=(vq_step, vq_other, h_step, h_other),
+                launches={f"{ds}_vq_train": vq_launches,
+                          f"{ds}_harness": h_launches},
+                per_step=per_step,
+                numbers={**{f"vq_{k}": v for k, v in vq_numbers.items()},
+                         **h_numbers})
 
 
 if __name__ == "__main__":

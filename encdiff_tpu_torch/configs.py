@@ -1,4 +1,4 @@
-"""The flagship and the faces configurations as Python dicts.
+"""The flagship, faces, MPI3D and Cars3D configurations as Python dicts.
 
 ``FLAGSHIP`` holds the model fields of
 ``configs/demo/synthetic-shapes-v4-full-encdiff.yaml`` (the architecture of
@@ -57,6 +57,18 @@ data, micro-batch 8; the image logger every 10,000 steps (8 images, no
 swap, inpainting or progressive rows), 4-way accumulation, 4 epochs,
 validation every epoch. ``tests/test_torch_faces_ldm_ingest.py`` holds it
 equal to the YAML.
+
+``MPI3D_VQ_RUN``, ``MPI3D_RUN``, ``CARS3D_VQ_RUN`` and ``CARS3D_RUN`` are
+the whole ``configs/demo/synthetic-{mpi3d,cars3d}-{vq,encdiff}.yaml``
+(``-b mpi3d_vq``, ``-b mpi3d``, ``-b cars3d_vq``, ``-b cars3d``): the
+flagship's VQ-GAN and EncDiff runs at full width on the MPI3D grid
+(1,036,800 images, ``data.synthetic_mpi3d``) and on the Cars3D grid
+(17,568 images repeated ten times an epoch, ``data.synthetic_cars3d``),
+built from ``FLAGSHIP_VQ_RUN`` and ``FLAGSHIP_RUN``. They differ from them
+in the data targets, ``eval_name`` (``mpi3d``, ``cars3d``), the LR warm-up
+(10,000, 4,000), ``max_epochs`` (VQ 1 and 4, LDM 8 and 30) and
+``check_val_every_n_epoch`` (1 and 4). ``tests/test_torch_cross_configs.py``
+holds them equal to the YAMLs.
 
 ``FACES`` and ``FACES_TRAIN`` hold the model and training fields of
 ``configs/demo/synthetic-faces-encdiff.yaml``: 256 px images of the
@@ -407,3 +419,72 @@ FACES_RUN = {
                     "max_epochs": 4, "check_val_every_n_epoch": 1},
     },
 }
+
+
+def _grid_data(train: str, validation: str) -> dict:
+    """The data module of a run on one of the port's grids, B = 128."""
+    return {
+        "target": "encdiff_tpu_torch.train.data.DataModuleFromConfig",
+        "params": {
+            "batch_size": 128,
+            "num_workers": 8,
+            "wrap": True,
+            "train": {"target": f"encdiff_tpu_torch.data.{train}"},
+            "validation": {"target": f"encdiff_tpu_torch.data.{validation}"},
+        },
+    }
+
+
+def _vq_run(data: dict, max_epochs: int) -> dict:
+    """``FLAGSHIP_VQ_RUN`` on another grid for ``max_epochs`` epochs."""
+    return {
+        "model": FLAGSHIP_VQ_RUN["model"],
+        "data": data,
+        "lightning": {
+            "callbacks": FLAGSHIP_VQ_RUN["lightning"]["callbacks"],
+            "trainer": {**FLAGSHIP_VQ_RUN["lightning"]["trainer"],
+                        "max_epochs": max_epochs},
+        },
+    }
+
+
+def _ldm_run(data: dict, eval_name: str, warm_up_steps: int,
+             max_epochs: int, check_val_every_n_epoch: int) -> dict:
+    """``FLAGSHIP_RUN`` on another grid, scored on its ground truth."""
+    params = FLAGSHIP_RUN["model"]["params"]
+    return {
+        "model": {
+            **FLAGSHIP_RUN["model"],
+            "params": {
+                **params,
+                "eval_name": eval_name,
+                "scheduler_config": {**params["scheduler_config"],
+                                     "warm_up_steps": [warm_up_steps]},
+            },
+        },
+        "data": data,
+        "lightning": {
+            **FLAGSHIP_RUN["lightning"],
+            "trainer": {**FLAGSHIP_RUN["lightning"]["trainer"],
+                        "max_epochs": max_epochs,
+                        "check_val_every_n_epoch": check_val_every_n_epoch},
+        },
+    }
+
+
+MPI3D_VQ_RUN = _vq_run(
+    _grid_data("synthetic_mpi3d.SyntheticMPI3DFullTrain",
+               "synthetic_mpi3d.SyntheticMPI3DFullTrain"), max_epochs=1)
+MPI3D_RUN = _ldm_run(
+    _grid_data("synthetic_mpi3d.SyntheticMPI3DFullTrain",
+               "synthetic_mpi3d.SyntheticMPI3DFull"),
+    eval_name="mpi3d", warm_up_steps=10000, max_epochs=8,
+    check_val_every_n_epoch=1)
+CARS3D_VQ_RUN = _vq_run(
+    _grid_data("synthetic_cars3d.SyntheticCars3DFullTrain",
+               "synthetic_cars3d.SyntheticCars3DFull"), max_epochs=4)
+CARS3D_RUN = _ldm_run(
+    _grid_data("synthetic_cars3d.SyntheticCars3DFullTrain",
+               "synthetic_cars3d.SyntheticCars3DFull"),
+    eval_name="cars3d", warm_up_steps=4000, max_epochs=30,
+    check_val_every_n_epoch=4)

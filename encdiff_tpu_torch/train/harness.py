@@ -64,6 +64,25 @@ its discriminator and LPIPS, both Adam states, the step), and each save
 also writes ``<ckptdir>/compact_last.npz``, which the JAX ``load_compact``
 and ``VQModel.load_reference_checkpoint`` read.
 
+``-b mpi3d_vq`` / ``-b mpi3d`` and ``-b cars3d_vq`` / ``-b cars3d``
+(``configs.MPI3D_*``, ``configs.CARS3D_*``) are the cross-dataset chains of
+``scripts/round5_pipeline.sh:187-200`` and ``scripts/round4b_pipeline.sh:
+107-116``: the flagship's VQ-GAN, then its EncDiff stage over that run's
+``checkpoints/last``, on the MPI3D grid (1,036,800 images, 7 factors, two
+of 40 levels) and on the Cars3D grid (17,568 images, a 183-way factor, the
+train view repeated ten times an epoch: ``len`` 175,680, rows taken modulo
+17,568 by ``epoch_order``), validated on the ``mpi3d`` and ``cars3d``
+ground-truth tables. The train and validation views of one grid hold one
+array, so both hit one device cache entry. The port keeps the whole MPI3D
+grid resident on the card (12.74 GB of uint8, composed there by
+``data.synthetic_mpi3d``, whose tensor ``device_images`` takes as it is)
+and caches its latents (3.19 GB of fp32): the JAX harness keeps a grid
+above 8e9 bytes on the host and streams it (``encdiff_tpu/train/
+harness.py:383``), a gate sized for a 16 GB TPU; the port follows the JAX
+device path's order and step instead, and the host-streamed path is not
+ported (``--device_data false`` raises). ``--val_batches`` caps a VQ-GAN's
+validation (the MPI3D VQ validates on the full grid, 8,100 batches).
+
 Checkpoints are directories (``train.checkpoint_io``). The dataset stays on
 the device between runs of one process, so a resumed run or a second
 ``main`` does not upload 5.9 GB again; its latents are computed anew by
@@ -79,6 +98,14 @@ raises without a card.
         [--val_batches K]
     python -m encdiff_tpu_torch.main_val -b faces -t --max_steps N \\
         model.params.first_stage_config.params.ckpt_path=<run>/checkpoints/last
+    python -m encdiff_tpu_torch.main_val -b cars3d_vq -t --no-test \\
+        -l runs_cross -s 23 -n carsvq
+    python -m encdiff_tpu_torch.main_val -b cars3d -t -l runs_cross -s 23 \\
+        -n carsld \\
+        model.params.first_stage_config.params.ckpt_path=<run>/checkpoints/last \\
+        model.params.indep_type=hsic model.params.lambda_indep=2.0
+    (and -b mpi3d_vq, then -b mpi3d with --max_epochs 5
+     --check_val_every_n_epoch 2 and the ckpt_path override)
 """
 
 from __future__ import annotations
@@ -96,9 +123,11 @@ import numpy as np
 import torch
 
 from encdiff_tpu_torch import convert
-from encdiff_tpu_torch.configs import (FACES_RUN, FACES_VQ_RUN,
+from encdiff_tpu_torch.configs import (CARS3D_RUN, CARS3D_VQ_RUN,
+                                      FACES_RUN, FACES_VQ_RUN,
                                       FLAGSHIP_MCL_RUN, FLAGSHIP_RUN,
-                                      FLAGSHIP_VQ_RUN)
+                                      FLAGSHIP_VQ_RUN, MPI3D_RUN,
+                                      MPI3D_VQ_RUN)
 from encdiff_tpu_torch.core.compact_ckpt import save_compact_vq
 from encdiff_tpu_torch.core.config import get_obj_from_str, instantiate_from_config
 from encdiff_tpu_torch.core.device import resolve_device
@@ -119,24 +148,29 @@ from encdiff_tpu_torch.train.loop import (create_train_state, encode_sweep,
 #: the configs ``-b`` takes by name
 REGISTERED = {"flagship": FLAGSHIP_RUN, "flagship_vq": FLAGSHIP_VQ_RUN,
               "flagship_mcl": FLAGSHIP_MCL_RUN, "faces_vq": FACES_VQ_RUN,
-              "faces": FACES_RUN}
+              "faces": FACES_RUN, "mpi3d_vq": MPI3D_VQ_RUN,
+              "mpi3d": MPI3D_RUN, "cars3d_vq": CARS3D_VQ_RUN,
+              "cars3d": CARS3D_RUN}
 
 #: the dataset on the device, kept between the runs of one process: at most
 #: one, with the host array it was uploaded from
 _DEVICE_CACHE: dict = {}
 
 
-def device_images(images_host: np.ndarray, device) -> torch.Tensor:
+def device_images(images_host, device) -> torch.Tensor:
     """``images_host`` (N, S, S, 3) uint8 on ``device``, uploaded once per
-    process for the same host array. Another array first releases the one
-    the cache holds (the flagship's 5.9 GB grid before the faces' 6.8 GB),
-    and the card's allocator returns its memory."""
+    process for the same array; a tensor already on ``device`` (the MPI3D
+    grid composed on the card) is taken as it is, without a copy. Another
+    array first releases the one the cache holds (the flagship's 5.9 GB
+    grid before the faces' 6.8 GB), and the card's allocator returns its
+    memory unless the dataset still holds it."""
     hit = _DEVICE_CACHE.get("images")
     if hit is not None and hit[0] is images_host and hit[1] == str(device):
         return hit[2]
     del hit
     clear_device_cache()
-    images = torch.from_numpy(images_host).to(device)
+    images = (images_host if isinstance(images_host, torch.Tensor)
+              else torch.from_numpy(images_host)).to(device)
     _DEVICE_CACHE["images"] = (images_host, str(device), images)
     return images
 
