@@ -121,9 +121,30 @@ on the same batch, z, t and noise: every logged value to 1e-5 and every
 trainable leaf to 1e-3 relative L2 (the L1-sign guard at the UNet output
 and the forced-code rule as in train- and vq-reference), for
 ``infonce_mechgrad`` at B = 128 and ``nce_logistic``, ``denoise_sm`` and
-``jacobian_vjp_infonce`` at B = 16; ``fisher_sm`` (a third order) must
-raise.
+``jacobian_vjp_infonce`` at B = 16.
 mcl-profile: one MCL step's device time by kernel.
+
+The fisher_sm cell of the MCL sweep (``main_val -b flagship_mcl
+model.params.mcl_type=fisher_sm model.params.lambda_mcl=0.01``), whose
+Hutchinson divergence differentiates the decoder's score once more: a
+third order through the frozen decoder, on the same grid:
+
+mcl-fisher-shapes: hooks record every kernel call of one step at B = 128,
+the third order's included (``gn_silu_bwd3``, and the attention VJP calls
+that autograd records, whose backward is PyTorch ops); peak memory.
+mcl-fisher-kernels: every kernel at each of those shapes against its plain
+version, ``gn_silu_bwd3`` against autograd of the plain backward recorded
+twice and beside autograd's triple backward of the GroupNorm chain, the
+attention's third order against the plain route's and beside SDPA's
+(math backend) triple backward.
+mcl-fisher-train: ``main_val.main`` trains FISHER_STEPS steps and ends in
+``test()``, with mcl-train's checks: launches equal to the recorded calls,
+no plain call, the critic's gradients, every leaf moves but the exact
+zeros and the projection heads fisher_sm does not use; ms per step, peak.
+mcl-fisher-reference: the kernel path against the plain path at B = 16 on
+the run's first batch, z, t, noise and an injected ε, with mcl-reference's
+rules and tolerances.
+mcl-fisher-profile: one fisher_sm step's device time by kernel.
 
 The faces VQ-GAN first stage (``main_val -b faces_vq``: 256 px, micro-batch
 8 with 4-way accumulation, LPIPS, the PatchGAN and the adaptive GAN weight)
@@ -339,8 +360,9 @@ from encdiff_tpu_torch.nn.kernels.fused_attention import (
     fused_attention, fused_attention_plain)
 from encdiff_tpu_torch.nn.kernels.attention import attention_core_bwd_vjp
 from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (
-    gn_silu_bwd_bwd, groupnorm_silu, groupnorm_silu_bwd_bwd_plain,
-    groupnorm_silu_bwd_plain, groupnorm_silu_plain, gn_silu_bwd)
+    gn_silu_bwd3, gn_silu_bwd_bwd, groupnorm_silu, groupnorm_silu_bwd3_plain,
+    groupnorm_silu_bwd_bwd_plain, groupnorm_silu_bwd_plain,
+    groupnorm_silu_plain, gn_silu_bwd)
 from encdiff_tpu_torch.train import callbacks as port_callbacks
 from encdiff_tpu_torch.train import harness, vq_trainer
 from encdiff_tpu_torch.train.callbacks import make_grid
@@ -493,6 +515,13 @@ FACES_EVAL_FID_NUM = 64  # one batch: the time limit holds the later phases
 MCL_STEPS = 20
 MCL_TYPES = ("nce_logistic", "denoise_sm", "jacobian_vjp_infonce")
 MCL_TYPES_BATCH = 16
+#: the fisher_sm cell of the repo's MCL sweep (configs/mcl/
+#: mpi3d-mcl-fisher-lambda001.yaml's type and lambda) on -b flagship_mcl:
+#: a third order through the frozen decoder; FISHER_STEPS steps of the run,
+#: the kernel path held against the plain path at B = MCL_TYPES_BATCH
+FISHER_OVERRIDES = ("model.params.mcl_type=fisher_sm",
+                    "model.params.lambda_mcl=0.01")
+FISHER_STEPS = 8
 #: the critic's leaves that the mechanism gradient g = d/dz sum critic
 #: reaches only through a ReLU's mask (zero derivative): their exact
 #: gradient is zero in infonce_mechgrad (in JAX too), and AdamW's decay alone
@@ -550,6 +579,10 @@ KERNELS = {
         source="encdiff_tpu_torch/csrc/groupnorm_silu.cu",
         replaces="no TPU kernel: XLA's autodiff of the VJP at "
                  "encdiff_tpu/nn/pallas/groupnorm_silu.py:113"),
+    "gn_silu_bwd3": dict(
+        source="encdiff_tpu_torch/csrc/groupnorm_silu.cu",
+        replaces="no TPU kernel: XLA's third-order autodiff of the VJP at "
+                 "encdiff_tpu/nn/pallas/groupnorm_silu.py:113"),
 }
 FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkdv")
 WRAPPERS = {"groupnorm_silu": groupnorm_silu, "attention_core": attention_core,
@@ -559,7 +592,7 @@ WRAPPERS = {"groupnorm_silu": groupnorm_silu, "attention_core": attention_core,
             "flash_attention_dq": flash_attention_dq,
             "flash_attention_dkdv": flash_attention_dkdv,
             "fused_attention": fused_attention,
-            "gn_silu_bwd_bwd": gn_silu_bwd_bwd}
+            "gn_silu_bwd_bwd": gn_silu_bwd_bwd, "gn_silu_bwd3": gn_silu_bwd3}
 #: what each kernel's baseline column times: the route it replaces at the
 #: same shape
 BASELINE = {"flash_attention_fwd": "attention_core_ms",
@@ -572,7 +605,8 @@ BASELINE = {"flash_attention_fwd": "attention_core_ms",
 #: kernels of attention_core and groupnorm_silu, forward and backward
 PROFILE_ALWAYS = ("attn_core_mma_kernel", "gn_silu_fwd_kernel",
                   "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
-                  "gn_silu_bwd_kernel", "gn_silu_bwd_bwd_kernel")
+                  "gn_silu_bwd_kernel", "gn_silu_bwd_bwd_kernel",
+                  "gn_silu_bwd3_kernel")
 
 
 def mma_rate(card):
@@ -812,6 +846,19 @@ def gn_bwd_bwd_cost(shape, params):
     return nbytes, n * (4 + 20 + 37 + (4 if params else 0) + 5)
 
 
+def gn_bwd3_cost(shape):
+    """(bytes, fp32 operations) of one gn_silu_bwd3 call: x, the gradient
+    g and the cotangents u and c read, dg and dx written once, gamma and
+    beta read; per element the statistics (4), the first pass's xn and four
+    sums (2 + 8), the second pass's xn, a, SiLU's three derivatives, ut, ct,
+    W1, W2 and six sums (2 + 1 + 14 + 6 + 7 + 12), the third pass's xn, a,
+    the derivatives, ut, ct, W1, W2, dg, Gx and three sums (2 + 1 + 14 + 6
+    + 7 + 12 + 26 + 6) and dx (5)."""
+    b, c, h, w = shape
+    n = b * c * h * w
+    return 4 * (6 * n + 2 * c), n * (4 + 10 + 42 + 74 + 5)
+
+
 def attn_vjp_work(b, h, n, m, dh):
     """(fp32 FLOPs, exponentials) of one attention_core_bwd_vjp call: twelve
     products of 2 N M dh FLOPs per (batch, head) (q kᵀ, do vᵀ, dq_bar kᵀ,
@@ -820,6 +867,17 @@ def attn_vjp_work(b, h, n, m, dh):
     exponential per score."""
     bh = b * h
     return bh * (24 * n * m * dh + 20 * n * m), bh * n * m
+
+
+def attn_vjp3_cost(b, h, n, m, dh):
+    """(bytes, fp32 operations) of autograd's backward of one recorded
+    attention_core_bwd_vjp call (the attention's third order): its seven
+    inputs and four cotangents read and seven gradients written once; two
+    products for each of the VJP's twelve, and about forty elementwise
+    operations per score."""
+    bh = b * h
+    return (4 * bh * dh * (11 * n + 11 * m),
+            bh * (48 * n * m * dh + 40 * n * m))
 
 
 def attn_vjp_cost(b, h, n, m, dh):
@@ -1118,6 +1176,98 @@ def check_gn_bwd_bwd(shape, eps, params, gen):
                 else f"cluster of {plan.cluster}")
 
 
+def check_gn_bwd3(shape, eps, gen):
+    """Check and time gn_silu_bwd3 at x's shape beside its plain version
+    (autograd of the plain backward, recorded twice) and autograd's triple
+    backward of the GroupNorm chain (F.group_norm, F.silu) for the same
+    gradients (of the double backward's dx, in g and x), on event time and
+    on device time (CUDA-graph replays)."""
+    b, c, h, w = shape
+    dev = "cuda"
+    x = torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5
+    gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device=dev)
+    beta = 0.2 * torch.randn(c, generator=gen, device=dev)
+    g, du, dx_bar = (torch.randn(shape, generator=gen, device=dev)
+                     for _ in range(3))
+    kernel = lambda: gn_silu_bwd3(du, dx_bar, g, x, gamma, beta, eps=eps)
+    plain = lambda: groupnorm_silu_bwd3_plain(du, dx_bar, g, x, gamma, beta,
+                                              eps=eps)
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, **KERNEL_TOL)
+    err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+    del got, ref
+    nbytes, ops = gn_bwd3_cost(shape)
+    plan = kgn.gn_silu_bwd3_plan(b, c, h * w, 32, torch.cuda.get_device_properties(
+        0).shared_memory_per_block_optin)
+    # the library's third order: the GroupNorm chain's backward and double
+    # backward recorded (create_graph), then differentiated once more
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        xl, gl = x.detach().requires_grad_(), g.detach().requires_grad_()
+        y = F.silu(F.group_norm(xl, 32, gamma, beta, eps))
+        first, = torch.autograd.grad(y, xl, gl, create_graph=True)
+        second, = torch.autograd.grad(first, xl, du, create_graph=True)
+        library = lambda: torch.autograd.grad(second, (gl, xl), dx_bar,
+                                              retain_graph=True)
+        library_ms = time_ms(library)
+        library_device_ms = graph_ms(library, stream=side)
+    torch.cuda.current_stream().wait_stream(side)
+    return dict(err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
+                library_ms=library_ms, device_ms=graph_ms(kernel),
+                library_device_ms=library_device_ms,
+                bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=ops / PEAK_FP32 * 1e3,
+                path=f"{plan.per_block} a block" if plan.cluster == 1
+                else f"cluster of {plan.cluster}")
+
+
+def check_attn_vjp3(shape, gen):
+    """Check and time the attention's third order on the kernel route:
+    autograd's backward of a recorded ``attention_core_bwd_vjp`` (PyTorch
+    ops, no kernel of the port), against the plain route's (autograd of the
+    plain backward, recorded twice), beside SDPA's (math backend) triple
+    backward, on event time; the fp32 bound of its products."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    b, h, n, m, dh = shape
+    lengths = (n, m, m, n, n, m, m)
+    ins = [torch.randn(b, h, length, dh, generator=gen, device="cuda")
+           for length in lengths]
+    cots = [torch.randn(b, h, length, dh, generator=gen, device="cuda")
+            for length in (n, m, m, n)]
+    scale = dh ** -0.5
+    calls = attention_core_bwd_vjp.calls
+    leaves = [t.detach().requires_grad_() for t in ins]
+    outs = attention_core_bwd_vjp(*leaves, scale)
+    fn = lambda: torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+    pl = [t.detach().requires_grad_() for t in ins]
+    second = torch.autograd.grad(attention_core_bwd_plain(*pl[:4], scale),
+                                 pl[:4], pl[4:], create_graph=True)
+    plain = lambda: torch.autograd.grad(second, pl, cots, retain_graph=True)
+    got, ref = fn(), plain()
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, **KERNEL_TOL)
+    err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+    del got, ref
+    with sdpa_kernel(SDPBackend.MATH):
+        sl = [t.detach().requires_grad_() for t in ins]
+        first = torch.autograd.grad(
+            F.scaled_dot_product_attention(*sl[:3], scale=scale), sl[:3],
+            sl[3], create_graph=True)
+        lib2 = torch.autograd.grad(first, sl[:4], sl[4:], create_graph=True)
+        library = lambda: torch.autograd.grad(lib2, sl, cots,
+                                              retain_graph=True)
+        library_ms = time_ms(library)
+    nbytes, ops = attn_vjp3_cost(*shape)
+    row = dict(err=err, ms=time_ms(fn), plain_ms=time_ms(plain),
+               library_ms=library_ms, bytes_ms=nbytes / PEAK_BYTES * 1e3,
+               ops_ms=ops / PEAK_FP32 * 1e3)
+    attention_core_bwd_vjp.calls = calls  # timing calls are not the path's
+    return row
+
+
 def check_attn_vjp(shape, gen):
     """Check and time attention_core_bwd_vjp (PyTorch ops, no kernel of
     the port) at (B, H, N, M, dh) against autograd of the plain backward
@@ -1241,16 +1391,21 @@ def record_backward_shapes():
     """Hooks on the backward of the autograd Functions: every backward
     kernel call's shape, as ``check_*_bwd`` take it, and the second order's
     (``gn_silu_bwd_bwd``, and ``attention_core_bwd_vjp``, which is PyTorch
-    ops)."""
+    ops) and the third order's (the kernels ``_GNSiLUBwdBwd``'s backward
+    launches, and ``attention_core_bwd_vjp3``: the VJP calls that autograd
+    records, whose backward is the attention's third order)."""
     records = {"attention_core_bwd": [], "gn_silu_bwd": [],
                "flash_attention_dq": [], "flash_attention_dkdv": [],
-               "gn_silu_bwd_bwd": [], "attention_core_bwd_vjp": []}
+               "gn_silu_bwd_bwd": [], "attention_core_bwd_vjp": [],
+               "gn_silu_bwd3": [], "attention_core_bwd_vjp3": []}
     attn_fn, gn_fn, flash_fn = (kattn._AttentionCore, kgn._GNSiLU,
                                 kflash._FlashAttention)
     attn_bwd, gn_bwd, flash_bwd = (attn_fn.backward, gn_fn.backward,
                                    flash_fn.backward)
-    gn2_fn, attn2_fn = kgn._GNSiLUBwd, kattn._AttentionCoreBwd
-    gn2_bwd, attn2_bwd = gn2_fn.backward, attn2_fn.backward
+    gn2_fn, attn2_fn, gn3_fn = (kgn._GNSiLUBwd, kattn._AttentionCoreBwd,
+                                kgn._GNSiLUBwdBwd)
+    gn2_bwd, attn2_bwd, gn3_bwd = (gn2_fn.backward, attn2_fn.backward,
+                                   gn3_fn.backward)
 
     def gn2_hook(ctx, *grads):
         x = ctx.saved_tensors[1]
@@ -1261,9 +1416,27 @@ def record_backward_shapes():
 
     def attn2_hook(ctx, *grads):
         q, k = ctx.saved_tensors[:2]
-        records["attention_core_bwd_vjp"].append(
-            (q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3]))
+        key = (q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3])
+        records["attention_core_bwd_vjp"].append(key)
+        if torch.is_grad_enabled():
+            records["attention_core_bwd_vjp3"].append(key)
         return attn2_bwd(ctx, *grads)
+
+    def gn3_hook(ctx, dg_bar, dx_bar):
+        # the kernels _GNSiLUBwdBwd.backward launches, by the same rules
+        shape = tuple(ctx.saved_tensors[2].shape)
+        need_du, need_g, need_x = ctx.needs_input_grad[:3]
+        if dg_bar is not None:
+            if need_du:
+                records["gn_silu_bwd"].append((shape, ctx.eps, False))
+            if need_x:
+                records["gn_silu_bwd_bwd"].append((shape, ctx.eps, False))
+        if dx_bar is not None:
+            if need_du:
+                records["gn_silu_bwd_bwd"].append((shape, ctx.eps, False))
+            if need_g or need_x:
+                records["gn_silu_bwd3"].append((shape, ctx.eps))
+        return gn3_bwd(ctx, dg_bar, dx_bar)
 
     def attn_hook(ctx, do):
         q, k, _ = ctx.saved_tensors
@@ -1283,15 +1456,15 @@ def record_backward_shapes():
             records[name].append(tuple(q.shape))
         return flash_bwd(ctx, do)
 
-    fns = (attn_fn, gn_fn, flash_fn, gn2_fn, attn2_fn)
+    fns = (attn_fn, gn_fn, flash_fn, gn2_fn, attn2_fn, gn3_fn)
     for fn, hook in zip(fns, (attn_hook, gn_hook, flash_hook, gn2_hook,
-                              attn2_hook)):
+                              attn2_hook, gn3_hook)):
         fn.backward = staticmethod(hook)
     try:
         yield records
     finally:
         for fn, bwd in zip(fns, (attn_bwd, gn_bwd, flash_bwd, gn2_bwd,
-                                 attn2_bwd)):
+                                 attn2_bwd, gn3_bwd)):
             fn.backward = staticmethod(bwd)
 
 
@@ -1307,7 +1480,9 @@ def check_rows(name, shapes, gen, card, seen=None):
              "attention_core_bwd": lambda key: check_attn_bwd(key, gen, card),
              "fused_attention": lambda key: check_fused(key, gen, card),
              "gn_silu_bwd_bwd": lambda key: check_gn_bwd_bwd(*key, gen),
-             "attention_core_bwd_vjp": lambda key: check_attn_vjp(key, gen)}.get(
+             "gn_silu_bwd3": lambda key: check_gn_bwd3(*key, gen),
+             "attention_core_bwd_vjp": lambda key: check_attn_vjp(key, gen),
+             "attention_core_bwd_vjp3": lambda key: check_attn_vjp3(key, gen)}.get(
                  name, lambda key: check_flash(name, key, gen, card))
     seen = {} if seen is None else seen
     rows = []
@@ -1369,9 +1544,15 @@ YARDSTICK = {
     "gn_silu_bwd_bwd": ("the GroupNorm chain's autograd double backward on "
                         "device time", lambda r: r["device_ms"],
                         lambda r: r["library_device_ms"]),
+    "gn_silu_bwd3": ("the GroupNorm chain's autograd triple backward on "
+                     "device time", lambda r: r["device_ms"],
+                     lambda r: r["library_device_ms"]),
     "attention_core_bwd_vjp": ("SDPA's (math backend) autograd double "
                                "backward", lambda r: r["ms"],
-                               lambda r: r["library_ms"])}
+                               lambda r: r["library_ms"]),
+    "attention_core_bwd_vjp3": ("SDPA's (math backend) autograd triple "
+                                "backward", lambda r: r["ms"],
+                                lambda r: r["library_ms"])}
 
 
 def print_yardstick(phase_name, rows_by_kernel):
@@ -1623,6 +1804,10 @@ def main(argv=None) -> int:
     mcl_rows, mcl_vjp_rows, mcl_launches, per_mcl_step = mcl_phases(
         smi, card, seen_rows(serve_rows, train_rows, harness_rows, vq_rows),
         args.out)
+    fisher_rows, fisher_other, fisher_launches, per_fisher_step, fisher = \
+        mcl_fisher_phases(smi, card, seen_rows(
+            serve_rows, train_rows, harness_rows, vq_rows, mcl_rows,
+            {"attention_core_bwd_vjp": mcl_vjp_rows}), args.out)
     harness.clear_device_cache()
     torch.cuda.empty_cache()
     (fvq_rows, fvq_other, fvq_launches, per_fvq_step, fvq,
@@ -1661,6 +1846,7 @@ def main(argv=None) -> int:
             ("serve", serve_rows), ("train_step", train_rows),
             ("faces_micro_step", faces_rows), ("faces_serve", fserve_rows),
             ("vq_step", vq_rows), ("mcl_step", mcl_rows),
+            ("mcl_fisher_step", fisher_rows),
             ("faces_vq_micro_step", fvq_rows),
             ("faces_harness_micro_step", fh_rows))
             if rows.get(name)}
@@ -1669,6 +1855,7 @@ def main(argv=None) -> int:
                     "harness": harness_launches[name],
                     "vq_train": vq_launches[name],
                     "mcl_train": mcl_launches[name],
+                    "mcl_fisher_train": fisher_launches[name],
                     "faces_vq_train": fvq_launches[name],
                     "faces_train": faces_launches[name],
                     **{path: counts[name]
@@ -1698,6 +1885,7 @@ def main(argv=None) -> int:
                                 ("faces_serve", per_fserve),
                                 ("vq_step", per_vq_step),
                                 ("mcl_step", per_mcl_step),
+                                ("mcl_fisher_step", per_fisher_step),
                                 ("faces_vq_micro_step", per_fvq_step),
                                 ("faces_harness_micro_step", per_fh_step)):
             if workload in parts:
@@ -1765,6 +1953,18 @@ def main(argv=None) -> int:
                                                      "bound_ms", "library_ms"))
           + f", bound by {vjp['bound_by']} at the fp32 peak, "
           f"{len(per_mcl_step['attention_core_bwd_vjp'])} call a step)",
+          flush=True)
+    print("# mcl_fisher: the fisher_sm run (-b flagship_mcl "
+          f"{' '.join(FISHER_OVERRIDES)}) on {smi}: "
+          + ", ".join(f"{k} {v:.6g}" for k, v in fisher.items())
+          + "; mcl_fisher_step holds every kernel's sums over one of its "
+          "steps at B=128, whose third order runs gn_silu_bwd3; per step "
+          "the attention VJP (PyTorch ops, no kernel of the port) "
+          + "; its third order (autograd of the recorded VJP) ".join(
+              ", ".join(f"{k} {summed(n, fisher_other[n])[k]:.5f}"
+                        for k in ("ms", "plain_ms", "bound_ms", "library_ms"))
+              + f" ({len(per_fisher_step[n])} a step)"
+              for n in ("attention_core_bwd_vjp", "attention_core_bwd_vjp3")),
           flush=True)
     print("# faces_vq: the faces VQ-GAN run (-b faces_vq) on "
           f"{smi}: " + ", ".join(f"{k} {v:.6g}" for k, v in fvq.items()),
@@ -3060,14 +3260,19 @@ def recording_mcl_run(metrics, first_grads, swap_records):
         cls.on_validation_epoch_end = swap_fn
 
 
-def mcl_train_phase(smi, card, per_step, ref, images, seen, out):
-    """mcl-train: ``main_val -b flagship_mcl`` from the committed checkpoint
-    for MCL_STEPS steps on cached latents, ending in ``test()``; launches
-    against the recorded calls, the first step's critic gradients, every
-    leaf's movement against ``ref`` (a trainer at the run's start), the
-    files. Returns (launches, the run's checked rows)."""
+def mcl_train_phase(smi, card, per_step, ref, images, seen, out,
+                    label="mcl-train", overrides=(), steps=MCL_STEPS):
+    """mcl-train: ``main_val -b flagship_mcl`` (with the dotlist
+    ``overrides``) from the committed checkpoint for ``steps`` steps on
+    cached latents, ending in ``test()``; launches against the recorded
+    calls, the first step's critic gradients, every leaf's movement against
+    ``ref`` (a trainer at the run's start; an Encoder4 bias of EXACT_ZERO
+    or a projection head the type does not use whose first gradient is
+    within GRAD_ZERO of the global norm may stand still), the files.
+    Returns
+    (launches, the run's checked rows, ms per step, peak bytes)."""
     t0 = time.perf_counter()
-    logroot = os.path.join(out, "mcl")
+    logroot = os.path.join(out, label)
     with np.load(CKPT) as f:
         start = int(f["state/step"])
     stamps, metrics, first_grads, swap_records = [], [], {}, []
@@ -3079,8 +3284,8 @@ def mcl_train_phase(smi, card, per_step, ref, images, seen, out):
         attention_core_bwd_vjp.calls = 0
         trainer = main_val.main([
             "-b", "flagship_mcl", "-t", "--max_steps",
-            str(start + MCL_STEPS), "--resume_ckpt", CKPT, "-l", logroot,
-            "--device", "cuda"])
+            str(start + steps), "--resume_ckpt", CKPT, "-l", logroot,
+            "--device", "cuda", *overrides])
         torch.cuda.synchronize()
         launches, plain_calls = read_counts()
         vjp_calls = attention_core_bwd_vjp.calls
@@ -3094,9 +3299,9 @@ def mcl_train_phase(smi, card, per_step, ref, images, seen, out):
     if counts(step_shapes) != counts(per_step):
         faults.append(f"the run's first step's calls {counts(step_shapes)}, "
                       f"mcl-shapes' {counts(per_step)}")
-    want = {k: MCL_STEPS * len(step_shapes.get(k, ()))
+    want = {k: steps * len(step_shapes.get(k, ()))
             + sum(len(p.get(k, ())) for p in parts) for k in KERNELS}
-    want_vjp = MCL_STEPS * len(step_shapes["attention_core_bwd_vjp"])
+    want_vjp = steps * len(step_shapes["attention_core_bwd_vjp"])
     if launches != want or vjp_calls != want_vjp or any(plain_calls.values()):
         faults.append(f"launches {launches}, expected {want}; attention VJP "
                       f"calls {vjp_calls}, expected {want_vjp}; plain calls "
@@ -3115,9 +3320,18 @@ def mcl_train_phase(smi, card, per_step, ref, images, seen, out):
     end = trainable_parameters(trainer.model)
     begin = trainable_parameters(ref.model)
     still = [k for k, p in end.items() if torch.equal(p, begin[k])]
-    if set(still) - MCL_EXACT_ZERO:
-        faults.append(f"{len(still)} leaves unchanged after {MCL_STEPS} steps:"
-                      f" {sorted(set(still) - MCL_EXACT_ZERO)[:8]}")
+    # a leaf whose exact gradient is zero (an Encoder4 bias before a
+    # BatchNorm, a head the type does not use) and whose computed one is
+    # within GRAD_ZERO of the global norm: Adam's step on rounding noise
+    # and AdamW's decay are under fp32's resolution at the warm-up's LR
+    total = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in first_grads.values()])).item()
+    idle = {k for k, g in first_grads.items()
+            if (k.startswith("mcl.Pi_") or k in EXACT_ZERO)
+            and torch.linalg.vector_norm(g).item() <= GRAD_ZERO * total}
+    if set(still) - MCL_EXACT_ZERO - idle:
+        faults.append(f"{len(still)} leaves unchanged after {steps} steps:"
+                      f" {sorted(set(still) - MCL_EXACT_ZERO - idle)[:8]}")
     series = {k: [m[k].item() for m in metrics]
               for k in ("train/loss", "train/loss_simple", "train/loss_mcl",
                         "train/mcl_diffusion_ratio", "grad_norm")}
@@ -3147,7 +3361,7 @@ def mcl_train_phase(smi, card, per_step, ref, images, seen, out):
         if sorted(test_results) != ["val/factor_vae_score", "val/mig"] or \
                 not all(np.isfinite(v) for v in test_results.values()):
             faults.append(f"test_results.json {test_results}")
-    if step != start + MCL_STEPS or trainer.state.updates != MCL_STEPS:
+    if step != start + steps or trainer.state.updates != steps:
         faults.append(f"step {step}, AdamW count {trainer.state.updates}")
     kgen = torch.Generator("cuda").manual_seed(SEED + 9)
     shapes = {k: [s for p in (step_shapes, *parts) for s in p.get(k, ())]
@@ -3155,15 +3369,17 @@ def mcl_train_phase(smi, card, per_step, ref, images, seen, out):
     rows = {name: check_rows(name, shapes[name], kgen, card, seen)
             for name in KERNELS if shapes[name]}
     if faults:
-        raise RuntimeError("mcl-train: " + "; ".join(faults))
+        raise RuntimeError(f"{label}: " + "; ".join(faults))
     steady = [b - a for a, b in zip(stamps, stamps[1:])][1:]  # steps 3..N
     median_ms = sorted(steady)[len(steady) // 2] * 1e3
     mean_ms = sum(steady) / len(steady) * 1e3
     tm = trainer.timings
-    phase("mcl-train", t0, f"main_val -b flagship_mcl -t --max_steps "
-          f"{start + MCL_STEPS} --resume_ckpt {os.path.basename(CKPT)}: "
-          f"{MCL_STEPS} steps at B={trainer.batch_size} on cached latents, "
-          f"{median_ms:.3f} ms per step (median of steps 3-{MCL_STEPS}; "
+    phase(label, t0, f"main_val -b flagship_mcl -t --max_steps "
+          f"{start + steps} --resume_ckpt {os.path.basename(CKPT)} "
+          f"{' '.join(overrides)}: {trainer.model.mcl_type} lambda "
+          f"{trainer.model.lambda_mcl}, "
+          f"{steps} steps at B={trainer.batch_size} on cached latents, "
+          f"{median_ms:.3f} ms per step (median of steps 3-{steps}; "
           f"their mean {mean_ms:.3f} ms; first {(stamps[0] - t0) * 1e3:.1f} "
           f"ms from the phase's start, the latent encode included), "
           f"{1e3 / median_ms:.3f} steps/s, peak memory "
@@ -3171,7 +3387,7 @@ def mcl_train_phase(smi, card, per_step, ref, images, seen, out):
           + ", ".join(f"{k} {v[0]:.6f} -> {v[-1]:.6f}"
                       for k, v in series.items())
           + f"; launches per step { {k: len(v) for k, v in step_shapes.items() if v} }"
-          f", total {launches} (expected: {MCL_STEPS} steps, the encode, "
+          f", total {launches} (expected: {steps} steps, the encode, "
           f"{len(swap_records)} swap visualization), attention VJP calls "
           f"{vjp_calls}; first step's critic gradient norms "
           + ", ".join(f"{k[11:]} {v:.3e}" for k, v in sorted(critic.items()))
@@ -3180,7 +3396,7 @@ def mcl_train_phase(smi, card, per_step, ref, images, seen, out):
           f"resolution ({sorted(still)}); test() sweep {tm['sweep_s']:.3f}s"
           f", metrics {tm['metrics_s']:.3f}s, swap visualization "
           f"{tm['swap_visualization_s']:.3f}s: {test_results} | {smi}")
-    return launches, rows
+    return launches, rows, median_ms, peak
 
 
 def mcl_phases(smi, card, seen, out):
@@ -3226,7 +3442,7 @@ def mcl_phases(smi, card, seen, out):
           f"(PyTorch ops) against autograd of attention_core_bwd_plain")
 
     # ---- mcl-train: main_val -b flagship_mcl, counters read around it
-    launches, run_rows = mcl_train_phase(
+    launches, run_rows, _, _ = mcl_train_phase(
         smi, card, per_step, ref, images, {**seen, **seen_rows(rows)}, out)
 
     # ---- mcl-reference: kernel path vs plain path at the run's start
@@ -3256,16 +3472,6 @@ def mcl_phases(smi, card, seen, out):
                                             draws[typ])
             readings.append(reading)
             faults += wrong
-        model.mcl_type = "fisher_sm"
-        try:
-            mcl_grads(model, state, b16, t16, n16,
-                      torch.randn(n16.shape, generator=gen, device="cuda"))
-            faults.append("fisher_sm did not raise on the kernel path")
-        except NotImplementedError as e:
-            if "fisher_sm" not in str(e):
-                raise
-            model.cond_stage_model.load_state_dict(bn)
-            readings.append(f"fisher_sm raises: {e}")
     finally:
         model.mcl_type = "infonce_mechgrad"
     if faults:
@@ -3289,6 +3495,103 @@ def mcl_phases(smi, card, seen, out):
     del ref, model, state
     torch.cuda.empty_cache()
     return rows, vjp_rows, launches, per_step
+
+
+def mcl_fisher_phases(smi, card, seen, out):
+    """mcl-fisher-shapes, mcl-fisher-kernels, mcl-fisher-train,
+    mcl-fisher-reference and mcl-fisher-profile: ``main_val -b flagship_mcl
+    model.params.mcl_type=fisher_sm model.params.lambda_mcl=0.01`` at B =
+    128 on the v4 grid the MCL phases left on the card. Its Hutchinson
+    divergence differentiates the frozen decoder's score once more: a third
+    order, through ``_GNSiLUBwdBwd`` (``gn_silu_bwd3``) and the recorded
+    attention VJP. Returns the checked rows of one step's kernel calls,
+    the attention VJP's and its third order's rows, the launches of the run
+    and the calls of one step by kernel."""
+    # ---- mcl-fisher-shapes: every kernel call of one fisher_sm step
+    t0 = time.perf_counter()
+    config = harness.load_configs(["flagship_mcl"], list(FISHER_OVERRIDES))
+    lightning = config.pop("lightning")
+    ref = mcl_trainer(config, lightning, out)
+    model, state = ref.model, ref.state
+    if model.mcl_type != "fisher_sm" or model.lambda_mcl != 0.01:
+        raise RuntimeError(f"mcl-fisher: the overrides gave {model.mcl_type} "
+                           f"lambda {model.lambda_mcl}")
+    images = harness.device_images(ref.data.dataset("train").images, "cuda")
+    batch, (t, noise) = mcl_first_batch(ref, images)
+    bn = cond_state(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd, remove = record_shapes(model)
+    try:
+        with record_backward_shapes() as bwd:
+            loss_and_grads(model, state, batch, t, noise)
+            torch.cuda.synchronize()
+    finally:
+        remove()
+    step_peak = torch.cuda.max_memory_allocated()
+    model.cond_stage_model.load_state_dict(bn)
+    per_step = {k: v for k, v in {**fwd, **bwd}.items() if v}
+    if not per_step.get("gn_silu_bwd3"):
+        raise RuntimeError(f"mcl-fisher-shapes: no third-order GN-SiLU call "
+                           f"in a fisher_sm step: {per_step.keys()}")
+    phase("mcl-fisher-shapes", t0, f"B={ref.batch_size} at global step "
+          f"{state.step}, {model.mcl_type} lambda {model.lambda_mcl}: per "
+          f"step { {k: len(v) for k, v in per_step.items()} }; peak memory "
+          f"of one step {step_peak / 2**20:.1f} MiB (the grid's included)")
+
+    # ---- mcl-fisher-kernels: every kernel at every shape of the step
+    t0 = time.perf_counter()
+    kgen = torch.Generator("cuda").manual_seed(SEED + 12)
+    rows = {name: check_rows(name, per_step[name], kgen, card, seen)
+            for name in KERNELS if per_step.get(name)}
+    other = {name: check_rows(name, per_step[name], kgen, card, seen)
+             for name in ("attention_core_bwd_vjp", "attention_core_bwd_vjp3")}
+    print_yardstick("mcl-fisher-kernels", {**rows, **other})
+    phase("mcl-fisher-kernels", t0, "each kernel matches its plain version "
+          f"at every shape of the fisher_sm step (tol {KERNEL_TOL}), "
+          "gn_silu_bwd3 against autograd of the plain backward recorded "
+          "twice, the attention VJP's third order (autograd of its recorded "
+          "PyTorch ops) against the plain route's")
+
+    # ---- mcl-fisher-train: the run, counters read around it
+    launches, _, step_ms, peak = mcl_train_phase(
+        smi, card, per_step, ref, images,
+        {**seen, **seen_rows(rows, other)}, out, label="mcl-fisher-train",
+        overrides=FISHER_OVERRIDES, steps=FISHER_STEPS)
+
+    # ---- mcl-fisher-reference: kernel path vs plain path at the start
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(SEED + 13)
+    b16 = {k: v[:MCL_TYPES_BATCH] for k, v in batch.items()}
+    t16, n16 = t[:MCL_TYPES_BATCH], noise[:MCL_TYPES_BATCH]
+    eps = torch.randn(n16.shape, generator=gen, device="cuda")
+    reading, faults, zero = mcl_compare("fisher_sm", model, state, b16, t16,
+                                        n16, eps)
+    if set(zero) & MCL_EXACT_ZERO != MCL_EXACT_ZERO:
+        faults.append(f"exact-zero critic leaves {sorted(MCL_EXACT_ZERO)}, "
+                      f"found {sorted(set(zero) & MCL_EXACT_ZERO)}")
+    if faults:
+        raise RuntimeError("mcl-fisher-reference: " + " | ".join(
+            [reading] + faults))
+    phase("mcl-fisher-reference", t0, f"B={MCL_TYPES_BATCH} at the run's "
+          f"starting weights, the same batch, z, t, noise and Hutchinson "
+          f"eps: every logged value within {LOSS_RTOL}, every trainable leaf "
+          f"within relative L2 {GRAD_RTOL} on each of {REFERENCE_REPEATS} "
+          f"kernel-path runs from the plain path's gradient at the UNet "
+          f"output; the exact-zero leaves within {GRAD_ZERO} of the global "
+          f"norm: {zero}. {reading}")
+
+    # ---- mcl-fisher-profile: one fisher_sm step's device time
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(SEED + 14)
+    print_profile("mcl-fisher-profile", t0, f"one fisher_sm step at "
+                  f"B={ref.batch_size}", profile(
+                      lambda: train_step(model, state, batch, generator=gen),
+                      calls=2))
+    del ref, model, state
+    torch.cuda.empty_cache()
+    return rows, other, launches, per_step, dict(ms_per_step=step_ms,
+                                                 peak_mib=peak / 2**20)
 
 
 def redraw_trainable(model, gen):

@@ -260,7 +260,8 @@ gn_silu_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
 // in `limit` bytes a block. The forward (staged = 0) stages x beside its
 // per-channel affine (2 floats a channel) and kExtraFloats; the backward
 // (staged = 2) stages x and the gradient, the double backward (staged = 3)
-// x, the gradient and the cotangent of dx, beside kBwdExtraFloats.
+// x, the gradient and the cotangent of dx, the third order (staged = 4) also
+// the cotangent of the double backward's dx, beside kBwdExtraFloats.
 struct GnPlan {
   long long team, per_block, cluster, slice, smem;
 };
@@ -1090,4 +1091,298 @@ extern "C" int gn_silu_bwd_bwd(const void* x, const void* gamma, const void* bet
   gn_param_grad_kernel<<<(C + 31) / 32, dim3(32, kParamRows), 0, st>>>(
       dgp, dbp, (float*)dgamma, (float*)dbeta, B, C);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Third order, fp32, NCHW, without FiLM: the gradients of the double
+// backward's dx with respect to g and x, for the cotangent c of that dx,
+// with u (the double backward's cotangent of the backward's dx) held.
+//
+// Replaces no TPU kernel: the JAX package differentiates its GN-SiLU VJP
+// (encdiff_tpu/nn/pallas/groupnorm_silu.py:113) three times through XLA's
+// autodiff when fisher_sm's Hutchinson divergence differentiates the frozen
+// decoder's score once more. Write f for GN-SiLU at x (gamma, beta fixed), J
+// for its Jacobian, d2f and d3f for its second and third derivatives. The
+// double backward gives dg = J u and dx = d2f[u, .]^T g; this kernel gives
+// the two terms of the third order that no earlier kernel computes:
+//   dg' = d2f[u, c]              (the gradient of <c, dx> in g),
+//   dx' = d3f[u, c, .]^T g       (its gradient in x at fixed g and u).
+// The other terms of the double backward's own backward are the backward's
+// and the double backward's kernels (nn/kernels/groupnorm_silu.py,
+// _GNSiLUBwdBwd).
+//
+// Per (sample, group), with the forward's two-pass statistics mean and r =
+// rstd, xn = (x - mean) r, a = gamma xn + beta, s1, s2, s3 the first three
+// derivatives of SiLU at a, and for v in {u, c}: vbar = mean(v), A_v =
+// mean(v xn), vt = r (v - vbar - xn A_v) (the derivative of xn in the
+// direction v). With P = mean(u ct),
+//   dg' = gamma^2 s2 ut ct - r gamma s1 (A_c ut + A_u ct + P xn).
+// L = sum g dg' depends on x through xn and r alone, and is of degree 2 in r
+// at fixed xn; with W1 = g gamma^2 s2, W2 = r g gamma s1, the sums S_v = sum
+// W2 vt, S_x = sum W2 xn, V_v = sum W1 vt xn, its gradient in xn at fixed r
+// is
+//   Gx = g gamma^3 s3 ut ct - 2 r W1 (A_u ct + A_c ut) + 2 r A_u A_c W2
+//        - P (r W1 xn + W2) - u (r V_c + S_c - 2 r A_c S_x) / n
+//        - c (r V_u + S_u - 2 r A_u S_x) / n,
+// and dx' = r (Gx - mean(Gx) - xn (mean(Gx xn) + 2 mean(g dg'))), the last
+// term L's gradient in r (dr/dx = -r^2 xn / n, dL/dr = 2 L / r).
+// So a group needs, after the statistics, four sums (u, c, u xn, c xn),
+// then six (u ct, S_u, S_c, S_x, V_u, V_c), then a pass that writes dg' and
+// Gx over g and u in shared memory and adds Gx, Gx xn and g dg', then the
+// pass that writes dx' and dg'.
+//
+// Bound on the H100: bytes. x, g, u and c are read and dg' and dx' written
+// once (24 bytes an element) for about a hundred fp32 operations and two
+// exponentials. The design is the double backward's: the same plan with
+// four staged arrays (gn_silu_bwd3_plan; its copy gn_silu_bwd3_plan() in
+// nn/kernels/groupnorm_silu.py), each array read from device memory once by
+// cp.async, every pass after it on shared memory, each thread on the same
+// elements in every pass, clusters of 2, 4 or 8 blocks where a group's four
+// slices do not fit half of 227 KB (the VQ decoder's 64x64 level, 8,192
+// floats a group: clusters of 2 blocks of 65 KB), every sum in a fixed
+// order: a run repeats bit for bit.
+
+namespace {
+
+// SiLU's first three derivatives at a.
+__device__ __forceinline__ void silu_derivs(float a, float* s1, float* s2, float* s3) {
+  const float sig = __fdividef(1.f, 1.f + __expf(-a));
+  const float sp = sig * (1.f - sig);
+  const float om = 1.f - 2.f * sig;
+  *s1 = sig * (1.f + a * (1.f - sig));
+  *s2 = sp * (2.f + a * om);
+  *s3 = sp * (om * (3.f + a * om) - 2.f * a * sp);
+}
+
+template <int TEAM>
+__global__ void __launch_bounds__(kThreads)
+gn_silu_bwd3_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                    const float* __restrict__ beta, const float* __restrict__ gout,
+                    const float* __restrict__ du, const float* __restrict__ dc,
+                    float* __restrict__ dg, float* __restrict__ dx, int C, int HW, int G,
+                    long long groups, int csize, int slice, float eps, bool vec) {
+  constexpr int GPB = kThreads / TEAM;  // groups per block
+  extern __shared__ __align__(16) float smem[];
+  const int team = threadIdx.x / TEAM, tid = threadIdx.x % TEAM;
+  const int rank = blockIdx.x % csize;  // the block's rank in its cluster
+  const long long gi = (long long)(blockIdx.x / csize) * GPB + team;
+  const bool live = gi < groups;
+  const int cg = C / G;
+  const long long n = (long long)cg * HW;
+  const long long start = (long long)rank * slice;  // the block's part of the group
+  const long long rest = live && n > start ? n - start : 0;
+  const int len = (int)(rest < slice ? rest : slice);
+  float* xs = smem + team * slice;
+  float* gs = smem + (GPB + team) * slice;      // g, then dg'
+  float* us = smem + (2 * GPB + team) * slice;  // u, then Gx
+  float* cs = smem + (3 * GPB + team) * slice;  // c
+  float* red = smem + 4 * GPB * slice;          // kThreads floats
+  float* slots = red + kThreads;                // mean, variance, then 2 x 6
+  const long long off = gi * n + start;
+
+  // element i of the slice belongs to thread i mod TEAM (chunk i / 4 to
+  // thread (i / 4) mod TEAM where vec), in every pass
+  const int w = vec ? 4 : 1;
+  if (vec) {
+    for (int i = tid; i < len / 4; i += TEAM) {
+      cp_async16(xs + 4 * i, x + off + 4 * i, true);
+      cp_async16(gs + 4 * i, gout + off + 4 * i, true);
+      cp_async16(us + 4 * i, du + off + 4 * i, true);
+      cp_async16(cs + 4 * i, dc + off + 4 * i, true);
+    }
+  } else {
+    for (int i = tid; i < len; i += TEAM) {
+      cp_async4(xs + i, x + off + i, true);
+      cp_async4(gs + i, gout + off + i, true);
+      cp_async4(us + i, du + off + i, true);
+      cp_async4(cs + i, dc + off + i, true);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+
+  float s = 0.f;
+  for (int i = w * tid; i < len; i += w * TEAM)
+    for (int j = 0; j < w; ++j) s += xs[i + j];
+  s = team_sum<TEAM>(s, red);
+  if (csize > 1) s = cluster_sum(s, slots, csize);
+  const float mean = s / (float)n;
+  float q = 0.f;
+  for (int i = w * tid; i < len; i += w * TEAM)
+    for (int j = 0; j < w; ++j) {
+      const float d = xs[i + j] - mean;
+      q += d * d;
+    }
+  q = team_sum<TEAM>(q, red);
+  if (csize > 1) q = cluster_sum(q, slots + 1, csize);
+  const float rstd = rsqrtf(q / (float)n + eps);
+  const float inv_n = 1.f / (float)n;
+  const int c0 = live ? (int)(gi % G) * cg : 0;
+
+  // pass 2: sum u, c, u xn, c xn
+  float m[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int i = w * tid; i < len; i += w * TEAM)
+    for (int j = 0; j < w; ++j) {
+      const float xn = (xs[i + j] - mean) * rstd;
+      const float u = us[i + j], c = cs[i + j];
+      m[0] += u;
+      m[1] += c;
+      m[2] += u * xn;
+      m[3] += c * xn;
+    }
+  team_sums<TEAM, 4>(m, red);
+  if (csize > 1) cluster_sums<4>(m, slots + 2, csize);
+  const float ubar = m[0] * inv_n, cbar = m[1] * inv_n;
+  const float Au = m[2] * inv_n, Ac = m[3] * inv_n;
+
+  // pass 3: sum u ct, W2 ut, W2 ct, W2 xn, W1 ut xn, W1 ct xn
+  float k[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int ci = 0; ci < cg; ++ci) {
+    int first, hi;
+    channel_range<TEAM>(ci, HW, start, len, w, tid, &first, &hi);
+    const float ga = gamma[c0 + ci], be = beta[c0 + ci];
+    for (int i = first; i < hi; i += w * TEAM) {
+#pragma unroll 4
+      for (int j = 0; j < w; ++j) {
+        const float xn = (xs[i + j] - mean) * rstd;
+        float s1, s2, s3;
+        silu_derivs(fmaf(xn, ga, be), &s1, &s2, &s3);
+        const float u = us[i + j], c = cs[i + j], gv = gs[i + j];
+        const float ut = rstd * (u - ubar - xn * Au);
+        const float ct = rstd * (c - cbar - xn * Ac);
+        const float w1 = gv * ga * ga * s2, w2 = rstd * gv * ga * s1;
+        k[0] += u * ct;
+        k[1] += w2 * ut;
+        k[2] += w2 * ct;
+        k[3] += w2 * xn;
+        k[4] += w1 * ut * xn;
+        k[5] += w1 * ct * xn;
+      }
+    }
+  }
+  team_sums<TEAM, 6>(k, red);
+  if (csize > 1) cluster_sums<6>(k, slots + 2, csize);
+  const float P = k[0] * inv_n;
+  const float Ku = (fmaf(rstd, k[5], k[2]) - 2.f * rstd * Ac * k[3]) * inv_n;
+  const float Kc = (fmaf(rstd, k[4], k[1]) - 2.f * rstd * Au * k[3]) * inv_n;
+
+  // pass 4: dg' over g, Gx over u; the sums of Gx, Gx xn and g dg'
+  float t[3] = {0.f, 0.f, 0.f};
+  for (int ci = 0; ci < cg; ++ci) {
+    int first, hi;
+    channel_range<TEAM>(ci, HW, start, len, w, tid, &first, &hi);
+    const float ga = gamma[c0 + ci], be = beta[c0 + ci];
+    for (int i = first; i < hi; i += w * TEAM) {
+#pragma unroll 4
+      for (int j = 0; j < w; ++j) {
+        const float xn = (xs[i + j] - mean) * rstd;
+        float s1, s2, s3;
+        silu_derivs(fmaf(xn, ga, be), &s1, &s2, &s3);
+        const float u = us[i + j], c = cs[i + j], gv = gs[i + j];
+        const float ut = rstd * (u - ubar - xn * Au);
+        const float ct = rstd * (c - cbar - xn * Ac);
+        const float w1 = gv * ga * ga * s2, w2 = rstd * gv * ga * s1;
+        const float mix = fmaf(Au, ct, Ac * ut);
+        const float d2 = ga * ga * s2 * ut * ct - rstd * ga * s1 * fmaf(P, xn, mix);
+        const float gx = gv * ga * ga * ga * s3 * ut * ct - 2.f * rstd * w1 * mix
+                         + 2.f * rstd * Au * Ac * w2 - P * fmaf(rstd * w1, xn, w2)
+                         - u * Ku - c * Kc;
+        gs[i + j] = d2;
+        us[i + j] = gx;
+        t[0] += gx;
+        t[1] += gx * xn;
+        t[2] += gv * d2;
+      }
+    }
+  }
+  team_sums<TEAM, 3>(t, red);
+  if (csize > 1) cluster_sums<3>(t, slots + 2, csize);
+  const float mg = t[0] * inv_n;
+  const float mgx = fmaf(2.f, t[2] * inv_n, t[1] * inv_n);
+
+  // pass 5: dx' and dg', from the thread's own elements
+  if (vec) {
+    for (int i = tid; i < len / 4; i += TEAM) {
+      const float4 xv = reinterpret_cast<const float4*>(xs)[i];
+      const float4 gx = reinterpret_cast<const float4*>(us)[i];
+      reinterpret_cast<float4*>(dx + off)[i] =
+          make_float4(rstd * (gx.x - mg - (xv.x - mean) * rstd * mgx),
+                      rstd * (gx.y - mg - (xv.y - mean) * rstd * mgx),
+                      rstd * (gx.z - mg - (xv.z - mean) * rstd * mgx),
+                      rstd * (gx.w - mg - (xv.w - mean) * rstd * mgx));
+      reinterpret_cast<float4*>(dg + off)[i] = reinterpret_cast<const float4*>(gs)[i];
+    }
+  } else {
+    for (int i = tid; i < len; i += TEAM) {
+      dx[off + i] = rstd * (us[i] - mg - (xs[i] - mean) * rstd * mgx);
+      dg[off + i] = gs[i];
+    }
+  }
+}
+
+template <int TEAM>
+int launch_bwd3(const float* x, const float* gamma, const float* beta, const float* gout,
+                const float* du, const float* dc, float* dg, float* dx, int B, int C, int HW,
+                int G, float eps, const GnPlan& p, int dev, long long optin, cudaStream_t st) {
+  const long long groups = (long long)B * G;
+  const bool vec = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(gout) |
+                     reinterpret_cast<uintptr_t>(du) | reinterpret_cast<uintptr_t>(dc) |
+                     reinterpret_cast<uintptr_t>(dg) | reinterpret_cast<uintptr_t>(dx)) &
+                    15) == 0 &&
+                   HW % 4 == 0;
+  return launch_planned<gn_silu_bwd3_kernel<TEAM>>(p, groups, dev, optin, st, x, gamma, beta,
+                                                   gout, du, dc, dg, dx, C, HW, G, groups,
+                                                   (int)p.cluster, (int)p.slice, eps, vec);
+}
+
+}  // namespace
+
+// The third order's plan at a shape (gn_silu_bwd_bwd_plan's rule with four
+// staged arrays: x, g, u and c); see gn_silu_fwd_plan.
+extern "C" int gn_silu_bwd3_plan(int C, int HW, int G, long long limit, long long* out) {
+  return plan_out(C, HW, G, limit, 4, out);
+}
+
+// x, gout (the backward's g), du (the double backward's cotangent u), dc
+// (the cotangent c of the double backward's dx), dg, dx: (B, C, H*W) fp32
+// contiguous; gamma, beta: (C,). Writes dg = d2f[u, c] and dx = d3f[u, c,
+// .]^T g. Runs one kernel on `stream`, allocates nothing and returns its
+// launch error (cudaErrorInvalidValue for a shape it does not take,
+// cudaErrorLaunchOutOfResources where the card cannot hold one cluster of
+// the plan).
+extern "C" int gn_silu_bwd3(const void* x, const void* gamma, const void* beta,
+                            const void* gout, const void* du, const void* dc, void* dg,
+                            void* dx, int B, int C, int HW, int G, float eps, void* stream) {
+  if (B <= 0 || C <= 0 || HW <= 0 || G <= 0 || C % G != 0)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  long long optin = 0;
+  int err = kernel_launch::device_optin(&dev, &optin);
+  if (err != 0) return err;
+  GnPlan p;
+  err = plan(C, HW, G, optin, 4, &p);
+  if (err != 0) return err;
+  const float* xf = (const float*)x;
+  const float* gf = (const float*)gamma;
+  const float* bf = (const float*)beta;
+  const float* go = (const float*)gout;
+  const float* uf = (const float*)du;
+  const float* cf = (const float*)dc;
+  float* dgf = (float*)dg;
+  float* dxf = (float*)dx;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (p.team) {
+    case 32:
+      return launch_bwd3<32>(xf, gf, bf, go, uf, cf, dgf, dxf, B, C, HW, G, eps, p, dev, optin,
+                             st);
+    case 64:
+      return launch_bwd3<64>(xf, gf, bf, go, uf, cf, dgf, dxf, B, C, HW, G, eps, p, dev, optin,
+                             st);
+    case 128:
+      return launch_bwd3<128>(xf, gf, bf, go, uf, cf, dgf, dxf, B, C, HW, G, eps, p, dev, optin,
+                              st);
+    default:
+      return launch_bwd3<256>(xf, gf, bf, go, uf, cf, dgf, dxf, B, C, HW, G, eps, p, dev, optin,
+                              st);
+  }
 }

@@ -15,9 +15,11 @@ Factor order: floor_hue, wall_hue, object_hue, scale, shape, orientation.
 from __future__ import annotations
 
 import colorsys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from encdiff_tpu_torch.data.datasets import RENDER_THREADS
 from encdiff_tpu_torch.train.data import epoch_order
 
 FACTOR_SIZES = [6, 6, 6, 4, 4, 8]
@@ -155,22 +157,23 @@ def render_all_v4(size: int = 64, horizon: float = 0.55,
     geo_orient = (np.arange(n_geo) % f_orient)
 
     out = np.empty((n_images, size, size, 3), np.uint8)
-    idx = 0
-    for fl in range(f_floor):
+
+    def compose(block):
+        # the n_geo images of one (floor, wall, object) hue, in grid order
+        fl, wa, ob = np.unravel_index(block, (f_floor, f_wall, f_obj))
         floor_rgb = np.broadcast_to(floor_colors[fl],
                                     (size - hy, size, 3)).astype(np.float32)
-        for wa in range(f_wall):
-            wall_rgb = wall_mix * wall_colors[wa]
-            for ob in range(f_obj):
-                col = obj_colors[ob] * shade   # (n_geo, size, size, 3)
-                blk = np.empty((n_geo, size, size, 3), np.float32)
-                blk[:, :hy] = wall_rgb[geo_orient]
-                blk[:, hy:] = floor_rgb
-                blk = alpha * col + (1.0 - alpha) * blk
-                np.copyto(out[idx:idx + n_geo],
-                          np.clip(blk, 0, 255).astype(np.uint8))
-                idx += n_geo
-    assert idx == n_images
+        wall_rgb = wall_mix * wall_colors[wa]
+        col = obj_colors[ob] * shade   # (n_geo, size, size, 3)
+        blk = np.empty((n_geo, size, size, 3), np.float32)
+        blk[:, :hy] = wall_rgb[geo_orient]
+        blk[:, hy:] = floor_rgb
+        blk = alpha * col + (1.0 - alpha) * blk
+        np.copyto(out[block * n_geo:(block + 1) * n_geo],
+                  np.clip(blk, 0, 255).astype(np.uint8))
+
+    with ThreadPoolExecutor(RENDER_THREADS) as pool:
+        list(pool.map(compose, range(f_floor * f_wall * f_obj)))
     return out
 
 
@@ -179,8 +182,9 @@ class SyntheticShapes3DV4Full:
     (``encdiff_tpu/data/synthetic_shapes.py:593-627``), the flagship's
     train and validation data: ``images`` (N, S, S, 3) uint8 in the order
     of the ground truth's factor bases, rendered once per process (5.9 GB
-    on the host). The JAX class also keeps a disk cache; this one writes
-    no file."""
+    on the host; the hue blocks composed on ``RENDER_THREADS`` host
+    threads). The JAX class also keeps a disk cache; this one writes no
+    file."""
 
     factor_sizes = FULL_FACTOR_SIZES
 

@@ -8,7 +8,9 @@ records inside that backward (``create_graph=True``: the MCL losses
 differentiate the frozen decoder's mid-block attention twice), the backward
 runs as ``_AttentionCoreBwd``: the same kernel's values, and a backward
 written in PyTorch ops (``attention_core_bwd_vjp``), which the JAX package
-takes from XLA's autodiff of its VJP. On the plain route (CPU tensors,
+takes from XLA's autodiff of its VJP. When autograd records inside that
+backward too (``fisher_sm``'s Hutchinson divergence: a third order), it
+records those ops, which keep their graph. On the plain route (CPU tensors,
 ``plain_path()``) autograd records the plain backward's own ops instead.
 The projections around it stay in PyTorch, as the JAX package left them to
 XLA.
@@ -163,10 +165,10 @@ def _attention_bwd(q, k, v, do, scale):
 class _AttentionCoreBwd(torch.autograd.Function):
     """The attention backward as a differentiable function of (q, k, v,
     do): its values from ``attention_core_bwd``, its backward
-    ``attention_core_bwd_vjp``. A third order (autograd recording inside
-    this backward: the Hutchinson divergence of ``fisher_sm``) raises
-    ``NotImplementedError``; the plain route, which ``_AttentionCore``
-    takes on the CPU, has every order."""
+    ``attention_core_bwd_vjp``. When autograd records inside this backward
+    (the Hutchinson divergence of ``fisher_sm``: a third order), it records
+    the VJP's PyTorch ops on the saved q, k, v and do, so that every higher
+    order follows from them."""
 
     @staticmethod
     def forward(ctx, q, k, v, do, scale):
@@ -177,11 +179,6 @@ class _AttentionCoreBwd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dq_bar, dk_bar, dv_bar):
         q, k, v, do = ctx.saved_tensors
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "a third derivative through attention_core (the Hutchinson "
-                "divergence of mcl_type fisher_sm) is not ported to the "
-                f"card; q {tuple(q.shape)}")
         return (*attention_core_bwd_vjp(q, k, v, do, dq_bar, dk_bar, dv_bar,
                                         ctx.scale), None)
 

@@ -10,11 +10,16 @@ the FiLM rows. When autograd records inside that backward
 twice), the backward runs as ``_GNSiLUBwd``, whose values are the same
 ``gn_silu_bwd`` kernel's and whose own backward is the ``gn_silu_bwd_bwd``
 kernel (no FiLM), so that the second order is not dropped on the card: the
-JAX package takes it from XLA's autodiff of its VJP. On the plain route (CPU
-tensors, ``plain_path()``) autograd records the plain backward's own ops
-instead, which keep their graph: every order exists there. Groups are
-contiguous runs of ``C // groups`` channels; statistics are fp32 and
-two-pass (mean, then mean squared deviation) in every version.
+JAX package takes it from XLA's autodiff of its VJP. When autograd records
+inside that one too (``fisher_sm``'s Hutchinson divergence differentiates
+the decoder's score once more), it runs as ``_GNSiLUBwdBwd``: the
+``gn_silu_bwd_bwd`` kernel's values, and a backward (the third order) made
+of the ``gn_silu_bwd``, ``gn_silu_bwd_bwd`` and ``gn_silu_bwd3`` kernels; a
+fourth order raises. On the plain route (CPU tensors, ``plain_path()``)
+autograd records the plain backward's own ops instead, which keep their
+graph: every order exists there. Groups are contiguous runs of ``C //
+groups`` channels; statistics are fp32 and two-pass (mean, then mean
+squared deviation) in every version.
 """
 
 from __future__ import annotations
@@ -99,6 +104,22 @@ def groupnorm_silu_bwd_bwd_plain(du, g, x, gamma, beta, *, dgamma_bar=None,
     return (*grads, None, None) if not param_grads else tuple(grads)
 
 
+def groupnorm_silu_bwd3_plain(du, dx_bar, g, x, gamma, beta, *,
+                              groups: int = 32, eps: float = 1e-5):
+    """(dg, dx): the gradients of ``groupnorm_silu_bwd_bwd_plain``'s dx
+    for the cotangent ``du`` (without FiLM, gamma and beta held) with
+    respect to g and x, for its cotangent ``dx_bar``: autograd of the plain
+    backward's VJP in x, recorded (``create_graph``) on detached copies of g
+    and x. dg is d2f[du, dx_bar] and dx is d3f[du, dx_bar, .]ᵀ g for f the
+    GN-SiLU at x."""
+    with torch.enable_grad():
+        g, x = g.detach().requires_grad_(), x.detach().requires_grad_()
+        dx = groupnorm_silu_bwd_plain(g, x, gamma.detach(), beta.detach(),
+                                      groups=groups, eps=eps)[0]
+        dx2, = torch.autograd.grad(dx, x, du, create_graph=True)
+        return torch.autograd.grad(dx2, (g, x), dx_bar)
+
+
 #: the kernels' block size, the most floats a thread takes before a group
 #: gets more threads, the largest cluster, and the floats of shared memory a
 #: block holds beside its groups, forward and backward
@@ -156,6 +177,16 @@ def gn_silu_bwd_bwd_plan(B: int, C: int, HW: int, G: int,
     return _plan(B, C, HW, G, smem_bytes, staged=3)
 
 
+def gn_silu_bwd3_plan(B: int, C: int, HW: int, G: int,
+                      smem_bytes: int) -> GNSiLUPlan:
+    """The third-order kernel's plan (``gn_silu_bwd3_plan`` in
+    csrc/groupnorm_silu.cu): the backward's rule with four staged arrays
+    (x, the gradient, and the cotangents of the backward's and the double
+    backward's dx). The VQ decoder's 64x64 level (8,192 floats a group)
+    runs clusters of 2 blocks of 65 KB, two an SM."""
+    return _plan(B, C, HW, G, smem_bytes, staged=4)
+
+
 def _plan(B, C, HW, G, smem_bytes, staged):
     cg = C // G
     n = cg * HW
@@ -191,14 +222,15 @@ def _plan_fn(name: str):
 
 
 def kernel_plan(C: int, HW: int, G: int, smem_bytes: int, bwd: bool = False,
-                bwd_bwd: bool = False):
+                bwd_bwd: bool = False, bwd3: bool = False):
     """The CUDA source's own plan (team, per_block, cluster, slice, smem) of
     the forward (with ``bwd`` the backward, with ``bwd_bwd`` the double
-    backward) at a shape, for comparison with ``gn_silu_plan``
-    (``gn_silu_bwd_plan``, ``gn_silu_bwd_bwd_plan``) on the card; None
-    where it refuses the shape."""
+    backward, with ``bwd3`` the third order) at a shape, for comparison
+    with ``gn_silu_plan`` (``gn_silu_bwd_plan``, ``gn_silu_bwd_bwd_plan``,
+    ``gn_silu_bwd3_plan``) on the card; None where it refuses the shape."""
     out = (ctypes.c_longlong * 5)()
-    name = ("gn_silu_bwd_bwd_plan" if bwd_bwd else
+    name = ("gn_silu_bwd3_plan" if bwd3 else
+            "gn_silu_bwd_bwd_plan" if bwd_bwd else
             "gn_silu_bwd_plan" if bwd else "gn_silu_fwd_plan")
     rc = _plan_fn(name)(C, HW, G, smem_bytes, out)
     return None if rc else tuple(out)
@@ -227,6 +259,15 @@ def _bwd_bwd_fn():
     fn = build.load("groupnorm_silu").gn_silu_bwd_bwd
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p] * 13 + [i, i, i, i, ctypes.c_float, p]
+    fn.restype = i
+    return fn
+
+
+@functools.cache
+def _bwd3_fn():
+    fn = build.load("groupnorm_silu").gn_silu_bwd3
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 8 + [i, i, i, i, ctypes.c_float, p]
     fn.restype = i
     return fn
 
@@ -261,10 +302,12 @@ class _GNSiLU(torch.autograd.Function):
 class _GNSiLUBwd(torch.autograd.Function):
     """The GN-SiLU backward as a differentiable function of (g, x, gamma,
     beta, scale, shift): its values from ``gn_silu_bwd``, its backward the
-    ``gn_silu_bwd_bwd`` kernel (its plain version for CPU tensors). A third
-    order (autograd recording inside this backward: the Hutchinson
-    divergence of ``fisher_sm``) raises ``NotImplementedError``; the plain
-    route, which ``_GNSiLU`` takes on the CPU, has every order."""
+    ``gn_silu_bwd_bwd`` kernel (its plain version for CPU tensors). When
+    autograd records inside this backward (the Hutchinson divergence of
+    ``fisher_sm``), the backward runs as ``_GNSiLUBwdBwd``, for g and x
+    alone: FiLM rows, gradients of gamma or beta, or cotangents of dgamma
+    or dbeta, which no third-order path has, raise
+    ``NotImplementedError``."""
 
     @staticmethod
     def forward(ctx, g, x, gamma, beta, scale, shift, groups, eps):
@@ -277,18 +320,83 @@ class _GNSiLUBwd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, du, dgamma_bar, dbeta_bar, dscale_bar, dshift_bar):
         g, x, gamma, beta, scale, shift = ctx.saved_tensors
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "a third derivative through groupnorm_silu (the Hutchinson "
-                "divergence of mcl_type fisher_sm) is not ported to the "
-                f"card; x {tuple(x.shape)}")
-        du = torch.zeros_like(x) if du is None else du.contiguous()
         needs = ctx.needs_input_grad
+        if torch.is_grad_enabled():
+            if (scale is not None or needs[2] or needs[3]
+                    or dgamma_bar is not None or dbeta_bar is not None):
+                raise NotImplementedError(
+                    "a third derivative through groupnorm_silu takes no "
+                    "FiLM rows, no gradients of gamma or beta and no "
+                    f"cotangents of dgamma or dbeta; x {tuple(x.shape)}")
+            if du is None:
+                return (None,) * 8
+            dg, dx = _GNSiLUBwdBwd.apply(du.contiguous(), g, x, gamma, beta,
+                                         ctx.groups, ctx.eps)
+            return dg, dx, None, None, None, None, None, None
+        du = torch.zeros_like(x) if du is None else du.contiguous()
         grads = gn_silu_bwd_bwd(
             du, g.contiguous(), x, gamma, beta, scale, shift,
             dgamma_bar=dgamma_bar, dbeta_bar=dbeta_bar, groups=ctx.groups,
             eps=ctx.eps, param_grads=needs[2] or needs[3])
         return (*grads, None, None, None, None)
+
+
+class _GNSiLUBwdBwd(torch.autograd.Function):
+    """The GN-SiLU double backward without FiLM as a differentiable
+    function of (du, g, x), gamma and beta held: its values (dg = J du and
+    dx = d2f[du, .]ᵀ g, for f the GN-SiLU at x and J its Jacobian) from
+    ``gn_silu_bwd_bwd``, its backward the third order. For the cotangents
+    a of dg and c of dx:
+
+    - du: Jᵀ a + d2f[c, .]ᵀ g   (``gn_silu_bwd`` and ``gn_silu_bwd_bwd``);
+    - g:  d2f[du, c]            (``gn_silu_bwd3``);
+    - x:  d2f[du, .]ᵀ a + d3f[du, c, .]ᵀ g (``gn_silu_bwd_bwd`` and
+      ``gn_silu_bwd3``).
+
+    CPU tensors take the kernels' plain versions. A fourth order (autograd
+    recording inside this backward) raises ``NotImplementedError``."""
+
+    @staticmethod
+    def forward(ctx, du, g, x, gamma, beta, groups, eps):
+        ctx.groups, ctx.eps = groups, eps
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(du, g, x, gamma, beta)
+        dg, dx, _, _ = gn_silu_bwd_bwd(du, g.contiguous(), x, gamma, beta,
+                                       groups=groups, eps=eps,
+                                       param_grads=False)
+        return dg, dx
+
+    @staticmethod
+    def backward(ctx, dg_bar, dx_bar):
+        du, g, x, gamma, beta = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "a fourth derivative through groupnorm_silu is not ported; "
+                f"x {tuple(x.shape)}")
+        need_du, need_g, need_x = ctx.needs_input_grad[:3]
+        kw = dict(groups=ctx.groups, eps=ctx.eps)
+        g = g.contiguous()
+        gdu = gg = gx = None
+
+        def add(total, term):
+            return term if total is None else total + term
+
+        if dg_bar is not None:
+            dg_bar = dg_bar.contiguous()
+            if need_du:
+                gdu = gn_silu_bwd(dg_bar, x, gamma, beta, **kw)[0]
+            if need_x:
+                gx = gn_silu_bwd_bwd(du, dg_bar, x, gamma, beta,
+                                     param_grads=False, **kw)[1]
+        if dx_bar is not None:
+            dx_bar = dx_bar.contiguous()
+            if need_du:
+                gdu = add(gdu, gn_silu_bwd_bwd(dx_bar, g, x, gamma, beta,
+                                               param_grads=False, **kw)[1])
+            if need_g or need_x:
+                gg, d3 = gn_silu_bwd3(du, dx_bar, g, x, gamma, beta, **kw)
+                gx = add(gx, d3)
+        return gdu, gg, gx, None, None, None, None
 
 
 def _check_inputs(name, x, gamma, beta, scale, shift, groups):
@@ -448,3 +556,39 @@ def gn_silu_bwd_bwd(du, g, x, gamma, beta, scale=None, shift=None, *,
 
 gn_silu_bwd_bwd.launches = 0
 gn_silu_bwd_bwd.plain_calls = 0
+
+
+def gn_silu_bwd3(du, dx_bar, g, x, gamma, beta, *, groups: int = 32,
+                 eps: float = 1e-5):
+    """(dg, dx): the gradients of ``gn_silu_bwd_bwd``'s dx (without FiLM)
+    for the cotangent ``du``, with respect to g and x, for its cotangent
+    ``dx_bar``; all four (B, C, H, W), contiguous like x. dg is d2f[du,
+    dx_bar] and dx is d3f[du, dx_bar, .]ᵀ g, for f the GN-SiLU at x, gamma
+    and beta held.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    ``gn_silu_bwd3`` on the current stream, or raise on an input it does
+    not take."""
+    if takes_plain(gn_silu_bwd3, x):
+        return groupnorm_silu_bwd3_plain(du, dx_bar, g, x, gamma, beta,
+                                         groups=groups, eps=eps)
+    _check_inputs("gn_silu_bwd3", x, gamma, beta, None, None, groups)
+    b, c, h, w = x.shape
+    for name, t in (("du", du), ("dx_bar", dx_bar), ("g", g)):
+        check_cuda_tensor(name, t, x.device, x.shape)
+        if not t.is_contiguous():
+            raise ValueError(f"gn_silu_bwd3: {name} must be contiguous, "
+                             f"strides {t.stride()}")
+    dg = torch.empty_like(x)
+    dx = torch.empty_like(x)
+    rc = _bwd3_fn()(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                    g.data_ptr(), du.data_ptr(), dx_bar.data_ptr(),
+                    dg.data_ptr(), dx.data_ptr(), b, c, h * w, groups, eps,
+                    launch_stream(x.device))
+    raise_on_error("gn_silu_bwd3", rc)
+    gn_silu_bwd3.launches += 1
+    return dg, dx
+
+
+gn_silu_bwd3.launches = 0
+gn_silu_bwd3.plain_calls = 0

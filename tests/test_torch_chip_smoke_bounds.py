@@ -135,3 +135,15 @@ def test_attention_core_at_the_vq_mid_block_is_bound_by_the_tensor_cores():
     nbytes, _ = chip_smoke.attn_cost(160, 1, 256, 256, 128)
     assert nbytes == pytest.approx(83.9e6, rel=REL)
     assert tc_ms > nbytes / chip_smoke.PEAK_BYTES * 1e3 > exp_ms
+
+
+def test_gn_silu_bwd3_at_the_vq_decoder_is_bound_by_bytes():
+    """The third-order GN-SiLU kernel at the decoder's (128, 64, 64, 64):
+    x, g and two cotangents read, two outputs written, 4 bytes each; its
+    fp32 operations stay under the bytes' time."""
+    n = 128 * 64 * 64 * 64
+    nbytes, ops = chip_smoke.gn_bwd3_cost((128, 64, 64, 64))
+    assert nbytes == 4 * (6 * n + 2 * 64)
+    bytes_ms = nbytes / chip_smoke.PEAK_BYTES * 1e3
+    assert bytes_ms == pytest.approx(0.2404, rel=REL)
+    assert ops / chip_smoke.PEAK_FP32 * 1e3 < bytes_ms

@@ -24,9 +24,10 @@ from encdiff_tpu_torch.nn.kernels.flash_attention import (
 from encdiff_tpu_torch.nn.kernels.fused_attention import (
     fused_attention, fused_attention_plain)
 from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (
-    gn_silu_bwd_bwd, gn_silu_bwd_bwd_plan, gn_silu_bwd_plan, gn_silu_plan,
-    groupnorm_silu, groupnorm_silu_bwd_bwd_plain, groupnorm_silu_bwd_plain,
-    groupnorm_silu_plain, gn_silu_bwd, kernel_plan)
+    gn_silu_bwd3, gn_silu_bwd3_plan, gn_silu_bwd_bwd, gn_silu_bwd_bwd_plan,
+    gn_silu_bwd_plan, gn_silu_plan, groupnorm_silu,
+    groupnorm_silu_bwd3_plain, groupnorm_silu_bwd_bwd_plain,
+    groupnorm_silu_bwd_plain, groupnorm_silu_plain, gn_silu_bwd, kernel_plan)
 
 CARD_TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -874,10 +875,96 @@ def test_attention_core_bwd_vjp_matches_autograd_of_plain(cuda_device, b, h,
         torch.testing.assert_close(a, r, **CARD_TOL)
 
 
-def _decoder_du(device, route):
+#: the third-order kernel at the same shapes: four staged arrays put the
+#: VQ decoder's 64x64 level on clusters of 2
+BWD3_SHAPES = [(shape, 2 if shape == (128, 64, 64, 64) else cluster)
+               for shape, cluster in BWD_BWD_SHAPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cluster", BWD3_SHAPES)
+def test_gn_silu_bwd3_kernel_matches_plain(cuda_device, shape, cluster):
+    b, c, h, w = shape
+    assert gn_silu_bwd3_plan(b, c, h * w, 32,
+                             _optin(cuda_device)).cluster == cluster
+    gen = torch.Generator(cuda_device).manual_seed(38)
+    x, gamma, beta, _, _ = _gn_inputs(gen, cuda_device, *shape, False)
+    g, du, dx_bar = (torch.randn(shape, generator=gen, device=cuda_device)
+                     for _ in range(3))
+    before = gn_silu_bwd3.launches
+    got = gn_silu_bwd3(du, dx_bar, g, x, gamma, beta, eps=1e-6)
+    torch.cuda.synchronize()
+    assert gn_silu_bwd3.launches == before + 1
+    want = groupnorm_silu_bwd3_plain(du, dx_bar, g, x, gamma, beta, eps=1e-6)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, **CARD_TOL)
+    again = gn_silu_bwd3(du, dx_bar, g, x, gamma, beta, eps=1e-6)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_gn_silu_bwd3_plan_is_the_kernel_plan(cuda_device):
+    shapes = {(c, hw) for c in (32, 64, 128, 256, 512)
+              for hw in (4, 9, 16, 35, 256, 1024, 4096, 16384, 65536)}
+    for limit in (_optin(cuda_device), 48 * 1024):
+        for c, hw in sorted(shapes):
+            try:
+                want = tuple(gn_silu_bwd3_plan(1, c, hw, 32, limit))[:5]
+            except ValueError:
+                want = None
+            assert kernel_plan(c, hw, 32, limit, bwd3=True) == want, (
+                c, hw, limit)
+
+
+def _third_order(route, kind, shape, device):
+    """A third order through one kernel Function, on ``route``: the
+    fisher_sm pattern (a score d/dx <f(x), w>, its Hutchinson term d/dx
+    <score, v>, then the gradient of <score, score> + <hvp, v> in x)."""
+    gen = torch.Generator(device).manual_seed(39)
+    if kind == "gn":
+        x, gamma, beta, _, _ = _gn_inputs(gen, device, *shape, False)
+        leaves = [x.requires_grad_()]
+        fn = lambda: groupnorm_silu(x, gamma, beta, eps=1e-6)
+    else:
+        b, h, n, dh = shape
+        leaves = [_heads_view(gen, device, b, n, h, dh).requires_grad_()
+                  for _ in range(3)]
+        fn = lambda: attention_core(*leaves, dh ** -0.5)
+    with route():
+        y = fn()
+        w, v = (torch.randn(y.shape, generator=gen, device=device)
+                for _ in range(2))
+        score = torch.autograd.grad((y * w).sum(), leaves, create_graph=True)
+        hvp = torch.autograd.grad(sum((s * v).sum() for s in score), leaves,
+                                  create_graph=True)
+        loss = sum((s * s).sum() + (t * v).sum() for s, t in zip(score, hvp))
+        return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [
+    ("gn", (2, 64, 8, 8)), ("gn", (4, 64, 64, 64)),
+    ("attn", (2, 1, 16, 32)), ("attn", (4, 1, 256, 128))])
+def test_third_order_matches_plain_path(cuda_device, kind, shape):
+    """fisher_sm's third order through groupnorm_silu (``_GNSiLUBwdBwd``:
+    one gn_silu_bwd3 launch) and attention_core (its recorded VJP) on the
+    kernel route equals the plain route's."""
+    import contextlib
+    launches = gn_silu_bwd3.launches
+    got = _third_order(contextlib.nullcontext, kind, shape, cuda_device)
+    torch.cuda.synchronize()
+    assert gn_silu_bwd3.launches - launches == (kind == "gn")
+    want = _third_order(plain_path, kind, shape, cuda_device)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, **CARD_TOL)
+
+
+def _decoder_du(device, route, order=2):
     """d/du of <dec(z, u) . r> differentiated in z once more: the flagship
     VQ decoder at B = 4 from a seeded init, g = d/dz sum(dec(z, u) w), then
-    the gradient of sum(g v) in u and z. Returns the two gradients."""
+    the gradient of sum(g v) in u and z. With ``order`` 3, fisher_sm's
+    pattern: h = d/dz sum(g v) recorded, then the gradient of sum(g²) +
+    sum(h v) in u and z. Returns the two gradients."""
     from encdiff_tpu_torch.configs import FLAGSHIP
     from encdiff_tpu_torch.core.device import resolve_device
     from encdiff_tpu_torch.models.autoencoder import (VQModelInterface,
@@ -895,7 +982,10 @@ def _decoder_du(device, route):
     with route():
         out = model.decode(z, disentangled_repr=u)
         g, = torch.autograd.grad((out * wts).sum(), z, create_graph=True)
-        return torch.autograd.grad((g * v).sum(), (u, z))
+        if order == 2:
+            return torch.autograd.grad((g * v).sum(), (u, z))
+        h, = torch.autograd.grad((g * v).sum(), z, create_graph=True)
+        return torch.autograd.grad((g * g).sum() + (h * v).sum(), (u, z))
 
 
 @pytest.mark.cuda
@@ -918,10 +1008,28 @@ def test_double_backward_through_the_decoder_reaches_u(cuda_device):
 
 
 @pytest.mark.cuda
+def test_third_order_through_the_decoder(cuda_device):
+    """fisher_sm's third order through the flagship decoder on the card
+    equals the plain path's: one gn_silu_bwd3 launch a GN-SiLU site (23)."""
+    import contextlib
+    launches = gn_silu_bwd3.launches
+    got = _decoder_du(cuda_device, contextlib.nullcontext, order=3)
+    torch.cuda.synchronize()
+    assert gn_silu_bwd3.launches - launches == 23
+    want = _decoder_du(cuda_device, plain_path, order=3)
+    for a, r in zip(got, want):
+        assert torch.linalg.vector_norm(r) > 0
+        rel = torch.linalg.vector_norm(a - r) / torch.linalg.vector_norm(r)
+        assert rel < 1e-3, rel
+
+
+@pytest.mark.cuda
 def test_second_order_refusals(cuda_device):
-    """FiLM rows in the double backward, and a third order through either
-    Function (autograd recording inside the second backward, as the
-    Hutchinson divergence of fisher_sm does), raise on the card."""
+    """FiLM rows in the double backward raise on the card; so do a fourth
+    order through groupnorm_silu, and gamma's gradient or FiLM rows under a
+    third. The third orders themselves run:
+    ``test_third_order_matches_plain_path`` holds them at (2, 64, 8, 8) and
+    at the decoder's (4, 64, 64, 64)."""
     gen = torch.Generator(cuda_device).manual_seed(35)
     x, gamma, beta, scale, shift = _gn_inputs(gen, cuda_device, 2, 64, 8, 8,
                                               True)
@@ -931,14 +1039,19 @@ def test_second_order_refusals(cuda_device):
     xr = x.clone().requires_grad_()
     y = groupnorm_silu(xr, gamma, beta)
     d, = torch.autograd.grad(y.sum(), xr, create_graph=True)
-    with pytest.raises(NotImplementedError, match="fisher_sm"):
-        torch.autograd.grad((d * d).sum(), xr, create_graph=True)
-    q, k, v = (torch.randn(2, 1, 16, 32, generator=gen, device=cuda_device)
-               .requires_grad_() for _ in range(3))
-    d, = torch.autograd.grad(attention_core(q, k, v, 0.2).sum(), q,
+    h, = torch.autograd.grad((d * d).sum(), xr, create_graph=True)
+    with pytest.raises(NotImplementedError, match=r"fourth.*\(2, 64, 8, 8\)"):
+        torch.autograd.grad((h * h).sum(), xr, create_graph=True)
+    gr = gamma.clone().requires_grad_()
+    d, = torch.autograd.grad(groupnorm_silu(xr, gr, beta).sum(), xr,
                              create_graph=True)
-    with pytest.raises(NotImplementedError, match="fisher_sm"):
-        torch.autograd.grad((d * d).sum(), q, create_graph=True)
+    with pytest.raises(NotImplementedError, match=r"gamma.*\(2, 64, 8, 8\)"):
+        torch.autograd.grad((d * d).sum(), xr, create_graph=True)
+    d, = torch.autograd.grad(groupnorm_silu(xr, gamma, beta, scale,
+                                            shift).sum(), xr,
+                             create_graph=True)
+    with pytest.raises(NotImplementedError, match=r"FiLM.*\(2, 64, 8, 8\)"):
+        torch.autograd.grad((d * d).sum(), xr, create_graph=True)
 
 
 @pytest.mark.cuda

@@ -20,8 +20,8 @@ from encdiff_tpu_torch.models.autoencoder import VQModelInterface
 from encdiff_tpu_torch.nn import attention as port_attention
 from encdiff_tpu_torch.nn import layers as port_layers
 from encdiff_tpu_torch.nn import vae as port_vae
-from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (gn_silu_bwd_plan,
-                                                         gn_silu_plan)
+from encdiff_tpu_torch.nn.kernels.groupnorm_silu import (
+    gn_silu_bwd3_plan, gn_silu_bwd_bwd_plan, gn_silu_bwd_plan, gn_silu_plan)
 from encdiff_tpu_torch.nn.unet import UNetModel
 
 #: an H100's opt-in shared memory a block (227 KB)
@@ -126,7 +126,8 @@ def test_gn_silu_bwd_plan_at_every_configured_shape(name, config,
     assert clusters == ({1} if name == "flagship" else {1, 2, 4, 8})
 
 
-@pytest.mark.parametrize("case", ["packs", "vq_decoder", "splits", "refuses"])
+@pytest.mark.parametrize("case", ["packs", "vq_decoder", "splits", "refuses",
+                                  "third_order"])
 def test_gn_silu_bwd_plan_packs_small_groups_and_splits_large_ones(case):
     if case == "packs":     # 32 floats a group: 8 groups a block
         plan = gn_silu_bwd_plan(128, 256, 4, 32, H100_SMEM)
@@ -145,6 +146,14 @@ def test_gn_silu_bwd_plan_packs_small_groups_and_splits_large_ones(case):
         # 1 MB: eight blocks of 128 KB, one an SM, since none fit two
         plan = gn_silu_bwd_plan(1, 32, 131072, 32, H100_SMEM)
         assert plan.cluster == 8 and plan.smem > H100_SMEM // 2
-    else:                   # 2 MB of x + g: 16 blocks
+    elif case == "refuses":  # 2 MB of x + g: 16 blocks
         with pytest.raises(ValueError, match="does not fit"):
             gn_silu_bwd_plan(1, 32, 262144, 32, H100_SMEM)
+    else:  # the MCL step's 64x64 level of the VQ decoder, 8,192 floats a group
+        two = gn_silu_bwd_bwd_plan(128, 64, 4096, 32, H100_SMEM)
+        assert (two.cluster, two.smem) == (1, 4 * (3 * 8192 + 256 + 66))
+        # four staged arrays, 128 KB, exceed half: clusters of 2 blocks
+        plan = gn_silu_bwd3_plan(128, 64, 4096, 32, H100_SMEM)
+        assert (plan.team, plan.per_block, plan.cluster) == (256, 1, 2)
+        assert (plan.slice, plan.blocks) == (4096, 128 * 32 * 2)
+        assert plan.smem == 4 * (4 * 4096 + 256 + 66) <= H100_SMEM // 2
