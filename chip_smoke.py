@@ -47,27 +47,28 @@ The flagship's stage-2 train step, B = 128, from the same checkpoint through
 The training harness (``python -m encdiff_tpu_torch.main_val``) on the
 flagship YAML at full width, on the whole 480,000-image v4 grid:
 
-harness-data: the grid rendered on the host, uploaded as uint8 (the harness
-keeps it on the card for the phases after it) and encoded once by the
-committed checkpoint's frozen first stage: seconds of each, peak memory.
+harness-data: the grid rendered on the host, its bytes held to the JAX
+renderer's digest, uploaded as uint8 (the harness keeps it on the card for
+the phases after it): seconds of each, peak memory.
 harness-eval: a ``Trainer`` restored from the committed checkpoint runs
 ``test()``: the Encoder4 sweep over the grid (seconds, images/s), FactorVAE
 and MIG on the host (seconds); it fails unless FactorVAE is 1.0 with 20
 dims and MIG within 0.01 of the checkpoint's recorded 0.17347. The reps
 are written under ``--out`` (for DCI and beta-VAE off the card).
 harness-train: ``main_val.main`` trains 20 steps from the checkpoint with
-the image logger every 20 steps, the launch counters set to 0 just before
-and read just after, then ``main_val.main -r`` resumes from its ``last``
-checkpoint for 10 steps and ends in ``test()``: ms per step on cached
-latents, peak memory. Hooks record the shape of every kernel call of the
-first run's latent encode (chunks of 2,048), of its first step and of its
-image logs; each kernel is held against its plain version at each of those
-shapes, and its launches must equal 20 steps' plus the encode's plus the
-logs'. The last chunk of the run's latents is held against the plain
-path's encode of the same rows, and the first step's loss against the
-plain path's on the same batch, t and noise. It fails unless these, the
-image logs, the checkpoint files, the resumed run's step, AdamW count, LR
-and EMA and the test results are as expected.
+the image logger every 20 steps (DDIM 50), the launch counters set to 0
+just before and read just after, then ``main_val.main -r`` resumes from its
+``last`` checkpoint for 10 steps and ends in ``test()``: the latent cache
+of each fit, ms per step on cached latents, peak memory. Hooks record the
+shape of every kernel call of the first run's latent encode (chunks of
+2,048), of its first step and of its image logs; each kernel is held
+against its plain version at each of those shapes, and its launches must
+equal 20 steps' plus the encode's plus the logs'. The last chunk of the
+run's latents is held against the plain path's encode of the same rows, and
+the first step's loss against the plain path's on the same batch, t and
+noise. It fails unless these, the image logs, the checkpoint files, the
+resumed run's step, AdamW count, LR and EMA and the test results are as
+expected.
 
 The VQ-GAN first-stage trainer (``main_val -b flagship_vq``: the flagship's
 VQ config at full width, LPIPS, the PatchGAN and the adaptive GAN weight)
@@ -109,8 +110,8 @@ the attention VJP against autograd of ``attention_core_bwd_plain``, timed
 beside the library's double backward (the GroupNorm chain's; SDPA's on its
 math backend) and the bound.
 mcl-train: ``main_val.main`` trains MCL_STEPS steps on cached latents and
-ends in ``test()`` with the swap-visualization grids, the counters set to 0
-just before and read just after: launches must equal the steps', the
+ends in ``test()`` with the swap-visualization grids (DDIM 50, not the
+config's 200: SWAP_DDIM), the counters set to 0 just before and read just after: launches must equal the steps', the
 latent encode's and the swap visualization's recorded calls; in the first
 step the critic's four weights have finite nonzero gradients and its six
 MCL_EXACT_ZERO leaves exactly zero ones; every other leaf moves; the
@@ -119,7 +120,9 @@ memory, the losses.
 mcl-reference: the kernel path against the plain path at the run's start
 on the same batch, z, t and noise: every logged value to 1e-5 and every
 trainable leaf to 1e-3 relative L2 (the L1-sign guard at the UNet output
-and the forced-code rule as in train- and vq-reference), for
+and the forced-code rule as in train- and vq-reference; the critic's image
+ReLU masks of the plain path where a pre-activation lies within 1e-5 of its
+layer's largest from zero, at most 16 a run), for
 ``infonce_mechgrad`` at B = 128 and ``nce_logistic``, ``denoise_sm`` and
 ``jacobian_vjp_infonce`` at B = 16.
 mcl-profile: one MCL step's device time by kernel.
@@ -269,7 +272,7 @@ recorded calls of the steps, the image log and the eval batches; Adam
 counts, ``last``, the train and validation views on one device array.
 cars3d-harness: ``main_val -b cars3d -t -s 23 -n carsld`` with the HSIC
 overrides over that run's ``last``: the latent cache of 17,568, 8 steps,
-the image log forced to the last (DDIM 200 on 8 with the swap rows, so
+the image log forced to the last (DDIM 50 on 8 with the swap rows, so
 ``fused_attention`` runs), ``test()`` (the sweep of all 17,568 rows,
 FactorVAE and MIG on the ``cars3d`` table), then ``-r`` and its ``test()``:
 launches equal to the recorded calls; the first stage the VQ-GAN run's;
@@ -287,6 +290,31 @@ card, its latents (3.19 GB) cached once a fit, the sweep over 1,036,800
 rows and FactorVAE and MIG on the ``mpi3d`` table.
 Every kernel of these runs is held against its plain version at every
 shape they run.
+
+The rest of the shapes family (v1, v2, v3 and the bands control), at the
+flagship's widths:
+
+shapes-render: the v1 and bands grids of 27,648 images and the v1, v2, v3
+and bands grids of 480,000, each rendered on the host (one 480,000-image
+grid held at a time) and held to the sha256 digest of the JAX renderer's
+bytes (SHAPES_DIGESTS; harness-data holds the v4 grid to its own); the
+seconds of each.
+shapes-vq, shapes-harness: the v1 chain, as the Cars3D phases: ``main_val
+-b shapes_vq`` (the VQ-GAN without LPIPS) for 8 steps, an image log and
+``test()`` over 2 batches, then ``-b shapes`` over its ``last``: the latent
+cache of 27,648, 8 steps, an image log, ``test()`` (FactorVAE and MIG on
+the 27,648-row ``synthetic_shapes`` table) and ``-r``.
+shapes-mcl-shapes, shapes-mcl, shapes-mcl-reference: ``main_val -b
+shapes_mcl`` (the whole ``synthetic-shapes-mcl.yaml`` on the v1 grid)
+over that run's ``last`` (``--resume_ckpt``, the first stage's override):
+every kernel call of one step at B = 128 against its plain version, the
+run of SHAPES_MCL_STEPS steps and ``test()`` with the swap visualization
+under mcl-train's checks, and the kernel path against the plain path on
+its first batch under mcl-reference's.
+bands_control-vq, bands_control-harness: the bands-control chain (``-b
+bands_control_vq``, then ``-b bands_control``) on the 480,000-image bands
+grid, as the v1 chain but with no EncDiff image log (NO_LOG), its latents
+of 480,000 cached once.
 
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
@@ -313,6 +341,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+from concurrent.futures import ThreadPoolExecutor
 import copy
 import hashlib
 import json
@@ -333,9 +362,12 @@ from encdiff_tpu_torch import tad as tad_cli
 from encdiff_tpu_torch import train_steps
 from encdiff_tpu_torch.configs import FACES, FACES_TRAIN, FLAGSHIP_TRAIN
 from encdiff_tpu_torch.core.schedules import DDIMSchedule
-from encdiff_tpu_torch.data import synthetic_faces, synthetic_mpi3d
+from encdiff_tpu_torch.data import (synthetic_faces, synthetic_mpi3d,
+                                    synthetic_shapes)
+from encdiff_tpu_torch.data.datasets import RENDER_THREADS
 from encdiff_tpu_torch.data.synthetic_shapes import (
-    TRAIN_GRID, SyntheticShapes3DV4FullTrain, epoch_batches, render_all_v4)
+    FACTOR_SIZES, FULL_FACTOR_SIZES, TRAIN_GRID, SyntheticShapes3DV4FullTrain,
+    epoch_batches, render_all_v4)
 from encdiff_tpu_torch.evalx import fid as fid_lib
 from encdiff_tpu_torch.evalx.ground_truth.named_data import get_index_dataset
 from encdiff_tpu_torch.evalx.swap import (TOKEN_BUDGET, swap_conditions,
@@ -422,6 +454,15 @@ EXACT_ZERO = {"cond.conv1.bias", "cond.conv2.bias", "cond.conv3.bias",
 # three draws of t and noise, so that a run is likely to meet an L1 sign
 # that differs between the paths (reference_check)
 REFERENCE_REPEATS = 2
+#: mcl_compare's ReLU guard: where a pre-activation of the critic's image
+#: ReLUs changes sign between the plain and the kernel path, the held runs
+#: take the plain path's value if its magnitude is at most RELU_BAND times
+#: the largest of its layer's call, and at no more than RELU_CAP of them a
+#: run; a flip farther from zero, or more of them, is a fault. The
+#: H100 runs guarded 0-5 a run, the farthest 3.2e-7 of its layer's largest
+#: (a few fp32 ulps of it)
+RELU_BAND = 1e-5
+RELU_CAP = 16
 REFERENCE_DRAWS = 3
 # the faces train step: 12 optimizer updates of 4 micro-batches of 8; the
 # reference check at micro-batch 2 (the plain backward at 8 would hold about
@@ -443,6 +484,16 @@ FACES_REFERENCE_SAMPLES = 20
 HARNESS_STEPS = 20
 HARNESS_RESUMED_STEPS = 30
 HARNESS_LOG_EVERY = 20
+#: cuts for the run's time limit: the bands-control chain logs no EncDiff
+#: images (the v1 chain's log runs its shapes); the other EncDiff image logs
+#: (harness-train, the cross-dataset chains) and the MCL runs' swap
+#: visualizations sample at DDIM 50, not 200: the same kernel shapes, a
+#: quarter of the UNet calls (with the bands cut alone the whole run took
+#: 1,198.9 s on an H100 80GB HBM3 at 700 W behind a slow host)
+LOG_DDIM = "lightning.callbacks.image_logger.params.log_images_kwargs." \
+    "ddim_steps=50"
+NO_LOG = "lightning.callbacks.image_logger.params.disabled=true"
+SWAP_DDIM = "lightning.callbacks.swap_visualization.params.ddim_steps=50"
 #: rows a chunk of the harness's latent encode (train.loop.precompute_latents)
 LATENT_CHUNK = 2048
 MIG_TARGET = 0.17347
@@ -535,7 +586,8 @@ MCL_EXACT_ZERO = {"mcl.critic.img_conv1.bias", "mcl.critic.img_conv2.bias",
 #: its HSIC overrides; ``scripts/round5_pipeline.sh:187-200``, MPI3D) with
 #: only --max_steps and the VQ-GAN's --val_batches cut, at full width on the
 #: full grids; the latent cache held against a direct encode of
-#: CROSS_LATENT_ROWS sampled rows; ``kgen`` offsets the kernel checks' seed
+#: CROSS_LATENT_ROWS sampled rows; ``kgen`` offsets the kernel checks' seed;
+#: ``log`` holds the EncDiff run's image-logger overrides
 CROSS_SEED = 23
 CROSS_VQ_STEPS = 8
 CROSS_VQ_VAL_BATCHES = 2
@@ -544,10 +596,54 @@ CROSS_LATENT_ROWS = 256
 CROSS = {
     "cars3d": dict(vq=["-n", "carsvq"],
                    ldm=["-n", "carsld", "model.params.indep_type=hsic",
-                        "model.params.lambda_indep=2.0"], kgen=11),
+                        "model.params.lambda_indep=2.0"], kgen=11,
+                   log=[LOG_DDIM]),
     "mpi3d": dict(vq=["-n", "mpivq"],
                   ldm=["-n", "mpild", "--max_epochs", "5",
-                       "--check_val_every_n_epoch", "2"], kgen=13),
+                       "--check_val_every_n_epoch", "2"], kgen=13,
+                  log=[LOG_DDIM]),
+}
+#: the rest of the shapes family: the v1 chain (``-b shapes_vq``, then ``-b
+#: shapes`` over its ``last``) and the bands-control chain at 480,000
+#: images (``-b bands_control_vq``, ``-b bands_control``)
+CROSS.update({
+    "shapes": dict(vq=["-n", "shapesvq"], ldm=["-n", "shapesld"], kgen=15,
+                   log=[LOG_DDIM]),
+    "bands_control": dict(vq=["-n", "bandsvq"], ldm=["-n", "bandsld"],
+                          kgen=17, log=[NO_LOG]),
+})
+#: ``-b shapes_mcl`` over the v1 chain's EncDiff run: SHAPES_MCL_STEPS steps
+#: and test() with the swap visualization
+SHAPES_MCL_STEPS = 8
+#: the grids shapes-render renders, in order, and the two it leaves in the
+#: renderer's cache for the chains: the v1 grid, and the bands grid at
+#: 480,000, rendered last so that one 480,000-image grid is on the host at
+#: a time
+SHAPES_RENDERS = (("v1", FACTOR_SIZES), ("bands", FACTOR_SIZES),
+                  ("v1", FULL_FACTOR_SIZES), ("v2", FULL_FACTOR_SIZES),
+                  ("v3", FULL_FACTOR_SIZES), ("bands", FULL_FACTOR_SIZES))
+SHAPES_KEPT = {("v1", tuple(FACTOR_SIZES)),
+               ("bands", tuple(FULL_FACTOR_SIZES))}
+#: rows a chunk of ``grid_digest``
+DIGEST_ROWS = 4096
+#: ``grid_digest`` of each grid of the shapes family at 64 px, from the JAX
+#: package's renderers (``tests/test_torch_shapes_digests.py`` derives them
+#: again): (renderer, factor sizes) -> hex digest
+SHAPES_DIGESTS = {
+    ("v1", tuple(FACTOR_SIZES)):
+        "e8a050c11b723aee4db93db21b936ee812d4daeb22e508eaf8a24d7183b209f9",
+    ("bands", tuple(FACTOR_SIZES)):
+        "a9f5be039f3468f9d7591e72847a7c7045a82924dcdd460f8f70f6b25dc0f9d7",
+    ("v1", tuple(FULL_FACTOR_SIZES)):
+        "99fe4cde49a2d83a84c56ee9fa86a5e8077a3e80260ef92f514753f8dde47a7a",
+    ("v2", tuple(FULL_FACTOR_SIZES)):
+        "70ab4f528fff8040da491bb719bd304a97470c193c44f2782e32390acf4307ea",
+    ("v3", tuple(FULL_FACTOR_SIZES)):
+        "3135b99611f8496af305b8e1d60bb57dbc1b23d2bb17a0f027fd0960e18a7dec",
+    ("bands", tuple(FULL_FACTOR_SIZES)):
+        "569f0d22af8c5b63e18890747d143fd7182463926fa9e4d3641b7e0ad23730be",
+    ("v4", tuple(FULL_FACTOR_SIZES)):
+        "aa61855207576968a278e8b46b21e90419e292120b2655f7c6fa2796fd89e434",
 }
 KERNELS = {
     "groupnorm_silu": dict(
@@ -651,6 +747,21 @@ def mma_rate(card):
             / 1e12, tflops_events=total / (ms * 1e-3) / 1e12,
             mhz=span / (ms * 1e3)))
     return rows
+
+
+def grid_digest(images) -> str:
+    """sha256 over the sha256 digests of consecutive chunks of DIGEST_ROWS
+    rows of a uint8 grid (the chunks hashed on RENDER_THREADS host
+    threads): a digest of every byte in row order."""
+    images = np.ascontiguousarray(images)
+
+    def chunk(i):
+        return hashlib.sha256(
+            images[i * DIGEST_ROWS:(i + 1) * DIGEST_ROWS].data).digest()
+
+    with ThreadPoolExecutor(RENDER_THREADS) as pool:
+        parts = list(pool.map(chunk, range(-(-len(images) // DIGEST_ROWS))))
+    return hashlib.sha256(b"".join(parts)).hexdigest()
 
 
 def phase(name, t0, msg):
@@ -1809,6 +1920,7 @@ def main(argv=None) -> int:
             serve_rows, train_rows, harness_rows, vq_rows, mcl_rows,
             {"attention_core_bwd_vjp": mcl_vjp_rows}), args.out)
     harness.clear_device_cache()
+    synthetic_shapes.clear_cache()
     torch.cuda.empty_cache()
     (fvq_rows, fvq_other, fvq_launches, per_fvq_step, fvq,
      fvq_dir) = faces_vq_phases(
@@ -1836,6 +1948,19 @@ def main(argv=None) -> int:
                        args.out, "mpi3d")
     harness.clear_device_cache()
     synthetic_mpi3d.clear_cache()
+    shapes_render = shapes_render_phase(smi)
+    seen = {**seen, **seen_rows(*cars["rows"], *mpi["rows"])}
+    shapes = cross_phases(smi, card, seen, args.out, "shapes")
+    seen = {**seen, **seen_rows(*shapes["rows"])}
+    smcl_rows, smcl_launches, per_smcl_step, smcl = shapes_mcl_phase(
+        smi, card, {**seen, **seen_rows(
+            mcl_rows, {"attention_core_bwd_vjp": mcl_vjp_rows})},
+        args.out, *shapes["dirs"])
+    bands = cross_phases(smi, card, {**seen, **seen_rows(smcl_rows)},
+                         args.out, "bands_control")
+    harness.clear_device_cache()
+    synthetic_shapes.clear_cache()
+    chains = (cars, mpi, shapes, bands)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "device_ms", "library_device_ms", "tc_ms", "exp_ms", "simt_ms",
@@ -1848,7 +1973,8 @@ def main(argv=None) -> int:
             ("vq_step", vq_rows), ("mcl_step", mcl_rows),
             ("mcl_fisher_step", fisher_rows),
             ("faces_vq_micro_step", fvq_rows),
-            ("faces_harness_micro_step", fh_rows))
+            ("faces_harness_micro_step", fh_rows),
+            ("shapes_mcl_step", smcl_rows))
             if rows.get(name)}
         top = next(iter(parts.values()))
         launches = {"swap": swap_launches[name], "train": train_launches[name],
@@ -1861,9 +1987,10 @@ def main(argv=None) -> int:
                     **{path: counts[name]
                        for path, counts in fserve_launches.items()},
                     "faces_harness": fh_launches[name],
+                    "shapes_mcl": smcl_launches[name],
                     **{f"faces_eval_{cli}": counts[name]
                        for cli, counts in feval_launches.items()},
-                    **{path: counts[name] for chain in (cars, mpi)
+                    **{path: counts[name] for chain in chains
                        for path, counts in chain["launches"].items()}}
         entry = {
             "name": name, "route": "cuda", **KERNELS[name],
@@ -1874,9 +2001,11 @@ def main(argv=None) -> int:
                                + [r["err"] for r in fvq_other.get(name, ())]
                                + [r["err"] for r in fh_other.get(name, ())]
                                + [r["err"] for r in feval_rows.get(name, ())]
-                               + [r["err"] for chain in (cars, mpi)
+                               + [r["err"] for chain in chains
                                   for table in chain["rows"]
                                   for r in table.get(name, ())]
+                               + [r["err"]
+                                  for r in smcl_rows.get(name, ())]
                                + [r["err"]
                                   for r in harness_rows.get(name, ())]),
             **{k: top[k] for k in (*fields, BASELINE.get(name)) if k in top}}
@@ -1887,7 +2016,8 @@ def main(argv=None) -> int:
                                 ("mcl_step", per_mcl_step),
                                 ("mcl_fisher_step", per_fisher_step),
                                 ("faces_vq_micro_step", per_fvq_step),
-                                ("faces_harness_micro_step", per_fh_step)):
+                                ("faces_harness_micro_step", per_fh_step),
+                                ("shapes_mcl_step", per_smcl_step)):
             if workload in parts:
                 entry[workload] = {
                     **{k: v for k, v in parts[workload].items()
@@ -1942,9 +2072,16 @@ def main(argv=None) -> int:
           f"({CROSS_VQ_STEPS} steps, an image log, {CROSS_VQ_VAL_BATCHES} "
           "test batches: cars3d_vq_train, mpi3d_vq_train) and EncDiff runs "
           f"({CROSS_LDM_STEPS} steps with the latent encode and an image "
-          "log: cars3d_harness, mpi3d_harness); max_abs_err also covers the "
+          "log: cars3d_harness, mpi3d_harness), the same of the shapes "
+          "family's v1 chain (shapes_vq_train, shapes_harness) and "
+          "bands-control chain (bands_control_vq_train, "
+          "bands_control_harness: no EncDiff image log), and -b "
+          "shapes_mcl's "
+          f"{SHAPES_MCL_STEPS} steps with its latent encode and swap "
+          "visualization (shapes_mcl); max_abs_err also covers the "
           "faces EncDiff run's latent encode and image log shapes, the eval "
-          "chain's and those of the Cars3D and MPI3D chains; "
+          "chain's and those of the Cars3D, MPI3D, v1 and bands-control "
+          "chains; shapes_mcl_step: one -b shapes_mcl step at B=128; "
           "mcl_step: one MCL fine-tune step at "
           "B=128 (-b flagship_mcl, infonce_mechgrad), whose second order "
           "runs gn_silu_bwd_bwd and the attention VJP (PyTorch ops, not a "
@@ -1972,13 +2109,19 @@ def main(argv=None) -> int:
     print("# faces_harness: the faces EncDiff run (-b faces over the faces "
           f"VQ-GAN run's last) on {smi}: " + ", ".join(
               f"{k} {v:.6g}" for k, v in fh.items()), flush=True)
-    for ds, chain in (("cars3d", cars), ("mpi3d", mpi)):
+    for ds, chain in zip(CROSS, chains):
         print(f"# {ds}: the {ds} chain (-b {ds}_vq, then -b {ds} over its "
               f"last) on {smi}: " + ", ".join(
                   f"{k} {v:.6g}" for k, v in chain["numbers"].items()),
               flush=True)
     print(f"# mpi3d render on {smi}: " + ", ".join(
         f"{k} {v:.6g}" for k, v in mpi_render.items()), flush=True)
+    print(f"# shapes render on {smi}: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in shapes_render.items()), flush=True)
+    print("# shapes_mcl: -b shapes_mcl over the v1 chain's last on "
+          f"{smi}: " + ", ".join(f"{k} {v:.6g}" for k, v in smcl.items())
+          + "; shapes_mcl_step holds every kernel's sums over one of its "
+          "steps at B=128", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     phase("total", t_all, "chip_smoke passed")
@@ -2213,32 +2356,40 @@ def train_phases(smi, card):
 
 
 def harness_data_phase(smi):
-    """harness-data: the full v4 grid rendered on the host, uploaded as
-    uint8 through the harness's device cache (later phases reuse it) and
-    encoded once by the flagship's frozen first stage, as each fit does."""
+    """harness-data: the full v4 grid rendered on the host, held to the JAX
+    renderer's digest and uploaded as uint8 through the harness's device
+    cache (later phases reuse it; harness-train times the latent cache of
+    each fit)."""
     t0 = time.perf_counter()
     t = time.perf_counter()
     host = SyntheticShapes3DV4FullTrain().images
     render_s = time.perf_counter() - t
+    t = time.perf_counter()
+    digest_faults = check_digest("v4", FULL_FACTOR_SIZES, host)
+    digest_s = time.perf_counter() - t
+    if digest_faults:
+        raise RuntimeError(f"harness-data: {digest_faults}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    images = harness.device_images(host, "cuda")
+    harness.device_images(host, "cuda")
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t
-    model = LatentDiffusion.from_checkpoint(CKPT, device="cuda")
-    t = time.perf_counter()
-    z = precompute_latents(model, images)
-    torch.cuda.synchronize()
-    latent_s = time.perf_counter() - t
-    if not torch.isfinite(z).all():
-        raise RuntimeError("non-finite latents")
     phase("harness-data", t0, f"{len(host)} images {tuple(host.shape)} "
-          f"rendered on the host in {render_s:.3f}s, uploaded "
-          f"({host.nbytes / 2**30:.3f} GiB uint8) in {upload_s:.3f}s, "
-          f"latents {tuple(z.shape)} ({z.numel() * 4 / 2**30:.3f} GiB fp32) "
-          f"in {latent_s:.3f}s ({len(host) / latent_s:.1f} images/s); peak "
+          f"rendered on the host in {render_s:.3f}s (its bytes the JAX "
+          f"renderer's digest, {digest_s:.3f}s), uploaded "
+          f"({host.nbytes / 2**30:.3f} GiB uint8) in {upload_s:.3f}s; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB | {smi}")
+
+
+def check_digest(renderer, factor_sizes, images) -> list:
+    """Faults of a rendered grid against its SHAPES_DIGESTS constant."""
+    got = grid_digest(images)
+    want = SHAPES_DIGESTS[(renderer, tuple(factor_sizes))]
+    if got != want:
+        return [f"the {renderer} grid at {list(factor_sizes)}: digest {got},"
+                f" the JAX renderer's {want}"]
+    return []
 
 
 def harness_eval_phase(smi, out):
@@ -2396,8 +2547,9 @@ def harness_train_phase(smi, card, seen, ref, out):
     # --max_steps counts global steps, which go on from the checkpoint's
     with np.load(CKPT) as f:
         start = int(f["state/step"])
-    stamps = []
-    with recording_harness(stamps) as records:
+    stamps, latents_s = [], []
+    with recording_harness(stamps) as records, \
+            timed_calls(harness, "precompute_latents", latents_s):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -2408,7 +2560,7 @@ def harness_train_phase(smi, card, seen, ref, out):
             "lightning.callbacks.image_logger.params.batch_frequency="
             f"{HARNESS_LOG_EVERY}",
             "lightning.callbacks.image_logger.params.increase_log_steps="
-            "false"])
+            "false", LOG_DDIM])
         torch.cuda.synchronize()
         launches, plain_calls = read_counts()
         peak = torch.cuda.max_memory_allocated()
@@ -2495,7 +2647,9 @@ def harness_train_phase(smi, card, seen, ref, out):
     mean_ms = sum(steady) / len(steady) * 1e3
     phase("harness-train", t0, f"main_val -b flagship -t --max_steps "
           f"{start + HARNESS_STEPS} from global step {start} on cached "
-          f"latents: {median_ms:.3f} ms per step (median of steps "
+          f"latents (the latent cache of the grid "
+          f"{', then '.join(f'{v:.3f}s' for v in latents_s)}, once a fit): "
+          f"{median_ms:.3f} ms per step (median of steps "
           f"3-{HARNESS_STEPS} but {HARNESS_LOG_EVERY + 1}; their mean "
           f"{mean_ms:.3f} ms; the train phase's on uncached latents above), "
           f"peak memory {peak / 2**20:.1f} MiB, launches {launches} "
@@ -3096,14 +3250,14 @@ def faces_vq_phases(smi, card, seen, out):
     return step_rows, other_rows, launches, per_step, numbers, logdir
 
 
-def mcl_trainer(config, lightning, out):
-    """A ``Trainer`` of ``-b flagship_mcl`` restored from the committed
-    checkpoint as ``main_val --resume_ckpt`` restores it, its MCL heads the
-    seeded fresh init: the run's starting point."""
+def mcl_trainer(config, lightning, out, resume=CKPT):
+    """A ``Trainer`` of an MCL config restored from ``resume`` (the
+    committed checkpoint by default) as ``main_val --resume_ckpt`` restores
+    it, its MCL heads the seeded fresh init: the run's starting point."""
     trainer = harness.Trainer(copy.deepcopy(config), copy.deepcopy(lightning),
                               logdir=os.path.join(out, "mcl_reference"),
                               device="cuda")
-    trainer.resume_ckpt = CKPT
+    trainer.resume_ckpt = resume
     trainer._ensure_state()
     return trainer
 
@@ -3122,15 +3276,40 @@ def mcl_first_batch(trainer, images):
     return batch, draw_t_and_noise(model, bs, gen)
 
 
+def mcl_step_calls(model, state, batch, t, noise):
+    """The shape of every kernel call, forward and backward, of one MCL
+    forward + backward on ``batch`` (its second and third orders
+    included), by kernel; Encoder4's statistics are restored."""
+    bn = cond_state(model)
+    fwd, remove = record_shapes(model)
+    try:
+        with record_backward_shapes() as bwd:
+            loss_and_grads(model, state, batch, t, noise)
+            torch.cuda.synchronize()
+    finally:
+        remove()
+    model.cond_stage_model.load_state_dict(bn)
+    return {k: v for k, v in {**fwd, **bwd}.items() if v}
+
+
 def mcl_grads(model, state, batch, t, noise, draw=None, upstream=None,
-              indices=None):
+              indices=None, relus=None):
     """One MCL forward + backward on ``batch``: (logged values, gradient of
     every trainable leaf, the gradient at the UNet output, the code indices
-    of each decode). ``upstream`` replaces the gradient at the UNet output
-    (the L1 sign guard), ``indices`` the decodes' codes (the forced-index
-    rule); Encoder4's statistics are restored."""
+    of each decode, the critic's pre-activations of its two image ReLUs at
+    each call, and of the pre-activations whose sign ``relus`` changed the
+    count within RELU_BAND, the count outside it and the largest ratio of
+    a guarded one to its layer call's largest magnitude).
+    ``upstream`` replaces the gradient at the UNet output (the L1 sign
+    guard), ``indices`` the decodes' codes (the forced-index rule), and
+    ``relus`` (another run's pre-activations) the value of each
+    pre-activation whose sign differs from it where that value is within
+    RELU_BAND of its layer call's largest (the ReLU guard: the mask, not
+    the gradient, is taken from the other run); Encoder4's statistics are
+    restored."""
     bn = cond_state(model)
-    seen, codes, handles = {}, [], []
+    seen, codes, handles, pre = {}, [], [], []
+    relu = dict(guarded=0, outside=0, worst=0.0)
 
     def output_hook(mod, args, out):
         def grad_hook(g):
@@ -3143,9 +3322,27 @@ def mcl_grads(model, state, batch, t, noise, draw=None, upstream=None,
             out = forced_quantize(mod, args[0], indices[len(codes)])
         codes.append(out[2][2].detach().clone())
         return out
+    def relu_hook(mod, args, out):
+        if relus is not None:
+            ref = relus[len(pre)]
+            scale = ref.abs().max()
+            flip = (out > 0) != (ref > 0)
+            near = ref.abs() <= RELU_BAND * scale
+            guard = flip & near
+            relu["guarded"] += int(guard.sum())
+            relu["outside"] += int((flip & ~near).sum())
+            if guard.any():
+                relu["worst"] = max(relu["worst"], (
+                    ref.abs()[guard].max() / scale).item())
+            out = out + ((ref - out) * guard).detach()
+        pre.append(out.detach().clone())
+        return out
     handles.append(model.unet.register_forward_hook(output_hook))
     handles.append(model.first_stage_model.quantize.register_forward_hook(
         code_hook))
+    critic = model.mcl["critic"]
+    for conv in (critic.img_conv1, critic.img_conv2):
+        handles.append(conv.register_forward_hook(relu_hook))
     try:
         loss_dict, _ = loss_and_grads(model, state, batch, t, noise,
                                       mcl_draw=draw)
@@ -3156,15 +3353,21 @@ def mcl_grads(model, state, batch, t, noise, draw=None, upstream=None,
              for k, p in trainable_parameters(model).items()}
     model.cond_stage_model.load_state_dict(bn)
     return ({k: v.item() for k, v in loss_dict.items()}, grads,
-            seen["upstream"], codes)
+            seen["upstream"], codes, pre, relu)
 
 
 def mcl_compare(label, model, state, batch, t, noise, draw=None):
     """Kernel path against plain path on one batch: the plain path, one
-    kernel-path run on its own upstream gradient and codes (printed, not
-    held), and REFERENCE_REPEATS kernel-path runs from the plain path's
-    upstream gradient at the UNet output and, where a code flipped, its
-    codes. Every logged value to LOSS_RTOL, every gradient leaf to
+    kernel-path run on its own upstream gradient, codes and critic ReLU
+    masks (printed, not held), and REFERENCE_REPEATS kernel-path runs from
+    the plain path's upstream gradient at the UNet output and, where a code
+    flipped, its codes, and with the critic's image ReLU masks of the plain
+    path where a pre-activation lies within RELU_BAND of zero (``mcl_grads``'
+    ReLU guard: such a pre-activation takes another mask under another
+    summation order, as a code does at a near-tie, and moves the critic's
+    small second-order gradients far more than rounding; a flip outside
+    the band, or more than RELU_CAP guarded in a run, is a fault). Every
+    logged value to LOSS_RTOL, every gradient leaf to
     GRAD_RTOL relative L2 but the known exact zeros (EXACT_ZERO, the
     critic's MCL_EXACT_ZERO, the heads the type does not use), which must
     be within GRAD_ZERO of the global norm on both paths. The MCL term
@@ -3173,13 +3376,15 @@ def mcl_compare(label, model, state, batch, t, noise, draw=None):
     apart by its size as train-reference does. Returns (reading, faults,
     the leaves with a zero exact gradient)."""
     with plain_path():
-        log_p, grads_p, up_p, codes_p = mcl_grads(model, state, batch, t,
-                                                  noise, draw)
+        log_p, grads_p, up_p, codes_p, pre_p, _ = mcl_grads(
+            model, state, batch, t, noise, draw)
     own = mcl_grads(model, state, batch, t, noise, draw)
     flips = sum((a != b).sum().item() for a, b in zip(own[3], codes_p))
+    masks = sum(((a > 0) != (b > 0)).sum().item()
+                for a, b in zip(own[4], pre_p))
     forced = codes_p if flips else None
-    runs = [mcl_grads(model, state, batch, t, noise, draw, up_p, forced)
-            for _ in range(REFERENCE_REPEATS)]
+    runs = [mcl_grads(model, state, batch, t, noise, draw, up_p, forced,
+                      pre_p) for _ in range(REFERENCE_REPEATS)]
     torch.cuda.synchronize()
     norms = {k: torch.linalg.vector_norm(g).item() for k, g in grads_p.items()}
     total = sum(n * n for n in norms.values()) ** 0.5
@@ -3195,7 +3400,13 @@ def mcl_compare(label, model, state, batch, t, noise, draw=None):
                 if k not in zero}
 
     got = []
-    for log_k, grads_k, _, _ in runs:
+    for log_k, grads_k, *_, relu in runs:
+        if relu["outside"] or relu["guarded"] > RELU_CAP:
+            faults.append(f"{label}: critic ReLU masks flipped at "
+                          f"{relu['outside']} pre-activations farther than "
+                          f"{RELU_BAND} of their layer's largest from zero "
+                          f"and at {relu['guarded']} within (at most "
+                          f"{RELU_CAP})")
         for k, v in log_p.items():
             if abs(log_k[k] - v) > LOSS_RTOL * abs(v):
                 faults.append(f"{label}: {k} kernel {log_k[k]} vs plain {v}")
@@ -3218,8 +3429,13 @@ def mcl_compare(label, model, state, batch, t, noise, draw=None):
                f"{log_p['train/loss_mcl']:.7f}; kernel "
                + ", ".join(f"{r[0]['train/loss_mcl']:.7f}" for r in runs)
                + f"; worst leaf {'; '.join(got)}, worst Encoder4 or MCL leaf "
-               f"{worst_mcl[0]:.3e} ({worst_mcl[1]}); code flips {flips}; on "
-               f"its own upstream ({signs} L1 signs differ) and codes the "
+               f"{worst_mcl[0]:.3e} ({worst_mcl[1]}); code flips {flips}; "
+               f"critic ReLU masks that differ {masks} (guarded in the held "
+               f"runs: {', '.join(str(r[5]['guarded']) for r in runs)}, the "
+               f"farthest from zero "
+               f"{max(r[5]['worst'] for r in runs):.3e} of its layer's "
+               f"largest); on its own "
+               f"upstream ({signs} L1 signs differ), codes and masks the "
                f"worst leaf {worst_own[0]:.3e} ({worst_own[1]}); "
                f"{len(grads_p) - len(zero)} of {len(grads_p)} leaves held")
     return reading, faults, zero
@@ -3260,21 +3476,54 @@ def recording_mcl_run(metrics, first_grads, swap_records):
         cls.on_validation_epoch_end = swap_fn
 
 
+def below_resolution(ref, grads, names, steps) -> set:
+    """The leaves of ``names`` whose AdamW update at the run's first step,
+    taken from ``ref``'s optimizer state (moments and count) and the first
+    step's gradients ``grads`` at the largest LR of the run's ``steps``
+    updates, is under half of the fp32 spacing of every element it would
+    move: in fp32 that update leaves the leaf as it is."""
+    opt = ref.state.optimizer
+    group = opt.param_groups[0]
+    beta1, beta2 = group["betas"]
+    lr = max(ref.state.lr_fn(ref.state.updates + i) for i in range(steps))
+    out = set()
+    for name, p in trainable_parameters(ref.model).items():
+        if name not in names:
+            continue
+        st, g = opt.state.get(p) or {}, grads[name]
+        n = float(st.get("step", 0)) + 1
+        m = beta1 * st.get("exp_avg", torch.zeros_like(p)) + (1 - beta1) * g
+        v = beta2 * st.get("exp_avg_sq", torch.zeros_like(p)) \
+            + (1 - beta2) * g * g
+        update = lr * group["weight_decay"] * p.abs() + lr / (
+            1 - beta1 ** n) * m.abs() / (
+                (v / (1 - beta2 ** n)).sqrt() + group["eps"])
+        spacing = torch.nextafter(p.abs(), torch.full_like(p, math.inf)) \
+            - p.abs()
+        if bool((update < spacing / 2).all()):
+            out.add(name)
+    return out
+
+
 def mcl_train_phase(smi, card, per_step, ref, images, seen, out,
-                    label="mcl-train", overrides=(), steps=MCL_STEPS):
-    """mcl-train: ``main_val -b flagship_mcl`` (with the dotlist
-    ``overrides``) from the committed checkpoint for ``steps`` steps on
-    cached latents, ending in ``test()``; launches against the recorded
-    calls, the first step's critic gradients, every leaf's movement against
-    ``ref`` (a trainer at the run's start; an Encoder4 bias of EXACT_ZERO
-    or a projection head the type does not use whose first gradient is
-    within GRAD_ZERO of the global norm may stand still), the files.
+                    label="mcl-train", overrides=(), steps=MCL_STEPS,
+                    base="flagship_mcl", resume=CKPT):
+    """mcl-train: ``main_val -b <base>`` (with the dotlist ``overrides``)
+    from ``resume`` (the committed checkpoint by default) for ``steps``
+    steps on cached latents, ending in ``test()``; launches against the
+    recorded calls, the first step's critic gradients, every leaf's
+    movement against ``ref`` (a trainer at the run's start; an Encoder4
+    bias of EXACT_ZERO or a projection head the type does not use whose
+    first gradient is within GRAD_ZERO of the global norm may stand
+    still, and so may a leaf whose first AdamW update is under fp32's
+    resolution at every element, ``below_resolution``),
+    the step and AdamW's count continuing ``ref``'s, the files; the swap
+    visualization at DDIM 50 (SWAP_DDIM).
     Returns
     (launches, the run's checked rows, ms per step, peak bytes)."""
     t0 = time.perf_counter()
     logroot = os.path.join(out, label)
-    with np.load(CKPT) as f:
-        start = int(f["state/step"])
+    start, updates = ref.state.step, ref.state.updates
     stamps, metrics, first_grads, swap_records = [], [], {}, []
     with recording_harness(stamps) as records, \
             recording_mcl_run(metrics, first_grads, swap_records):
@@ -3283,9 +3532,9 @@ def mcl_train_phase(smi, card, per_step, ref, images, seen, out,
         reset_counts()
         attention_core_bwd_vjp.calls = 0
         trainer = main_val.main([
-            "-b", "flagship_mcl", "-t", "--max_steps",
-            str(start + steps), "--resume_ckpt", CKPT, "-l", logroot,
-            "--device", "cuda", *overrides])
+            "-b", base, "-t", "--max_steps", str(start + steps),
+            "--resume_ckpt", resume, "-l", logroot, "--device", "cuda",
+            SWAP_DDIM, *overrides])
         torch.cuda.synchronize()
         launches, plain_calls = read_counts()
         vjp_calls = attention_core_bwd_vjp.calls
@@ -3329,6 +3578,8 @@ def mcl_train_phase(smi, card, per_step, ref, images, seen, out,
     idle = {k for k, g in first_grads.items()
             if (k.startswith("mcl.Pi_") or k in EXACT_ZERO)
             and torch.linalg.vector_norm(g).item() <= GRAD_ZERO * total}
+    unresolved = below_resolution(ref, first_grads, set(still), steps)
+    idle |= unresolved
     if set(still) - MCL_EXACT_ZERO - idle:
         faults.append(f"{len(still)} leaves unchanged after {steps} steps:"
                       f" {sorted(set(still) - MCL_EXACT_ZERO - idle)[:8]}")
@@ -3361,8 +3612,9 @@ def mcl_train_phase(smi, card, per_step, ref, images, seen, out,
         if sorted(test_results) != ["val/factor_vae_score", "val/mig"] or \
                 not all(np.isfinite(v) for v in test_results.values()):
             faults.append(f"test_results.json {test_results}")
-    if step != start + steps or trainer.state.updates != steps:
-        faults.append(f"step {step}, AdamW count {trainer.state.updates}")
+    if step != start + steps or trainer.state.updates != updates + steps:
+        faults.append(f"step {step}, AdamW count {trainer.state.updates}, "
+                      f"from {start} and {updates}")
     kgen = torch.Generator("cuda").manual_seed(SEED + 9)
     shapes = {k: [s for p in (step_shapes, *parts) for s in p.get(k, ())]
               for k in KERNELS}
@@ -3374,8 +3626,8 @@ def mcl_train_phase(smi, card, per_step, ref, images, seen, out,
     median_ms = sorted(steady)[len(steady) // 2] * 1e3
     mean_ms = sum(steady) / len(steady) * 1e3
     tm = trainer.timings
-    phase(label, t0, f"main_val -b flagship_mcl -t --max_steps "
-          f"{start + steps} --resume_ckpt {os.path.basename(CKPT)} "
+    phase(label, t0, f"main_val -b {base} -t --max_steps "
+          f"{start + steps} --resume_ckpt {resume} "
           f"{' '.join(overrides)}: {trainer.model.mcl_type} lambda "
           f"{trainer.model.lambda_mcl}, "
           f"{steps} steps at B={trainer.batch_size} on cached latents, "
@@ -3393,7 +3645,10 @@ def mcl_train_phase(smi, card, per_step, ref, images, seen, out,
           + ", ".join(f"{k[11:]} {v:.3e}" for k, v in sorted(critic.items()))
           + f"; every leaf moved but the {len(still)} whose exact gradient is"
           f" zero and which AdamW's decay alone moves under fp32's "
-          f"resolution ({sorted(still)}); test() sweep {tm['sweep_s']:.3f}s"
+          f"resolution, or whose first AdamW update is under it "
+          f"({len(unresolved)}: {sorted(unresolved)[:6]}...), of "
+          f"{len(end)} ({sorted(still)[:12]}); test() sweep "
+          f"{tm['sweep_s']:.3f}s"
           f", metrics {tm['metrics_s']:.3f}s, swap visualization "
           f"{tm['swap_visualization_s']:.3f}s: {test_results} | {smi}")
     return launches, rows, median_ms, peak
@@ -3413,16 +3668,7 @@ def mcl_phases(smi, card, seen, out):
     images = harness.device_images(ref.data.dataset("train").images, "cuda")
     batch, (t, noise) = mcl_first_batch(ref, images)
     model, state = ref.model, ref.state
-    bn = cond_state(model)
-    fwd, remove = record_shapes(model)
-    try:
-        with record_backward_shapes() as bwd:
-            loss_and_grads(model, state, batch, t, noise)
-            torch.cuda.synchronize()
-    finally:
-        remove()
-    model.cond_stage_model.load_state_dict(bn)
-    per_step = {k: v for k, v in {**fwd, **bwd}.items() if v}
+    per_step = mcl_step_calls(model, state, batch, t, noise)
     phase("mcl-shapes", t0, f"B={ref.batch_size} at global step "
           f"{state.step}, {model.mcl_type} lambda {model.lambda_mcl}: per "
           f"MCL step { {k: len(v) for k, v in per_step.items()} }")
@@ -3518,19 +3764,10 @@ def mcl_fisher_phases(smi, card, seen, out):
                            f"lambda {model.lambda_mcl}")
     images = harness.device_images(ref.data.dataset("train").images, "cuda")
     batch, (t, noise) = mcl_first_batch(ref, images)
-    bn = cond_state(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fwd, remove = record_shapes(model)
-    try:
-        with record_backward_shapes() as bwd:
-            loss_and_grads(model, state, batch, t, noise)
-            torch.cuda.synchronize()
-    finally:
-        remove()
+    per_step = mcl_step_calls(model, state, batch, t, noise)
     step_peak = torch.cuda.max_memory_allocated()
-    model.cond_stage_model.load_state_dict(bn)
-    per_step = {k: v for k, v in {**fwd, **bwd}.items() if v}
     if not per_step.get("gn_silu_bwd3"):
         raise RuntimeError(f"mcl-fisher-shapes: no third-order GN-SiLU call "
                            f"in a fisher_sm step: {per_step.keys()}")
@@ -4623,8 +4860,9 @@ def cross_harness_phase(smi, card, seen, out, ds, vq_logdir):
     """<ds>-harness: ``main_val -b <ds> -t -s 23`` as the pipeline runs it
     (``CROSS``) over the VQ-GAN run's ``checkpoints/last``, for
     CROSS_LDM_STEPS steps on cached latents with the image logger forced to
-    the last step (DDIM 200 on 8 with the swap rows: ``fused_attention``),
-    ending in ``test()`` (the sweep of every row of the validation grid,
+    the last step (DDIM 50 on 8 with the swap rows: ``fused_attention``;
+    none in the bands-control chain, ``CROSS[ds]["log"]``), ending in
+    ``test()`` (the sweep of every row of the validation grid,
     FactorVAE and MIG on the dataset's ground-truth table); the launch
     counters set to 0 just before and read just after: launches must equal
     the steps', the latent encode's and the image log's recorded calls.
@@ -4635,8 +4873,8 @@ def cross_harness_phase(smi, card, seen, out, ds, vq_logdir):
     the device path's epoch order (Cars3D's x10 repeat folded); ``-r``
     must restore the run's state bit for bit and its ``test()`` give the
     same reps. Returns the checked rows of one step's kernel calls, the
-    other checked rows, the launches, the calls of one step by kernel and
-    the run's numbers."""
+    other checked rows, the launches, the calls of one step by kernel, the
+    run's numbers and its run directory."""
     t0 = time.perf_counter()
     last_vq = os.path.join(vq_logdir, "checkpoints", "last")
     n = CROSS_LDM_STEPS
@@ -4655,7 +4893,8 @@ def cross_harness_phase(smi, card, seen, out, ds, vq_logdir):
             str(CROSS_SEED), *CROSS[ds]["ldm"], "--max_steps", str(n),
             "--device", "cuda",
             f"model.params.first_stage_config.params.ckpt_path={last_vq}",
-            f"lightning.callbacks.image_logger.params.batch_frequency={n}"])
+            f"lightning.callbacks.image_logger.params.batch_frequency={n}",
+            *CROSS[ds]["log"]])
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t_run
         launches, plain_calls = read_counts()
@@ -4721,9 +4960,10 @@ def cross_harness_phase(smi, card, seen, out, ds, vq_logdir):
     if reps.shape != (n_rows, 20) or n_rows != len(val_ds) \
             or not np.isfinite(reps).all():
         faults.append(f"reps {reps.shape} over the {n_rows}-row table")
+    n_logs = 0 if NO_LOG in CROSS[ds]["log"] else 1
     root = os.path.join(trainer.logdir, "images", "train")
     logged = sorted(os.listdir(root)) if os.path.isdir(root) else []
-    want_logs = sorted(f"{k}_gs-{n:06}.npy" for k in LOG_KEYS)
+    want_logs = sorted(f"{k}_gs-{n:06}.npy" for k in LOG_KEYS) * n_logs
     if logged != want_logs or not all(np.isfinite(np.load(
             os.path.join(root, f))).all() for f in logged):
         faults.append(f"image logs {logged}, {want_logs} expected")
@@ -4750,10 +4990,10 @@ def cross_harness_phase(smi, card, seen, out, ds, vq_logdir):
             + len(latent_shapes.get(k, ()))
             + sum(len(p.get(k, ())) for p in records["logs"]) for k in KERNELS}
     if launches != want or any(plain_calls.values()) \
-            or len(records["logs"]) != 1:
+            or len(records["logs"]) != n_logs:
         faults.append(f"launches {launches}, expected {want} ({n} steps, "
                       f"the latent encode, {len(records['logs'])} image "
-                      f"log); plain calls {plain_calls}")
+                      f"logs, {n_logs} wanted); plain calls {plain_calls}")
     kgen = torch.Generator("cuda").manual_seed(SEED + CROSS[ds]["kgen"] + 1)
     step_rows = {name: check_rows(name, step_shapes[name], kgen, card, seen)
                  for name in KERNELS if step_shapes.get(name)}
@@ -4769,8 +5009,10 @@ def cross_harness_phase(smi, card, seen, out, ds, vq_logdir):
         raise RuntimeError(f"{ds}-harness: " + "; ".join(faults))
     steps = [b - a for a, b in zip(stamps, stamps[1:])]  # steps 2..n
     step_ms = sorted(steps)[len(steps) // 2] * 1e3
+    log_msg = f"image log {log_s[0]:.3f}s" if log_s else "no image log"
     numbers = dict(latents_s=latents_s[0], step_ms=step_ms,
-                   image_log_s=log_s[0], sweep_s=tm["sweep_s"],
+                   **({"image_log_s": log_s[0]} if log_s else {}),
+                   sweep_s=tm["sweep_s"],
                    metrics_s=tm["metrics_s"],
                    resumed_sweep_s=resumed_tm["sweep_s"],
                    resumed_metrics_s=resumed_tm["metrics_s"],
@@ -4784,7 +5026,7 @@ def cross_harness_phase(smi, card, seen, out, ds, vq_logdir):
           f"device array for both views): latent cache {latents_s[0]:.3f}s "
           f"({tuple(z.shape)}, {z.numel() * 4 / 2**20:.1f} MiB, once), "
           f"{step_ms:.3f} ms per step on cached latents (median of steps "
-          f"2-{n}), image log {log_s[0]:.3f}s, test(): sweep of "
+          f"2-{n}), {log_msg}, test(): sweep of "
           f"{tm['images']} images {tm['sweep_s']:.3f}s, metrics "
           f"{tm['metrics_s']:.3f}s, FactorVAE "
           f"{test_results['val/factor_vae_score']:.6f}, MIG "
@@ -4801,8 +5043,9 @@ def cross_harness_phase(smi, card, seen, out, ds, vq_logdir):
           f"is the epoch order's; scale factor "
           f"{state.scale_factor.item():.7f}; every kernel matches its plain "
           f"version at every shape of the run (tol {KERNEL_TOL}) | {smi}")
+    logdir = trainer.logdir
     del trainer, model, state, images, z
-    return step_rows, other_rows, launches, step_shapes, numbers
+    return step_rows, other_rows, launches, step_shapes, numbers, logdir
 
 
 def mpi3d_shapes_phase(smi):
@@ -4852,19 +5095,119 @@ def mpi3d_shapes_phase(smi):
 def cross_phases(smi, card, seen, out, ds):
     """<ds>-vq then <ds>-harness over its ``last``. Returns the checked
     rows (step and other) and launches of each, the calls of one LDM step
-    by kernel and the numbers of both."""
+    by kernel, the numbers of both and their run directories."""
     vq_step, vq_other, vq_launches, _, vq_numbers, vq_dir = cross_vq_phase(
         smi, card, seen, out, ds)
     seen = {**seen, **seen_rows(vq_step, vq_other)}
-    h_step, h_other, h_launches, per_step, h_numbers = cross_harness_phase(
-        smi, card, seen, out, ds, vq_dir)
+    h_step, h_other, h_launches, per_step, h_numbers, h_dir = \
+        cross_harness_phase(smi, card, seen, out, ds, vq_dir)
     torch.cuda.empty_cache()
     return dict(rows=(vq_step, vq_other, h_step, h_other),
                 launches={f"{ds}_vq_train": vq_launches,
                           f"{ds}_harness": h_launches},
                 per_step=per_step,
                 numbers={**{f"vq_{k}": v for k, v in vq_numbers.items()},
-                         **h_numbers})
+                         **h_numbers},
+                dirs=(vq_dir, h_dir))
+
+
+def shapes_render_phase(smi):
+    """shapes-render: every new grid of the shapes family (SHAPES_RENDERS)
+    rendered on the host as the harness renders it, one 480,000-image grid
+    at a time, each held to its SHAPES_DIGESTS constant; the v1 grid and
+    the bands grid at 480,000 (rendered last) stay in the renderer's cache
+    for the chains after this phase. Returns the seconds of each render."""
+    t0 = time.perf_counter()
+    synthetic_shapes.clear_cache()
+    harness.clear_device_cache()
+    numbers, faults, lines = {}, [], []
+    for renderer, fs in SHAPES_RENDERS:
+        t = time.perf_counter()
+        if (renderer, tuple(fs)) in SHAPES_KEPT:
+            grid = synthetic_shapes.get_images(renderer, 64, fs)
+        else:
+            grid = synthetic_shapes.RENDERERS[renderer](64, factor_sizes=fs)
+        render_s = time.perf_counter() - t
+        t = time.perf_counter()
+        faults += check_digest(renderer, fs, grid)
+        digest_s = time.perf_counter() - t
+        numbers[f"{renderer}_{len(grid)}_render_s"] = render_s
+        lines.append(f"{renderer} {fs}: {len(grid)} images "
+                     f"({grid.nbytes / 2**30:.3f} GiB) in {render_s:.3f}s, "
+                     f"digest {digest_s:.3f}s")
+        del grid
+    if faults:
+        raise RuntimeError("shapes-render: " + "; ".join(faults))
+    phase("shapes-render", t0, f"on {RENDER_THREADS} host threads: "
+          + "; ".join(lines) + "; every grid's bytes the JAX renderer's "
+          f"(sha256 digests) | {smi}")
+    return numbers
+
+
+def shapes_mcl_phase(smi, card, seen, out, vq_dir, ldm_dir):
+    """shapes-mcl: ``main_val -b shapes_mcl`` (the whole
+    ``synthetic-shapes-mcl.yaml`` on the v1 grid) over the v1 chain's
+    EncDiff run, as ``scripts/run_mcl_sweep.py`` runs a cell
+    (``--resume_ckpt <run>/checkpoints/last``, the first stage the VQ-GAN
+    run's ``last`` by override): every kernel call of one MCL step
+    recorded and held against its plain version at each shape; the run
+    (SHAPES_MCL_STEPS steps and ``test()`` with the swap visualization)
+    with mcl-train's checks (the v1 chain's UNet is 8 warm-up steps from
+    its fresh init, whose zero output convolutions leave many leaves a
+    gradient whose AdamW update is under fp32's resolution: such a leaf
+    may stand still, ``below_resolution``); the kernel path against the
+    plain path on the run's first batch, t and noise (mcl-reference's
+    rules). Returns the
+    checked rows of one step's kernel calls, the launches of the run, the
+    calls of one step by kernel and the run's numbers."""
+    t0 = time.perf_counter()
+    override = ("model.params.first_stage_config.params.ckpt_path="
+                + os.path.join(vq_dir, "checkpoints", "last"))
+    last = os.path.join(ldm_dir, "checkpoints", "last")
+    config = harness.load_configs(["shapes_mcl"], [override])
+    lightning = config.pop("lightning")
+    ref = mcl_trainer(config, lightning, out, resume=last)
+    model, state = ref.model, ref.state
+    images = harness.device_images(ref.data.dataset("train").images, "cuda")
+    batch, (t, noise) = mcl_first_batch(ref, images)
+    per_step = mcl_step_calls(model, state, batch, t, noise)
+    kgen = torch.Generator("cuda").manual_seed(SEED + 19)
+    rows = {name: check_rows(name, per_step[name], kgen, card, seen)
+            for name in KERNELS if per_step.get(name)}
+    vjp_rows = check_rows("attention_core_bwd_vjp",
+                          per_step["attention_core_bwd_vjp"], kgen, card,
+                          seen)
+    phase("shapes-mcl-shapes", t0, f"B={ref.batch_size} on the "
+          f"{len(images)}-image v1 grid at global step {state.step} of "
+          f"{last}, {model.mcl_type} lambda {model.lambda_mcl}: per step "
+          f"{ {k: len(v) for k, v in per_step.items()} }; each kernel "
+          f"matches its plain version at every shape (tol {KERNEL_TOL})")
+    launches, _, step_ms, peak = mcl_train_phase(
+        smi, card, per_step, ref, images,
+        {**seen, **seen_rows(rows, {"attention_core_bwd_vjp": vjp_rows})},
+        out, label="shapes-mcl", overrides=(override,),
+        steps=SHAPES_MCL_STEPS, base="shapes_mcl", resume=last)
+
+    t0 = time.perf_counter()
+    reading, faults, zero = mcl_compare(model.mcl_type, model, state, batch,
+                                        t, noise)
+    if set(zero) & MCL_EXACT_ZERO != MCL_EXACT_ZERO:
+        faults.append(f"exact-zero critic leaves {sorted(MCL_EXACT_ZERO)}, "
+                      f"found {sorted(set(zero) & MCL_EXACT_ZERO)}")
+    if faults:
+        raise RuntimeError("shapes-mcl-reference: " + " | ".join(
+            [reading] + faults))
+    phase("shapes-mcl-reference", t0, f"B={ref.batch_size} at the run's "
+          f"starting weights, the same batch, z, t and noise: every logged "
+          f"value within {LOSS_RTOL}, every trainable leaf within relative "
+          f"L2 {GRAD_RTOL} on each of {REFERENCE_REPEATS} kernel-path runs "
+          f"from the plain path's gradient at the UNet output; the "
+          f"exact-zero leaves within {GRAD_ZERO} of the global norm: {zero}."
+          f" {reading}")
+    del ref, model, state, images
+    torch.cuda.empty_cache()
+    return rows, launches, per_step, dict(ms_per_step=step_ms,
+                                          peak_mib=peak / 2**20)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""The flagship, faces, MPI3D and Cars3D configurations as Python dicts.
+"""The flagship, faces, MPI3D, Cars3D and shapes-family configurations as
+Python dicts.
 
 ``FLAGSHIP`` holds the model fields of
 ``configs/demo/synthetic-shapes-v4-full-encdiff.yaml`` (the architecture of
@@ -43,8 +44,9 @@ at λ 0.05, τ 0.1, projections of 128, σ 0.1, ``shuffle_u`` negatives), its
 base LR of 2e-7, its LR warmup of 200 steps and its swap-visualization
 callback (8 samples, DDIM 200). That YAML's own dataset, the v1 renderer's
 27,648-image grid (``SyntheticShapes3DTrain``), is not taken: the
-committed checkpoint was trained on v4. ``tests/test_torch_mcl_config.py``
-holds it to both YAMLs.
+committed checkpoint was trained on v4; ``-b shapes_mcl``
+(``SHAPES_MCL_RUN``) is the run that takes that YAML whole, on its own
+grid. ``tests/test_torch_mcl_config.py`` holds it to both YAMLs.
 
 ``FACES_RUN`` is the whole ``configs/demo/synthetic-faces-encdiff.yaml``
 (``-b faces``): ``FACES`` with the YAML's other model fields (no
@@ -69,6 +71,28 @@ in the data targets, ``eval_name`` (``mpi3d``, ``cars3d``), the LR warm-up
 (10,000, 4,000), ``max_epochs`` (VQ 1 and 4, LDM 8 and 30) and
 ``check_val_every_n_epoch`` (1 and 4). ``tests/test_torch_cross_configs.py``
 holds them equal to the YAMLs.
+
+The rest of the shapes family, each the whole YAML of
+``configs/demo/`` named beside it, built from ``FLAGSHIP_VQ_RUN`` and
+``FLAGSHIP_RUN`` at the flagship's widths: ``SHAPES_VQ_RUN`` /
+``SHAPES_RUN`` (``synthetic_shapes_vq.yaml``,
+``synthetic-shapes-encdiff.yaml``: the v1 renderer's 27,648 images, the
+VQ-GAN without LPIPS), ``SHAPES_FULL_VQ_RUN`` / ``SHAPES_FULL_RUN``
+(``synthetic_shapes_full_vq.yaml``, ``synthetic-shapes-full-encdiff.yaml``:
+v1 at 480,000), ``SHAPES_V2_*`` and ``SHAPES_V3_*``
+(``synthetic-shapes-v{2,3}-full-{vq,encdiff}.yaml``), ``BANDS27K_*``
+(``synthetic-bands27k-{vq,encdiff}.yaml``: the bands control at 27,648,
+no LPIPS), ``BANDS_CONTROL_*`` (``synthetic-bands-control-{vq,
+encdiff}.yaml``: at 480,000) and ``SHAPES_MCL_RUN``
+(``synthetic-shapes-mcl.yaml``). They differ from the flagship's runs in
+the data targets, ``eval_name``, ``max_epochs``,
+``check_val_every_n_epoch``, the image logger's ``batch_frequency``, the
+VQ loss's ``perceptual_weight`` and the first stage's ``monitor``,
+``ckpt_path`` and ``lossconfig``. ``SHAPES_MCL_RUN`` names the first stage
+``V1_VQ_CKPT``, the directory the other two 27,648-image YAMLs name, where
+its YAML writes that directory as an absolute path of the machine it was
+written on. ``tests/test_torch_shapes_family_configs.py`` holds them equal
+to the YAMLs.
 
 ``FACES`` and ``FACES_TRAIN`` hold the model and training fields of
 ``configs/demo/synthetic-faces-encdiff.yaml``: 256 px images of the
@@ -435,13 +459,24 @@ def _grid_data(train: str, validation: str) -> dict:
     }
 
 
-def _vq_run(data: dict, max_epochs: int) -> dict:
-    """``FLAGSHIP_VQ_RUN`` on another grid for ``max_epochs`` epochs."""
+def _vq_run(data: dict, max_epochs: int, perceptual_weight: float = 1.0,
+            batch_frequency: int = 2000) -> dict:
+    """``FLAGSHIP_VQ_RUN`` on another grid for ``max_epochs`` epochs, with
+    the loss's ``perceptual_weight`` (0: no LPIPS) and the image logger's
+    ``batch_frequency``."""
+    model = FLAGSHIP_VQ_RUN["model"]
+    loss = model["params"]["lossconfig"]
+    callbacks = FLAGSHIP_VQ_RUN["lightning"]["callbacks"]
+    logger = callbacks["image_logger"]
     return {
-        "model": FLAGSHIP_VQ_RUN["model"],
+        "model": {**model, "params": {**model["params"], "lossconfig": {
+            **loss, "params": {**loss["params"],
+                               "perceptual_weight": perceptual_weight}}}},
         "data": data,
         "lightning": {
-            "callbacks": FLAGSHIP_VQ_RUN["lightning"]["callbacks"],
+            "callbacks": {**callbacks, "image_logger": {
+                **logger, "params": {**logger["params"],
+                                     "batch_frequency": batch_frequency}}},
             "trainer": {**FLAGSHIP_VQ_RUN["lightning"]["trainer"],
                         "max_epochs": max_epochs},
         },
@@ -449,9 +484,14 @@ def _vq_run(data: dict, max_epochs: int) -> dict:
 
 
 def _ldm_run(data: dict, eval_name: str, warm_up_steps: int,
-             max_epochs: int, check_val_every_n_epoch: int) -> dict:
-    """``FLAGSHIP_RUN`` on another grid, scored on its ground truth."""
+             max_epochs: int, check_val_every_n_epoch: int,
+             batch_frequency: int = 20000, first_stage=None) -> dict:
+    """``FLAGSHIP_RUN`` on another grid, scored on its ground truth, with
+    the image logger's ``batch_frequency``; ``first_stage`` adds its keys to
+    the first stage's config (``_first_stage``)."""
     params = FLAGSHIP_RUN["model"]["params"]
+    lightning = FLAGSHIP_RUN["lightning"]
+    logger = lightning["callbacks"]["image_logger"]
     return {
         "model": {
             **FLAGSHIP_RUN["model"],
@@ -460,16 +500,29 @@ def _ldm_run(data: dict, eval_name: str, warm_up_steps: int,
                 "eval_name": eval_name,
                 "scheduler_config": {**params["scheduler_config"],
                                      "warm_up_steps": [warm_up_steps]},
+                "first_stage_config": {**params["first_stage_config"],
+                                       **(first_stage or {})},
             },
         },
         "data": data,
         "lightning": {
-            **FLAGSHIP_RUN["lightning"],
-            "trainer": {**FLAGSHIP_RUN["lightning"]["trainer"],
+            **lightning,
+            "callbacks": {**lightning["callbacks"], "image_logger": {
+                **logger, "params": {**logger["params"],
+                                     "batch_frequency": batch_frequency}}},
+            "trainer": {**lightning["trainer"],
                         "max_epochs": max_epochs,
                         "check_val_every_n_epoch": check_val_every_n_epoch},
         },
     }
+
+
+def _first_stage(ckpt_path) -> dict:
+    """The first stage's keys of the shapes family's EncDiff YAMLs beyond
+    the flagship model's: its ``monitor``, ``ckpt_path`` and identity
+    ``lossconfig``."""
+    return {"monitor": "val/rec_loss", "ckpt_path": ckpt_path,
+            "lossconfig": {"target": "torch.nn.Identity"}}
 
 
 MPI3D_VQ_RUN = _vq_run(
@@ -488,3 +541,70 @@ CARS3D_RUN = _ldm_run(
                "synthetic_cars3d.SyntheticCars3DFull"),
     eval_name="cars3d", warm_up_steps=4000, max_epochs=30,
     check_val_every_n_epoch=4)
+
+
+#: the first stage of the 27,648-image EncDiff YAMLs: a JAX VQ-GAN log
+#: directory that is not in the repository, so a run that does not pass
+#: its own (``model.params.first_stage_config.params.ckpt_path=<a -b *_vq
+#: run>/checkpoints/last``) fails when it loads it
+V1_VQ_CKPT = "logs_demo/2026-08-16T09-09-13_vq/checkpoints/005-000001296"
+
+
+def _shapes_data(cls: str) -> dict:
+    return _grid_data(f"synthetic_shapes.{cls}", f"synthetic_shapes.{cls}")
+
+
+SHAPES_VQ_RUN = _vq_run(_shapes_data("SyntheticShapes3DTrain"), max_epochs=8,
+                        perceptual_weight=0.0, batch_frequency=1000)
+SHAPES_RUN = _ldm_run(
+    _shapes_data("SyntheticShapes3DTrain"), eval_name="synthetic_shapes",
+    warm_up_steps=10000, max_epochs=30, check_val_every_n_epoch=1,
+    batch_frequency=10000, first_stage=_first_stage(V1_VQ_CKPT))
+SHAPES_FULL_VQ_RUN = _vq_run(_shapes_data("SyntheticShapes3DFullTrain"),
+                             max_epochs=2)
+SHAPES_FULL_RUN = _ldm_run(
+    _shapes_data("SyntheticShapes3DFullTrain"),
+    eval_name="synthetic_shapes_full", warm_up_steps=10000, max_epochs=16,
+    check_val_every_n_epoch=2, first_stage=_first_stage(None))
+SHAPES_V2_VQ_RUN = _vq_run(_shapes_data("SyntheticShapes3DV2FullTrain"),
+                           max_epochs=2)
+SHAPES_V2_RUN = _ldm_run(
+    _shapes_data("SyntheticShapes3DV2FullTrain"),
+    eval_name="synthetic_shapes_full", warm_up_steps=10000, max_epochs=16,
+    check_val_every_n_epoch=2, first_stage=_first_stage(None))
+SHAPES_V3_VQ_RUN = _vq_run(_shapes_data("SyntheticShapes3DV3FullTrain"),
+                           max_epochs=2)
+SHAPES_V3_RUN = _ldm_run(
+    _shapes_data("SyntheticShapes3DV3FullTrain"),
+    eval_name="synthetic_shapes_full", warm_up_steps=10000, max_epochs=24,
+    check_val_every_n_epoch=2, first_stage=_first_stage(None))
+BANDS27K_VQ_RUN = _vq_run(_shapes_data("SyntheticBandsTrain"), max_epochs=8,
+                          perceptual_weight=0.0, batch_frequency=1000)
+BANDS27K_RUN = _ldm_run(
+    _shapes_data("SyntheticBandsTrain"), eval_name="synthetic_shapes",
+    warm_up_steps=10000, max_epochs=100, check_val_every_n_epoch=1,
+    batch_frequency=10000, first_stage=_first_stage(V1_VQ_CKPT))
+BANDS_CONTROL_VQ_RUN = _vq_run(_shapes_data("SyntheticBandsFullTrain"),
+                               max_epochs=1)
+BANDS_CONTROL_RUN = _ldm_run(
+    _shapes_data("SyntheticBandsFullTrain"),
+    eval_name="synthetic_shapes_full", warm_up_steps=10000, max_epochs=8,
+    check_val_every_n_epoch=2, first_stage=_first_stage(None))
+
+_SHAPES_MCL = _ldm_run(
+    _shapes_data("SyntheticShapes3DTrain"), eval_name="synthetic_shapes",
+    warm_up_steps=200, max_epochs=3, check_val_every_n_epoch=1,
+    batch_frequency=10000, first_stage=_first_stage(V1_VQ_CKPT))
+SHAPES_MCL_RUN = {
+    "model": {"base_learning_rate": 2.0e-07,
+              "params": {**_SHAPES_MCL["model"]["params"], **MCL_KEYS}},
+    "data": _SHAPES_MCL["data"],
+    "lightning": {
+        **_SHAPES_MCL["lightning"],
+        "callbacks": {
+            **_SHAPES_MCL["lightning"]["callbacks"],
+            "swap_visualization": FLAGSHIP_MCL_RUN["lightning"]["callbacks"][
+                "swap_visualization"],
+        },
+    },
+}

@@ -236,9 +236,18 @@ class VQModelInterface(VQModel):
 
     def load_ckpt_path(self) -> None:
         """Load the generator of ``ckpt_path``, if one is set, over the
-        current weights (``load_generator``)."""
-        if self.ckpt_path is not None:
-            self.load_generator(generator_state(self.ckpt_path))
+        current weights (``load_generator``). A path that does not exist
+        (a config's JAX log directory that is not in the repository)
+        raises ``FileNotFoundError``."""
+        if self.ckpt_path is None:
+            return
+        if not os.path.exists(self.ckpt_path):
+            raise FileNotFoundError(
+                f"first_stage_config.ckpt_path {self.ckpt_path!r} does not "
+                "exist: pass a trained first stage (a -b *_vq run's "
+                "checkpoints/last or a compact .npz) with model.params."
+                "first_stage_config.params.ckpt_path=<path>")
+        self.load_generator(generator_state(self.ckpt_path))
 
     @torch.no_grad()
     def load_generator(self, sd: dict) -> None:

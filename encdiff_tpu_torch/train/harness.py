@@ -83,6 +83,22 @@ device path's order and step instead, and the host-streamed path is not
 ported (``--device_data false`` raises). ``--val_batches`` caps a VQ-GAN's
 validation (the MPI3D VQ validates on the full grid, 8,100 batches).
 
+The rest of the shapes family (``configs.SHAPES_*``, ``configs.BANDS*``):
+``-b shapes_vq`` / ``-b shapes`` on the v1 renderer's 27,648-image grid
+(the VQ-GAN without LPIPS: ``perceptual_weight`` 0), ``-b shapes_full_vq``
+/ ``-b shapes_full`` on the v1 grid at the full 480,000, ``-b
+shapes_v2_vq`` / ``-b shapes_v2`` and ``-b shapes_v3_vq`` / ``-b shapes_v3``
+on the v2 and v3 grids, the bands control at 27,648 (``-b bands27k_vq`` /
+``-b bands27k``) and at 480,000 (``-b bands_control_vq`` / ``-b
+bands_control``), and ``-b shapes_mcl``, the whole
+``synthetic-shapes-mcl.yaml`` on the v1 grid. Each EncDiff stage runs over
+a VQ-GAN run's ``checkpoints/last`` named by the ``ckpt_path`` override;
+the 27,648-image YAMLs name a JAX log directory that is not in the
+repository, which raises ``FileNotFoundError`` unless overridden. ``-b
+shapes_mcl`` fine-tunes a ``-b shapes`` run, as ``scripts/run_mcl_sweep.py``
+runs a cell: ``--resume_ckpt <shapes run>/checkpoints/last`` and the
+first stage's override.
+
 Checkpoints are directories (``train.checkpoint_io``). The dataset stays on
 the device between runs of one process, so a resumed run or a second
 ``main`` does not upload 5.9 GB again; its latents are computed anew by
@@ -106,6 +122,15 @@ raises without a card.
         model.params.indep_type=hsic model.params.lambda_indep=2.0
     (and -b mpi3d_vq, then -b mpi3d with --max_epochs 5
      --check_val_every_n_epoch 2 and the ckpt_path override)
+    python -m encdiff_tpu_torch.main_val -b shapes_vq -t -n shapesvq
+    python -m encdiff_tpu_torch.main_val -b shapes -t -n shapesld \\
+        model.params.first_stage_config.params.ckpt_path=<run>/checkpoints/last
+    python -m encdiff_tpu_torch.main_val -b shapes_mcl -t \\
+        --resume_ckpt <shapes run>/checkpoints/last \\
+        model.params.first_stage_config.params.ckpt_path=<run>/checkpoints/last
+    (and likewise -b shapes_full_vq / shapes_full, shapes_v2_vq / shapes_v2,
+     shapes_v3_vq / shapes_v3, bands27k_vq / bands27k, bands_control_vq /
+     bands_control)
 """
 
 from __future__ import annotations
@@ -123,11 +148,7 @@ import numpy as np
 import torch
 
 from encdiff_tpu_torch import convert
-from encdiff_tpu_torch.configs import (CARS3D_RUN, CARS3D_VQ_RUN,
-                                      FACES_RUN, FACES_VQ_RUN,
-                                      FLAGSHIP_MCL_RUN, FLAGSHIP_RUN,
-                                      FLAGSHIP_VQ_RUN, MPI3D_RUN,
-                                      MPI3D_VQ_RUN)
+from encdiff_tpu_torch import configs
 from encdiff_tpu_torch.core.compact_ckpt import save_compact_vq
 from encdiff_tpu_torch.core.config import get_obj_from_str, instantiate_from_config
 from encdiff_tpu_torch.core.device import resolve_device
@@ -146,11 +167,12 @@ from encdiff_tpu_torch.train.loop import (create_train_state, encode_sweep,
                                           precompute_latents, train_step)
 
 #: the configs ``-b`` takes by name
-REGISTERED = {"flagship": FLAGSHIP_RUN, "flagship_vq": FLAGSHIP_VQ_RUN,
-              "flagship_mcl": FLAGSHIP_MCL_RUN, "faces_vq": FACES_VQ_RUN,
-              "faces": FACES_RUN, "mpi3d_vq": MPI3D_VQ_RUN,
-              "mpi3d": MPI3D_RUN, "cars3d_vq": CARS3D_VQ_RUN,
-              "cars3d": CARS3D_RUN}
+REGISTERED = {name: getattr(configs, f"{name.upper()}_RUN") for name in (
+    "flagship", "flagship_vq", "flagship_mcl", "faces_vq", "faces",
+    "mpi3d_vq", "mpi3d", "cars3d_vq", "cars3d", "shapes_vq", "shapes",
+    "shapes_full_vq", "shapes_full", "shapes_v2_vq", "shapes_v2",
+    "shapes_v3_vq", "shapes_v3", "bands27k_vq", "bands27k",
+    "bands_control_vq", "bands_control", "shapes_mcl")}
 
 #: the dataset on the device, kept between the runs of one process: at most
 #: one, with the host array it was uploaded from

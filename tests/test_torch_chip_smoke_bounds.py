@@ -147,3 +147,40 @@ def test_gn_silu_bwd3_at_the_vq_decoder_is_bound_by_bytes():
     bytes_ms = nbytes / chip_smoke.PEAK_BYTES * 1e3
     assert bytes_ms == pytest.approx(0.2404, rel=REL)
     assert ops / chip_smoke.PEAK_FP32 * 1e3 < bytes_ms
+
+
+def test_shapes_phases_cover_the_family():
+    """shapes-render renders every new grid of the shapes family and holds
+    it, and harness-data the v4 grid, to a digest; the 480,000-image grid
+    it keeps for a chain is the last it renders; the two chains' names are
+    registered."""
+    from encdiff_tpu_torch.data import synthetic_shapes
+    from encdiff_tpu_torch.train import harness
+    full = tuple(synthetic_shapes.FULL_FACTOR_SIZES)
+    renders = [(r, tuple(fs)) for r, fs in chip_smoke.SHAPES_RENDERS]
+    assert len(set(renders)) == len(renders) == 6
+    assert set(renders) | {("v4", full)} == set(chip_smoke.SHAPES_DIGESTS)
+    assert {r for r, _ in renders} == set(synthetic_shapes.RENDERERS) - {"v4"}
+    assert chip_smoke.SHAPES_KEPT <= set(renders)
+    assert [k for k in chip_smoke.SHAPES_KEPT if k[1] == full] == \
+        [renders[-1]]
+    for ds in ("shapes", "bands_control"):
+        assert {f"{ds}_vq", ds} <= set(harness.REGISTERED)
+        assert ds in chip_smoke.CROSS
+    assert "shapes_mcl" in harness.REGISTERED
+
+
+def test_grid_digest_hashes_every_row_in_order():
+    import hashlib
+
+    import numpy as np
+    rows = chip_smoke.DIGEST_ROWS
+    images = np.random.RandomState(0).randint(
+        0, 256, (2 * rows + 5, 2, 2, 3)).astype(np.uint8)
+    parts = [hashlib.sha256(images[i:i + rows].tobytes()).digest()
+             for i in range(0, len(images), rows)]
+    assert chip_smoke.grid_digest(images) == \
+        hashlib.sha256(b"".join(parts)).hexdigest()
+    flipped = images.copy()
+    flipped[-1, 0, 0, 0] ^= 1
+    assert chip_smoke.grid_digest(flipped) != chip_smoke.grid_digest(images)

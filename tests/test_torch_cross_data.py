@@ -30,6 +30,7 @@ from encdiff_tpu_torch.data import synthetic_mpi3d as mpi
 from encdiff_tpu_torch.evalx.ground_truth import datasets as gt
 from encdiff_tpu_torch.train import harness
 from test_torch_port_slice import BANNED, _imports
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MPI_GRIDS = ([2, 2, 2, 2, 2, 5, 4], [2, 3, 2, 3, 3, 4, 4])

@@ -57,6 +57,7 @@ from encdiff_tpu_torch.train import harness
 from encdiff_tpu_torch.train.data import epoch_order
 from encdiff_tpu_torch.train.loop import trainable_parameters
 from test_torch_cross_configs import YAML
+from torch_threads import one_thread  # noqa: F401
 
 REL = 1e-5
 LEAF = 1e-4
@@ -163,8 +164,6 @@ def chain(tmp_path_factory):
                                 "loss": float(m["train/loss"])})
         return m
 
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     try:
         vq = harness.main(["-b", "cars3d_vq", "-t", "--no-test", "-l",
                            str(tmp / "runs_cross"), "-s", str(SEED), "-n",
@@ -180,7 +179,6 @@ def chain(tmp_path_factory):
             f"model.params.first_stage_config.params.ckpt_path={last}",
             *HSIC, *LDM, *LOG])
     finally:
-        torch.set_num_threads(n_threads)
         mp.undo()
         harness.clear_device_cache()
         cars._CACHE.clear()

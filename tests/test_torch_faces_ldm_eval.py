@@ -40,6 +40,7 @@ from encdiff_tpu_torch.models.latent_diffusion import LatentDiffusion
 from encdiff_tpu_torch.train.checkpoint_io import (fresh_variables,
                                                    save_train_checkpoint)
 from encdiff_tpu_torch.train.loop import create_train_state
+from torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 GRID = (2, 1, 2, 1, 2, 1, 2)  # 16 faces
@@ -147,10 +148,6 @@ def small_faces(monkeypatch):
     monkeypatch.setitem(generate_swap.CONFIGS, "faces", SMALL)
     monkeypatch.setattr(synthetic_faces, "TRAIN_GRID", GRID)
     monkeypatch.setattr(synthetic_faces.SyntheticFaces, "factor_sizes", GRID)
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_clis_take_a_checkpoint_directory(checkpoint_dir, small_faces,

@@ -44,6 +44,7 @@ from encdiff_tpu_torch.train import harness
 from encdiff_tpu_torch.train.checkpoint_io import MODEL_FILE, STATE_FILE
 from encdiff_tpu_torch.train.loop import trainable_parameters
 from test_torch_faces_ldm_ingest import TINY_GRID, TINY_LDM, tiny_vq_run
+from torch_threads import one_thread  # noqa: F401
 
 REL = 1e-5
 STEPS = 8
@@ -81,12 +82,9 @@ def _main(argv, record=None):
         record.update(moved=[], ema=[])
         mp.setattr(harness, "precompute_latents", precompute_latents)
         mp.setattr(harness, "train_step", train_step)
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
     try:
         return harness.main([*argv, "--device", "cpu"])
     finally:
-        torch.set_num_threads(n)
         mp.undo()
         harness.clear_device_cache()
 

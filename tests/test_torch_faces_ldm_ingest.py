@@ -45,6 +45,7 @@ from encdiff_tpu_torch.models.autoencoder import (GENERATOR, VQModelInterface,
                                                   generator_state)
 from encdiff_tpu_torch.train import harness
 from test_torch_harness import _port_target
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 VQ_NPZ = str(ROOT / "demo_artifacts/round5/v4vq_fp16.npz")
@@ -86,8 +87,6 @@ def tiny_vq_run(logroot) -> str:
     ``test()`` (``tests/test_torch_faces_vq_harness.py`` covers those)."""
     mp = pytest.MonkeyPatch()
     mp.setattr(synthetic_faces.SyntheticFaces, "factor_sizes", TINY_GRID)
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
     try:
         trainer = harness.main([
             "-b", "faces_vq", "-t", "--no-test", "--max_steps", "4",
@@ -95,7 +94,6 @@ def tiny_vq_run(logroot) -> str:
             "lightning.callbacks.image_logger.params.increase_log_steps="
             "false"])
     finally:
-        torch.set_num_threads(n)
         mp.undo()
         harness.clear_device_cache()
     return trainer.logdir

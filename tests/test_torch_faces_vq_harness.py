@@ -37,6 +37,7 @@ from encdiff_tpu_torch.models.autoencoder import VQModel
 from encdiff_tpu_torch.train import harness, vq_trainer
 from encdiff_tpu_torch.train.checkpoint_io import STATE_FILE
 from test_torch_harness import _port_target
+from torch_threads import one_thread  # noqa: F401
 
 YAML = os.path.join(os.path.dirname(__file__), os.pardir,
                     "configs/demo/synthetic-faces-vq.yaml")
@@ -120,15 +121,12 @@ def run(tmp_path_factory):
     """The CLI's 8-micro-step run; (trainer, logdir)."""
     mp = pytest.MonkeyPatch()
     mp.setattr(synthetic_faces.SyntheticFaces, "factor_sizes", TINY_GRID)
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
     tmp = tmp_path_factory.mktemp("faces_vq")
     try:
         trainer = harness.main(["-b", "faces_vq", "-t", "--max_steps", "8",
                                 "--val_batches", "2", "--device", "cpu",
                                 "-l", str(tmp / "logs"), *TINY])
     finally:
-        torch.set_num_threads(n)
         mp.undo()
         harness.clear_device_cache()
     return trainer, trainer.logdir

@@ -22,8 +22,9 @@ import torch
 
 from encdiff_tpu_torch.models.latent_diffusion import LatentDiffusion
 from encdiff_tpu_torch.train import harness
-from test_torch_harness import TINY, _write, one_thread, tiny  # noqa: F401
+from test_torch_harness import TINY, _write, tiny  # noqa: F401
 from test_torch_mcl_config import MCL_TINY_PARAMS
+from torch_threads import one_thread  # noqa: F401
 
 OVERRIDES = ["model.params.mcl_type=fisher_sm", "model.params.lambda_mcl=0.01"]
 
@@ -37,7 +38,7 @@ def test_dotlist_reaches_the_model():
     assert model.lambda_mcl == 0.01
 
 
-def test_tiny_fisher_run_with_accumulation(tiny, one_thread, monkeypatch):
+def test_tiny_fisher_run_with_accumulation(tiny, monkeypatch):
     cfg = json.loads(json.dumps(TINY))
     cfg["model"]["params"].update(MCL_TINY_PARAMS)
     step_fn, seen = harness.train_step, []

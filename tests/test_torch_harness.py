@@ -52,6 +52,7 @@ from encdiff_tpu_torch.train.checkpoint_io import MODEL_FILE, STATE_FILE
 from encdiff_tpu_torch.train.data import epoch_order
 from encdiff_tpu_torch.train.loop import (encode_sweep, precompute_latents,
                                           trainable_parameters)
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FLAGSHIP_NPZ = ROOT / "demo_artifacts/round5/v4purify_final_fp16.npz"
@@ -349,17 +350,6 @@ def tiny(tmp_path, monkeypatch):
     harness.clear_device_cache()
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for the tiny model's many small ops: beside
-    other busy processes, a pool of threads per core spins and a run takes
-    ten times as long."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _write(tmp_path, cfg, name="tiny.json"):
     path = tmp_path / name
     path.write_text(json.dumps(cfg))
@@ -403,7 +393,7 @@ def _assert_equal(a, b, path=""):
 
 
 @pytest.mark.parametrize("accumulate", [1, 2])
-def test_resume_continues_bit_for_bit(tiny, one_thread, accumulate):
+def test_resume_continues_bit_for_bit(tiny, accumulate):
     cfg = _write(tiny, TINY)
     common = ["--no-test", "--device", "cpu", "--accumulate_grad_batches",
               str(accumulate)]
@@ -423,7 +413,7 @@ def test_resume_continues_bit_for_bit(tiny, one_thread, accumulate):
     assert straight.state.ema.num_updates == 6
 
 
-def test_cli_end_to_end_on_the_cpu(tiny, one_thread):
+def test_cli_end_to_end_on_the_cpu(tiny):
     cfg = _write(tiny, TINY)
     trainer = harness.main(["-b", cfg, "-t", "--max_steps", "18", "-l",
                             str(tiny / "logs"), "--device", "cpu"])
@@ -456,7 +446,7 @@ def test_cli_end_to_end_on_the_cpu(tiny, one_thread):
     assert (logdir / "metrics_sin/20.json").exists()
 
 
-def test_cli_refusals(tiny, one_thread, monkeypatch):
+def test_cli_refusals(tiny, monkeypatch):
     cfg = _write(tiny, TINY)
     args = ["-b", cfg, "-t", "--max_steps", "2", "-l", str(tiny / "r")]
     with pytest.raises(NotImplementedError, match="host"):

@@ -39,7 +39,8 @@ from encdiff_tpu_torch.train.checkpoint_io import (
     MODEL_FILE, fresh_variables, restore_train_checkpoint, save_checkpoint,
     save_train_checkpoint)
 from encdiff_tpu_torch.train.loop import create_train_state, train_step
-from test_torch_harness import TINY, _write, one_thread, tiny  # noqa: F401
+from test_torch_harness import TINY, _write, tiny  # noqa: F401
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FLAGSHIP_YAML = ROOT / "configs/demo/synthetic-shapes-v4-full-encdiff.yaml"
@@ -225,7 +226,7 @@ def test_committed_npz_keeps_fresh_heads(capsys):
     assert set(template["mcl"]) == {"critic", "Pi_g", "Pi_u"}
 
 
-def test_tiny_harness_run_with_mcl_and_swap_grids(tiny, one_thread):
+def test_tiny_harness_run_with_mcl_and_swap_grids(tiny):
     cfg = json.loads(json.dumps(TINY))
     cfg["model"]["params"].update(MCL_TINY_PARAMS)
     cfg["lightning"]["callbacks"]["swap_visualization"] = {

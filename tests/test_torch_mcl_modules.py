@@ -35,6 +35,7 @@ from encdiff_tpu_torch.losses import mcl as tmcl
 from encdiff_tpu_torch.models.autoencoder import VQModelInterface
 from encdiff_tpu_torch.nn.kernels.attention import _AttentionCoreBwd
 from encdiff_tpu_torch.nn.kernels.groupnorm_silu import _GNSiLUBwd
+from torch_threads import one_thread  # noqa: F401
 
 B, U, PROJ = 4, 20, 32
 Z_SHAPE = (8, 8, 3)            # (h, w, c), as the JAX package gives it

@@ -46,6 +46,7 @@ from encdiff_tpu_torch.nn.kernels.flash_attention import (
     flash_attention_fwd)
 from encdiff_tpu_torch.train.loop import (create_train_state,
                                           scaled_learning_rate)
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FACES_YAML = ROOT / "configs/demo/synthetic-faces-encdiff.yaml"

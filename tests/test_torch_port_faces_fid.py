@@ -16,6 +16,7 @@ from encdiff_tpu.evalx import fid as jfid
 from encdiff_tpu_torch import convert
 from encdiff_tpu_torch.evalx import fid as tfid
 from test_torch_port_faces_serve import _t
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -37,6 +37,7 @@ from encdiff_tpu_torch.evalx.swap import swap_sample
 from encdiff_tpu_torch.models.latent_diffusion import LatentDiffusion
 from encdiff_tpu_torch.nn import attention as tattn
 from encdiff_tpu_torch.nn.kernels.fused_attention import fused_attention
+from torch_threads import one_thread  # noqa: F401
 
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 NET_TOL = dict(rtol=1e-4, atol=1e-4)

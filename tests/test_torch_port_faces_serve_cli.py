@@ -18,6 +18,7 @@ from encdiff_tpu_torch.data import synthetic_faces
 from encdiff_tpu_torch.evalx.swap import swap_sample
 from encdiff_tpu_torch.models.latent_diffusion import LatentDiffusion
 from test_torch_port_faces_serve import CLI_FACES, _randn
+from torch_threads import one_thread  # noqa: F401
 
 
 def test_swap_chunks_slice_injected_noise(monkeypatch):

@@ -45,6 +45,7 @@ from encdiff_tpu_torch.models.latent_diffusion import LatentDiffusion
 from encdiff_tpu_torch.nn import attention as tattn
 from encdiff_tpu_torch.train.loop import (create_train_state,
                                           trainable_parameters, train_step)
+from torch_threads import one_thread  # noqa: F401
 
 REL = 1e-4
 B, ACC, MICRO = 2, 2, 4

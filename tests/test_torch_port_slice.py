@@ -49,6 +49,7 @@ from encdiff_tpu_torch.nn import layers as tlayers
 from encdiff_tpu_torch.nn import quantize as tquant
 from encdiff_tpu_torch.nn import unet as tunet
 from encdiff_tpu_torch.nn import vae as tvae
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FLAGSHIP_NPZ = ROOT / "demo_artifacts/round5/v4purify_final_fp16.npz"

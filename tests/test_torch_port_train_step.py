@@ -38,6 +38,7 @@ from encdiff_tpu_torch.nn.kernels import attention as kattn
 from encdiff_tpu_torch.nn.kernels import groupnorm_silu as kgn
 from encdiff_tpu_torch.train.loop import (create_train_state,
                                           trainable_parameters, train_step)
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FLAGSHIP_NPZ = ROOT / "demo_artifacts/round5/v4purify_final_fp16.npz"

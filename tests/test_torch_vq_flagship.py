@@ -23,6 +23,7 @@ from encdiff_tpu_torch.core.compact_ckpt import load_compact
 from encdiff_tpu_torch.data.synthetic_shapes import render_all_v4
 from test_torch_vq_step import (check_leaves, compare_logs, jax_state,
                                 port_from_jax, run_both, unmoved)
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 VQ_NPZ = ROOT / "demo_artifacts/round5/v4vq_fp16.npz"

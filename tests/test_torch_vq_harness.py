@@ -39,6 +39,7 @@ from encdiff_tpu_torch.data.synthetic_shapes import render_all_v4
 from encdiff_tpu_torch.models.autoencoder import VQModel
 from encdiff_tpu_torch.train import harness, vq_trainer
 from encdiff_tpu_torch.train.checkpoint_io import STATE_FILE
+from torch_threads import one_thread  # noqa: F401
 
 REL = 1e-5
 TINY_GRID = [2, 2, 2, 2, 2, 2]  # 64 images
@@ -73,8 +74,6 @@ def run(tmp_path_factory):
     mp = pytest.MonkeyPatch()
     mp.setattr(synthetic_shapes.SyntheticShapes3DV4Full, "factor_sizes",
                TINY_GRID)
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
     tmp = tmp_path_factory.mktemp("vq")
     cfg = tmp / "tiny_vq.json"
     cfg.write_text(json.dumps(TINY_VQ))
@@ -83,7 +82,6 @@ def run(tmp_path_factory):
                                 "--val_batches", "2", "--device", "cpu",
                                 "-l", str(tmp / "logs")])
     finally:
-        torch.set_num_threads(n)
         mp.undo()
     harness.clear_device_cache()
     return trainer, trainer.logdir, render_all_v4(32, factor_sizes=TINY_GRID)

@@ -50,6 +50,7 @@ from encdiff_tpu_torch.models.autoencoder import VQModel
 from encdiff_tpu_torch.nn.quantize import VectorQuantizer
 from test_torch_harness import _port_target
 from test_torch_vq_step import _seeded
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 VQ_YAML = ROOT / "configs/demo/synthetic-shapes-v4-full-vq.yaml"

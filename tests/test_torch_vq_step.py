@@ -46,6 +46,7 @@ from encdiff_tpu.train import vq_trainer as jvq
 from encdiff_tpu_torch import convert
 from encdiff_tpu_torch.models.autoencoder import VQModel
 from encdiff_tpu_torch.train import vq_trainer
+from torch_threads import one_thread  # noqa: F401
 
 LOG_REL = 1e-5
 LEAF_REL = 1e-4
