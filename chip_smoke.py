@@ -51,10 +51,15 @@ harness-data: the grid rendered on the host, its bytes held to the JAX
 renderer's digest, uploaded as uint8 (the harness keeps it on the card for
 the phases after it): seconds of each, peak memory.
 harness-eval: a ``Trainer`` restored from the committed checkpoint runs
-``test()``: the Encoder4 sweep over the grid (seconds, images/s), FactorVAE
-and MIG on the host (seconds); it fails unless FactorVAE is 1.0 with 20
-dims and MIG within 0.01 of the checkpoint's recorded 0.17347. The reps
-are written under ``--out`` (for DCI and beta-VAE off the card).
+``test()``: the Encoder4 sweep over the grid (seconds, images/s) and the
+whole battery, DCI's gradient-boosted trees and beta-VAE's logistic
+regression on the card at the full tier (seconds per metric); it fails
+unless FactorVAE is 1.0 with 20 dims, MIG within 0.01 of the checkpoint's
+recorded 0.17347, DCI disentanglement within 1e-3 of 0.990158 and beta-VAE
+1.0. The same reps at the fast tier on the card (seconds per metric), and
+its DCI on the host CPU from the same global seed: the card's D, C,
+informativeness and importance matrix within DCI_CARD_TOL and
+DCI_IMPORTANCE_TOL of the CPU's. The reps are written under ``--out``.
 harness-train: ``main_val.main`` trains 20 steps from the checkpoint with
 the image logger every 20 steps (DDIM 50), the launch counters set to 0
 just before and read just after, then ``main_val.main -r`` resumes from its
@@ -66,9 +71,13 @@ against its plain version at each of those shapes, and its launches must
 equal 20 steps' plus the encode's plus the logs'. The last chunk of the
 run's latents is held against the plain path's encode of the same rows, and
 the first step's loss against the plain path's on the same batch, t and
-noise. It fails unless these, the image logs, the checkpoint files, the
-resumed run's step, AdamW count, LR and EMA and the test results are as
-expected.
+noise. After the 20 steps the fit's epoch-end validation (fast tier)
+feeds the run's checkpoints as ``fit()`` does (an epoch of the grid is
+3,750 steps): it must write a ``best_dci_*`` checkpoint. It fails unless
+these, the image logs, the checkpoint files, the resumed run's step, AdamW
+count, LR and EMA, and the validation's and test()'s five ``val/*`` keys
+(finite) are as expected. The other EncDiff chains' runs score FactorVAE
+and MIG only (``UNCHECKED_METRICS``).
 
 The VQ-GAN first-stage trainer (``main_val -b flagship_vq``: the flagship's
 VQ config at full width, LPIPS, the PatchGAN and the adaptive GAN weight)
@@ -369,6 +378,7 @@ from encdiff_tpu_torch.data.synthetic_shapes import (
     FACTOR_SIZES, FULL_FACTOR_SIZES, TRAIN_GRID, SyntheticShapes3DV4FullTrain,
     epoch_batches, render_all_v4)
 from encdiff_tpu_torch.evalx import fid as fid_lib
+from encdiff_tpu_torch.evalx.eval_driver import eval_func
 from encdiff_tpu_torch.evalx.ground_truth.named_data import get_index_dataset
 from encdiff_tpu_torch.evalx.swap import (TOKEN_BUDGET, swap_conditions,
                                           swap_sample)
@@ -498,6 +508,29 @@ SWAP_DDIM = "lightning.callbacks.swap_visualization.params.ddim_steps=50"
 LATENT_CHUNK = 2048
 MIG_TARGET = 0.17347
 MIG_TOL = 0.01
+#: the committed checkpoint's DCI disentanglement: sklearn's score of the
+#: card's reps of step 97,500 (0.990158, PR 12; the TPU's 0.990160); the
+#: port's full tier on the card, from the global seed SEED, within DCI_TOL
+DCI_TARGET = 0.990158
+DCI_TOL = 1e-3
+#: the card's fast tier against the port's on the host CPU, the same reps
+#: and global seed. Where sklearn decides a tie between features by rounding
+#: (a split that isolates an extreme sample under several features, or one
+#: of the codes that carry the same factor), the card's parallel sums,
+#: torch's exp and the matmul leaf sums decide it otherwise, as another
+#: global seed does in sklearn. On the committed checkpoint's reps (PR 20
+#: call 1): card against CPU D 2.2e-4, C 1.34e-3, informativeness 1.3e-4,
+#: an importance entry 0.0706 (between codes that carry one factor); on the
+#: CPU the port equals sklearn there at seed 42, and sklearn's own moved
+#: D 5.0e-4, C 1.3e-4 and an importance entry 0.0591 between seeds 42-44
+DCI_CARD_TOL = 5e-3
+DCI_IMPORTANCE_TOL = 0.15
+#: the chains whose DCI and beta-VAE this script does not check score
+#: FactorVAE and MIG only (each test() would add a full-tier DCI)
+UNCHECKED_METRICS = ("--eval_metrics", "MIG,factor_VAE")
+#: the val/* keys of the default battery
+BATTERY_KEYS = ["val/beta_vae", "val/dci_completeness",
+                "val/dci_disentanglement", "val/factor_vae_score", "val/mig"]
 LOG_KEYS = ("inputs", "reconstruction", "conditioning", "diffusion_row",
             "samples", "samples_swapping")
 #: backward shapes of the VQ first stage outside the flagship VQ-GAN step,
@@ -1739,7 +1772,9 @@ def profile(fn, calls: int = 3):
     run at once count once there, and their summed durations are the
     rows'."""
     from torch.profiler import ProfilerActivity, profile as tprofile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    # the kernels' activity alone: the rows and the busy share read only
+    # the CUDA events, and the host ops' events multiply the trace's size
+    acts = [ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
     with tprofile(activities=acts) as prof:
@@ -2394,10 +2429,15 @@ def check_digest(renderer, factor_sizes, images) -> list:
 
 def harness_eval_phase(smi, out):
     """harness-eval: a ``Trainer`` of the flagship restored from the
-    committed checkpoint runs ``test()``; FactorVAE and MIG against the
-    checkpoint's recorded scores. The run directory, with the reps for DCI
-    and beta-VAE off the card, is ``<out>/harness_eval``. Returns the
-    trainer, whose weights are the checkpoint's."""
+    committed checkpoint runs ``test()``, the full battery on the card (DCI
+    at the full tier from the global seed SEED): FactorVAE and MIG against
+    the checkpoint's recorded scores, DCI disentanglement against
+    DCI_TARGET, beta-VAE's eval accuracy 1.0. The same reps are scored at
+    the fast tier on the card (every metric's seconds) and, DCI, on the
+    host CPU from the same seed; the card's D, C, informativeness and
+    importance matrix are held to the CPU's. The run directory is
+    ``<out>/harness_eval``. Returns the trainer, whose weights are the
+    checkpoint's."""
     t0 = time.perf_counter()
     config = harness.load_configs(["flagship"], [])
     lightning = config.pop("lightning")
@@ -2405,11 +2445,13 @@ def harness_eval_phase(smi, out):
     trainer = harness.Trainer(config, lightning, logdir=logdir,
                               device="cuda")
     trainer.resume_ckpt = CKPT
+    np.random.seed(SEED)
     results = trainer.test()
     step = trainer.state.step
     with open(os.path.join(logdir, "metrics_sin", f"{step}.json")) as f:
         scores = json.load(f)
     fvae, mig = scores["factor_VAE"], scores["MIG"]["discrete_mig"]
+    dci, beta = scores["dci"], scores["beta_VAE"]
     reps_path = os.path.join(logdir, "reps", f"{step}.npy")
     reps = np.load(reps_path)
     with open(reps_path, "rb") as f:
@@ -2419,21 +2461,65 @@ def harness_eval_phase(smi, out):
           f"row 0 {np.array2string(reps[0], precision=6, max_line_width=400)}"
           f"; dims with a std of at least 0.05 "
           f"{int((reps.std(axis=0, ddof=1) >= 0.05).sum())}", flush=True)
+    # the fast tier on the card, then its DCI on the host CPU: same reps,
+    # same global seed
+    fast_s = {}
+    np.random.seed(SEED)
+    fast = eval_func(trainer.label_dataset, reps, None, step, budget="fast",
+                     device="cuda", timings=fast_s)
+    np.random.seed(SEED)
+    t1 = time.perf_counter()
+    host = eval_func(trainer.label_dataset, reps, None, step,
+                     metrics=("dci",), budget="fast", device="cpu")["dci"]
+    host_s = time.perf_counter() - t1
+    card = fast["dci"]
+    dci_keys = ("disentanglement", "completeness", "informativeness_train",
+                "informativeness_test")
+    diffs = {k: abs(float(card[k]) - float(host[k])) for k in dci_keys}
+    imp_diff = float(np.abs(np.array(card["importance_matrix"])
+                            - np.array(host["importance_matrix"])).max())
+    print(f"  full-tier DCI on the card: "
+          + ", ".join(f"{k} {dci[k]:.6f}" for k in dci_keys)
+          + f"; importance matrix {dci['importance_matrix']}", flush=True)
     faults = []
     if fvae["eval_accuracy"] != 1.0 or fvae["num_active_dims"] != 20:
         faults.append(f"FactorVAE {fvae} (1.0 with 20 dims expected)")
     if not abs(mig - MIG_TARGET) <= MIG_TOL:
         faults.append(f"MIG {mig} (|MIG - {MIG_TARGET}| <= {MIG_TOL} "
                       "expected)")
+    if not abs(dci["disentanglement"] - DCI_TARGET) <= DCI_TOL:
+        faults.append(f"DCI disentanglement {dci['disentanglement']} "
+                      f"(|D - {DCI_TARGET}| <= {DCI_TOL} expected)")
+    if beta["eval_accuracy"] != 1.0:
+        faults.append(f"beta-VAE {beta} (eval accuracy 1.0 expected)")
+    if max(diffs.values()) > DCI_CARD_TOL or imp_diff > DCI_IMPORTANCE_TOL:
+        faults.append(f"fast-tier DCI, card against the CPU: {diffs}, "
+                      f"importance {imp_diff} (tol {DCI_CARD_TOL}, "
+                      f"{DCI_IMPORTANCE_TOL})")
+    if sorted(results) != BATTERY_KEYS or not all(
+            np.isfinite(v) for v in results.values()):
+        faults.append(f"test() {results}")
     if faults:
         raise RuntimeError("harness-eval: " + "; ".join(faults))
     phase("harness-eval", t0, f"test() at step {step}: sweep of "
           f"{tm['images']} images {tm['sweep_s']:.3f}s "
           f"({tm['images'] / tm['sweep_s']:.1f} images/s), metrics on the "
-          f"host {tm['metrics_s']:.3f}s; FactorVAE {fvae['eval_accuracy']} "
-          f"(train {fvae['train_accuracy']}, num_active_dims "
-          f"{fvae['num_active_dims']}), MIG {mig:.6f} (target {MIG_TARGET} "
-          f"+- {MIG_TOL}); {results} | {smi}")
+          f"card {tm['metrics_s']:.3f}s (full tier: " + ", ".join(
+              f"{k} {v:.3f}s" for k, v in tm["metric_s"].items())
+          + "; fast tier: " + ", ".join(
+              f"{k} {v:.3f}s" for k, v in fast_s.items())
+          + f"; fast-tier DCI on the host CPU {host_s:.3f}s); FactorVAE "
+          f"{fvae['eval_accuracy']} (train {fvae['train_accuracy']}, "
+          f"num_active_dims {fvae['num_active_dims']}), MIG {mig:.6f} "
+          f"(target {MIG_TARGET} +- {MIG_TOL}), DCI D {dci['disentanglement']:.6f} "
+          f"(target {DCI_TARGET} +- {DCI_TOL}) C {dci['completeness']:.6f} "
+          f"I {dci['informativeness_test']:.6f}, beta-VAE "
+          f"{beta['eval_accuracy']} (train {beta['train_accuracy']}); fast "
+          f"tier D {card['disentanglement']:.6f} on the card, "
+          f"{host['disentanglement']:.6f} on the CPU: differences "
+          + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+          + f", importance {imp_diff:.3e} (tol {DCI_CARD_TOL}, "
+          f"{DCI_IMPORTANCE_TOL}); {results} | {smi}")
     return trainer
 
 
@@ -2566,6 +2652,13 @@ def harness_train_phase(smi, card, seen, ref, out):
         peak = torch.cuda.max_memory_allocated()
         records["on"] = False
         first = list(stamps)
+        # the fit's epoch end (an epoch of this grid is 3,750 steps): the
+        # validation at the fast tier feeds the checkpoints as fit() does
+        val = trainer.validate(0, trainer.state.step)
+        val_s = dict(trainer.timings["metric_s"])
+        for ck in trainer.checkpoints:
+            ck.maybe_save(trainer.save_checkpoint, trainer.state.step, 0,
+                          metrics=val)
         resumed = main_val.main(["-r", trainer.logdir, "-t", "--max_steps",
                                  str(start + HARNESS_RESUMED_STEPS),
                                  "--device", "cuda"])
@@ -2610,9 +2703,17 @@ def harness_train_phase(smi, card, seen, ref, out):
                       f"{trainer.state.ema.num_updates}, moved {ema_moved}")
     with open(os.path.join(resumed.logdir, "test_results.json")) as f:
         test_results = json.load(f)
-    if sorted(test_results) != ["val/factor_vae_score", "val/mig"] or not \
-            all(np.isfinite(v) for v in test_results.values()):
-        faults.append(f"test_results.json {test_results}")
+    test_s = dict(resumed.timings["metric_s"])
+    for name, got in (("validation", val), ("test_results.json",
+                                            test_results)):
+        if sorted(got) != BATTERY_KEYS or not all(
+                np.isfinite(v) for v in got.values()):
+            faults.append(f"{name} {got}")
+    best_dci = sorted(p for p in os.listdir(trainer.ckptdir)
+                      if p.startswith("best_dci_"))
+    if len(best_dci) != 1:
+        faults.append(f"best_dci checkpoints {best_dci} in "
+                      f"{trainer.ckptdir}")
     del resumed, trainer
     # the launches: the steps', the latent encode's and the image logs'
     step_shapes, _ = records["step"]
@@ -2657,8 +2758,12 @@ def harness_train_phase(smi, card, seen, ref, out):
           f"shape of the run (tol {KERNEL_TOL}); {reading}; image logs at "
           f"step {start + HARNESS_LOG_EVERY}: {list(LOG_KEYS)}; resumed "
           f"with -r to step {start + HARNESS_RESUMED_STEPS}: first (step, "
-          f"lr) {first_lr}, AdamW count {HARNESS_RESUMED_STEPS}; test "
-          f"{test_results} | {smi}")
+          f"lr) {first_lr}, AdamW count {HARNESS_RESUMED_STEPS}; the epoch "
+          f"end's validation (fast tier: " + ", ".join(
+              f"{k} {v:.3f}s" for k, v in val_s.items())
+          + f") {val}, wrote {best_dci}; test (full tier: " + ", ".join(
+              f"{k} {v:.3f}s" for k, v in test_s.items())
+          + f") {test_results} | {smi}")
     return launches, rows
 
 
@@ -3534,7 +3639,7 @@ def mcl_train_phase(smi, card, per_step, ref, images, seen, out,
         trainer = main_val.main([
             "-b", base, "-t", "--max_steps", str(start + steps),
             "--resume_ckpt", resume, "-l", logroot, "--device", "cuda",
-            SWAP_DDIM, *overrides])
+            *UNCHECKED_METRICS, SWAP_DDIM, *overrides])
         torch.cuda.synchronize()
         launches, plain_calls = read_counts()
         vjp_calls = attention_core_bwd_vjp.calls
@@ -4891,7 +4996,7 @@ def cross_harness_phase(smi, card, seen, out, ds, vq_logdir):
         trainer = main_val.main([
             "-b", ds, "-t", "-l", os.path.join(out, "runs_cross"), "-s",
             str(CROSS_SEED), *CROSS[ds]["ldm"], "--max_steps", str(n),
-            "--device", "cuda",
+            "--device", "cuda", *UNCHECKED_METRICS,
             f"model.params.first_stage_config.params.ckpt_path={last_vq}",
             f"lightning.callbacks.image_logger.params.batch_frequency={n}",
             *CROSS[ds]["log"]])
@@ -4970,7 +5075,8 @@ def cross_harness_phase(smi, card, seen, out, ds, vq_logdir):
     tm = dict(trainer.timings)
 
     # -r: the run's state restored bit for bit, test() on it the same reps
-    resumed = main_val.main(["-r", trainer.logdir, "--device", "cuda"])
+    resumed = main_val.main(["-r", trainer.logdir, "--device", "cuda",
+                             *UNCHECKED_METRICS])
     differ = same_state(trainer, resumed)
     if differ:
         faults.append(f"-r {trainer.logdir}: the restored state differs in "

@@ -7,14 +7,16 @@ Copies of ``generate_batch_factor_code``, ``obtain_representation``,
 takes the mutual information from ``sklearn.metrics.mutual_info_score``;
 the port keeps no sklearn, so ``mutual_info_score`` below computes the same
 expression (natural log) from the dense contingency table, visiting its
-non-zero cells in the row-major order sklearn's sparse table gives.
-sklearn's predictors (DCI's gradient boosting, β-VAE's logistic
-regression) have no counterpart here.
+non-zero cells in the row-major order sklearn's sparse table gives. The
+predictor registry (:90-113) returns the port's gradient boosting
+(``gbt.py``); the cross-validated logistic regression is not ported.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from encdiff_tpu_torch.evalx.metrics import gbt
 
 
 def mutual_info_score(labels_true, labels_pred) -> float:
@@ -105,6 +107,27 @@ def normalize_data(data, mean=None, stddev=None):
     if stddev is None:
         stddev = np.std(data, axis=1)
     return (data - mean[:, np.newaxis]) / stddev[:, np.newaxis], mean, stddev
+
+
+def logistic_regression_cv():
+    """dlib's predictor: ``LogisticRegressionCV`` over 10 folds."""
+    raise NotImplementedError(
+        "logistic_regression_cv (LogisticRegressionCV, 10 folds over a C "
+        "grid) is not ported: ROADMAP queue 1 #16")
+
+
+def gradient_boosting_classifier(device="cpu"):
+    return gbt.GradientBoostingClassifier(device=device)
+
+
+def make_predictor_fn(predictor: str = "gradient_boosting"):
+    """Predictor registry (the reference binds
+    gradient_boosting_classifier)."""
+    if predictor == "gradient_boosting":
+        return gradient_boosting_classifier
+    if predictor == "logistic_regression_cv":
+        return logistic_regression_cv
+    raise ValueError(f"unknown predictor {predictor!r}")
 
 
 def sample_factor_batches(ground_truth_data, num_points, batch_size,

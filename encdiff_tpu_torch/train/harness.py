@@ -22,11 +22,12 @@ the stage-2 LDM on one device:
   and KeyboardInterrupt save ``last``, and so does the end of fit;
 - ``validate`` sweeps Encoder4 over the whole validation grid
   (``train.loop.encode_sweep``), writes the representations as
-  ``<logdir>/reps/<step>.npy`` and scores FactorVAE and MIG
-  (``evalx.eval_driver``; DCI and beta-VAE need sklearn and are scored
-  from those files elsewhere);
-- ``test`` runs ``validate`` on the current or restored weights and writes
-  ``test_results.json``; a ``SwapVisualizationCallback`` in the config
+  ``<logdir>/reps/<step>.npy`` and scores the JAX harness's battery
+  (``evalx.eval_driver``: beta-VAE, DCI, MIG and FactorVAE, or
+  ``--eval_metrics``), DCI at the fast tier unless ``--full_val_metrics``,
+  its predictors on the harness's device;
+- ``test`` runs ``validate`` on the current or restored weights, DCI at
+  the full tier, and writes ``test_results.json``; a ``SwapVisualizationCallback`` in the config
   writes its swap grids at the end of every ``validate``.
 
 ``-b flagship_mcl`` (``configs.FLAGSHIP_MCL_RUN``) is the MCL fine-tune
@@ -252,7 +253,8 @@ def get_parser(**parser_kwargs):
                         help="VQ-GAN: cap the validation batches; LDM: the "
                              "host-streamed sweep, not ported")
     parser.add_argument("--eval_metrics", type=str, default=None,
-                        help="comma list of MIG,factor_VAE")
+                        help="comma list of beta_VAE,dci,MIG,factor_VAE "
+                             "(default: all four)")
     parser.add_argument("--check_val_every_n_epoch", type=int, default=None)
     parser.add_argument("--resume_ckpt", type=str, default=None,
                         help="warm-start from a checkpoint (a compact .npz "
@@ -268,8 +270,11 @@ def get_parser(**parser_kwargs):
                              "stage once and train on the cached latents")
     parser.add_argument("--full_val_metrics", type=str2bool, default=False,
                         nargs="?", const=True,
-                        help="accepted for parity: it sets DCI's budget, "
-                             "which the port does not score")
+                        help="score DCI at the full tier (10,000/5,000 "
+                             "points, 100 boosting stages) in every "
+                             "validation; default: the fast tier (2,500/"
+                             "1,250 points, 20 stages). test() always scores "
+                             "the full tier")
     parser.add_argument("--device", type=str, default="cuda")
     return parser
 
@@ -396,7 +401,8 @@ class Trainer:
     def __init__(self, config, lightning_config=None, logdir="logs/run",
                  seed=23, accumulate=1, scale_lr=True, val_batches=None,
                  eval_metrics=None, check_val_every_n_epoch=1,
-                 device_data=True, cache_latents=True, device="cuda"):
+                 device_data=True, cache_latents=True, device="cuda",
+                 full_val_metrics=False):
         self.device = resolve_device(device)
         self.config = config
         self.lightning_config = lightning_config or {}
@@ -408,6 +414,7 @@ class Trainer:
         self.eval_metrics = (tuple(eval_metrics.split(",")) if eval_metrics
                              else METRICS)
         self.check_val_every_n_epoch = max(1, check_val_every_n_epoch or 1)
+        self.full_val_metrics = full_val_metrics
         self.device_data = device_data
         self.cache_latents = cache_latents
 
@@ -609,7 +616,9 @@ class Trainer:
             results = self.validate_vq()
         else:
             self._ensure_state()
-            results = self.validate(epoch=-1, step=self.state.step)
+            # the test pass scores the full tier, whatever the fit's was
+            results = self.validate(epoch=-1, step=self.state.step,
+                                    budget="full")
         out_path = os.path.join(self.logdir, "test_results.json")
         with open(out_path, "w") as fh:
             json.dump(results, fh, indent=2)
@@ -778,10 +787,11 @@ class Trainer:
             json.dump(meta, fh, indent=2, default=str)
         print(f"[harness] run metadata -> {path}", flush=True)
 
-    def validate(self, epoch: int, step: int) -> dict:
+    def validate(self, epoch: int, step: int, budget=None) -> dict:
         """The representation sweep over the whole validation grid and the
-        metric battery; ``val/*`` scores. Records the sweep's and the
-        metrics' seconds in ``timings``."""
+        metric battery, DCI at ``budget`` (default: the fast tier, the full
+        one under ``--full_val_metrics``); ``val/*`` scores. Records the
+        sweep's and each metric's seconds in ``timings``."""
         if self.label_dataset is None:
             return {}
         if self.val_batches:
@@ -803,21 +813,33 @@ class Trainer:
         os.makedirs(reps_dir, exist_ok=True)
         np.save(os.path.join(reps_dir, f"{step}.npy"), reps)
         t2 = time.perf_counter()
+        tier = budget or ("full" if self.full_val_metrics else "fast")
+        metric_s: dict = {}
         scores = eval_func(self.label_dataset, reps,
                            os.path.join(self.logdir, "metrics_sin"), step,
-                           metrics=self.eval_metrics)
+                           metrics=self.eval_metrics, budget=tier,
+                           device=self.device, timings=metric_s)
         self.timings = {"images": n, "sweep_s": t1 - t0,
-                        "metrics_s": time.perf_counter() - t2}
+                        "metrics_s": time.perf_counter() - t2,
+                        "metric_s": metric_s, "tier": tier}
         out = {}
         if "factor_VAE" in scores:
             out["val/factor_vae_score"] = scores["factor_VAE"].get(
                 "eval_accuracy", 0.0)
+        if "dci" in scores:
+            out["val/dci_disentanglement"] = scores["dci"].get(
+                "disentanglement", 0.0)
+            out["val/dci_completeness"] = scores["dci"].get(
+                "completeness", 0.0)
         if "MIG" in scores:
             out["val/mig"] = scores["MIG"].get("discrete_mig", 0.0)
-        print(f"[val epoch {epoch}] sweep {n} images {t1 - t0:.3f}s, metrics "
-              f"{self.timings['metrics_s']:.3f}s: " + " ".join(
-                  f"{k.split('/')[-1]}={v:.4f}" for k, v in out.items()),
-              flush=True)
+        if "beta_VAE" in scores:
+            out["val/beta_vae"] = scores["beta_VAE"].get("eval_accuracy", 0.0)
+        print(f"[val epoch {epoch}] ({tier} tier) sweep {n} images "
+              f"{t1 - t0:.3f}s, metrics {self.timings['metrics_s']:.3f}s ("
+              + " ".join(f"{k} {v:.3f}s" for k, v in metric_s.items())
+              + "): " + " ".join(f"{k.split('/')[-1]}={v:.4f}"
+                                 for k, v in out.items()), flush=True)
         if self.swap_cb is not None:
             # not caught, unlike the JAX harness: an error here would hide a
             # kernel failure in the DDIM swap
@@ -880,7 +902,8 @@ def main(argv=None) -> Trainer:
                           opt.check_val_every_n_epoch
                           or trainer_cfg.get("check_val_every_n_epoch", 1)),
                       device_data=opt.device_data,
-                      cache_latents=opt.cache_latents, device=opt.device)
+                      cache_latents=opt.cache_latents, device=opt.device,
+                      full_val_metrics=opt.full_val_metrics)
     if opt.resume_ckpt and not ckpt:
         ckpt = opt.resume_ckpt
     if ckpt:

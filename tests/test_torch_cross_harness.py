@@ -175,7 +175,7 @@ def chain(tmp_path_factory):
         ldm = harness.main([
             "-b", "cars3d", "-t", "-l", str(tmp / "runs_cross"), "-s",
             str(SEED), "-n", "carsld", "--max_steps", str(STEPS),
-            "--device", "cpu",
+            "--device", "cpu", "--eval_metrics", "MIG,factor_VAE",
             f"model.params.first_stage_config.params.ckpt_path={last}",
             *HSIC, *LDM, *LOG])
     finally:

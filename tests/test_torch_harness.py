@@ -416,7 +416,8 @@ def test_resume_continues_bit_for_bit(tiny, accumulate):
 def test_cli_end_to_end_on_the_cpu(tiny):
     cfg = _write(tiny, TINY)
     trainer = harness.main(["-b", cfg, "-t", "--max_steps", "18", "-l",
-                            str(tiny / "logs"), "--device", "cpu"])
+                            str(tiny / "logs"), "--device", "cpu",
+                            "--eval_metrics", "MIG,factor_VAE"])
     logdir = pathlib.Path(trainer.logdir)
     assert logdir.parent == tiny / "logs" and logdir.name.endswith("_tiny")
     names = {str(p.relative_to(logdir)) for p in logdir.rglob("*")}
@@ -439,7 +440,8 @@ def test_cli_end_to_end_on_the_cpu(tiny):
     assert grid.dtype == np.uint8
 
     resumed = harness.main(["-r", str(logdir), "-t", "--max_steps", "20",
-                            "--device", "cpu"])
+                            "--device", "cpu", "--eval_metrics",
+                            "MIG,factor_VAE"])
     assert resumed.state.step == 20
     assert json.loads((logdir / "test_results.json").read_text()).keys() \
         == results.keys()
@@ -451,12 +453,73 @@ def test_cli_refusals(tiny, monkeypatch):
     args = ["-b", cfg, "-t", "--max_steps", "2", "-l", str(tiny / "r")]
     with pytest.raises(NotImplementedError, match="host"):
         harness.main(args + ["--device", "cpu", "--device_data", "false"])
-    with pytest.raises(ValueError, match="sklearn"):
+    with pytest.raises(ValueError, match="unknown metrics"):
         harness.main(args + ["--device", "cpu", "--eval_metrics",
-                             "MIG,dci", "--max_steps", "16"])
+                             "MIG,sap", "--max_steps", "16"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         harness.main(args)
+
+
+def test_validation_scores_the_battery_and_feeds_best_dci(tiny, monkeypatch):
+    """A validation scores the JAX harness's default battery (beta-VAE,
+    DCI, MIG, FactorVAE) at the fast tier on the harness's device, logs the
+    JAX keys, times each metric, and its DCI feeds a best_dci checkpoint;
+    test() asks for the full tier, and so does every validation under
+    --full_val_metrics."""
+    cfg = json.loads(json.dumps(TINY))
+    cfg["lightning"]["callbacks"]["best_dci_checkpoint"] = {
+        "target": "encdiff_tpu_torch.train.callbacks.ModelCheckpoint",
+        "params": {"monitor": "val/dci_disentanglement", "mode": "max",
+                   "filename": "best_dci_{epoch:03d}_"
+                               "{val/dci_disentanglement:.4f}",
+                   "save_top_k": 1}}
+    calls, real = [], harness.eval_func
+
+    def spy(*args, **kw):
+        calls.append({k: kw[k] for k in ("metrics", "budget", "device")})
+        return real(*args, **kw)
+    monkeypatch.setattr(harness, "eval_func", spy)
+    # 16 steps an epoch: one validation, at step 16
+    trainer = harness.main(["-b", _write(tiny, cfg), "-t", "--max_steps",
+                            "17", "--no-test", "-l", str(tiny / "logs"),
+                            "--device", "cpu"])
+    battery = ("beta_VAE", "dci", "MIG", "factor_VAE")
+    assert calls == [{"metrics": battery, "budget": "fast",
+                      "device": torch.device("cpu")}]
+    keys = ["val/beta_vae", "val/dci_completeness", "val/dci_disentanglement",
+            "val/factor_vae_score", "val/mig"]
+    val = trainer.last_val_metrics
+    assert sorted(val) == keys and all(np.isfinite(v) for v in val.values())
+    logdir = pathlib.Path(trainer.logdir)
+    scores = json.loads((logdir / "metrics_sin/16.json").read_text())
+    assert list(scores) == list(battery)
+    assert scores["dci"]["dci_budget"] == "fast"
+    assert val["val/dci_disentanglement"] == scores["dci"]["disentanglement"]
+    assert val["val/beta_vae"] == scores["beta_VAE"]["eval_accuracy"]
+    best = [p.name for p in (logdir / "checkpoints").iterdir()
+            if p.name.startswith("best_dci_000_")]
+    assert best == [f"best_dci_000_{val['val/dci_disentanglement']:.4f}"]
+    assert list(trainer.timings["metric_s"]) == list(battery)
+    assert trainer.timings["tier"] == "fast"
+
+    canned = {"beta_VAE": {"eval_accuracy": 1.0},
+              "dci": {"disentanglement": 0.5, "completeness": 0.25},
+              "MIG": {"discrete_mig": 0.125},
+              "factor_VAE": {"eval_accuracy": 0.75}}
+
+    def fake(*args, **kw):
+        calls.append(kw["budget"])
+        return canned
+    monkeypatch.setattr(harness, "eval_func", fake)
+    results = trainer.test()
+    assert calls[-1] == "full" and sorted(results) == keys
+    assert results["val/dci_completeness"] == 0.25
+    trainer.full_val_metrics = True
+    trainer.validate(epoch=1, step=17)
+    assert calls[-1] == "full"
+    assert harness.get_parser().parse_args(
+        ["--full_val_metrics"]).full_val_metrics is True
 
 
 def test_jax_reads_the_harness_checkpoint(flagship, tiny):

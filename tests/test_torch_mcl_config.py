@@ -234,7 +234,8 @@ def test_tiny_harness_run_with_mcl_and_swap_grids(tiny):
                   "SwapVisualizationCallback",
         "params": {"num_samples": 4, "ddim_steps": 2}}
     trainer = harness.main(["-b", _write(tiny, cfg), "-t", "--max_steps",
-                            "2", "-l", str(tiny / "logs"), "--device", "cpu"])
+                            "2", "-l", str(tiny / "logs"), "--device", "cpu",
+                            "--eval_metrics", "MIG,factor_VAE"])
     logdir = pathlib.Path(trainer.logdir)
     meta = json.loads((logdir / "run_metadata.json").read_text())
     assert meta["use_mcl"] is True and meta["mcl_type"] == "infonce_mechgrad"

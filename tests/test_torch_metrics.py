@@ -169,7 +169,8 @@ def test_eval_func_json_matches_jax(tmp_path):
     r = _reps("structured")
     data = named_data.get_index_dataset("synthetic_shapes_full")
     jdata = jnamed.get_index_dataset("synthetic_shapes_full")
-    ours = eval_driver.eval_func(data, r, str(tmp_path / "port"), 97500)
+    ours = eval_driver.eval_func(data, r, str(tmp_path / "port"), 97500,
+                                 metrics=("MIG", "factor_VAE"))
     theirs = jdriver.eval_func(jdata, r, str(tmp_path / "jax"), 97500,
                                metrics=("MIG", "factor_VAE"))
     assert list(ours) == list(theirs) == ["MIG", "factor_VAE"]
@@ -178,11 +179,3 @@ def test_eval_func_json_matches_jax(tmp_path):
     assert a["factor_VAE"] == b["factor_VAE"]
     assert list(a["MIG"]) == list(b["MIG"]) == ["discrete_mig"]
     assert abs(a["MIG"]["discrete_mig"] - b["MIG"]["discrete_mig"]) <= MIG_TOL
-
-
-@pytest.mark.parametrize("metric", ["dci", "beta_VAE"])
-def test_eval_func_refuses_sklearn_metrics(metric):
-    data = named_data.get_index_dataset("synthetic_shapes")
-    r = np.zeros((len(data.images), 20), np.float32)
-    with pytest.raises(ValueError, match="sklearn.*reps/<step>.npy"):
-        eval_driver.eval_func(data, r, None, 0, metrics=("MIG", metric))
