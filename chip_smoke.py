@@ -64,7 +64,11 @@ harness-train: ``main_val.main`` trains 20 steps from the checkpoint with
 the image logger every 20 steps (DDIM 50), the launch counters set to 0
 just before and read just after, then ``main_val.main -r`` resumes from its
 ``last`` checkpoint for 10 steps and ends in ``test()``: the latent cache
-of each fit, ms per step on cached latents, peak memory. Hooks record the
+(one encode of the grid, ``SharedLatents``: the -r fit, mcl-train and
+mcl-fisher-train take it when their frozen first stage equals the one
+that filled it, each after a direct encode of SHARED_LATENT_ROWS sampled
+rows matches it within LATENT_TOL), ms per step on cached latents, peak
+memory. Hooks record the
 shape of every kernel call of the first run's latent encode (chunks of
 2,048), of its first step and of its image logs; each kernel is held
 against its plain version at each of those shapes, and its launches must
@@ -297,6 +301,23 @@ mpi3d-vq, mpi3d-harness: as the Cars3D phases (``-n mpivq``; ``-n mpild
 --max_epochs 5 --check_val_every_n_epoch 2``), on the grid resident on the
 card, its latents (3.19 GB) cached once a fit, the sweep over 1,036,800
 rows and FactorVAE and MIG on the ``mpi3d`` table.
+mpi3d-milestone: ``main_val -b mpi3d --resume_ckpt demo_artifacts/round5/
+mpi3d_best_dci_fp16.npz --no-test`` (a JAX-trained checkpoint, step 6075;
+no train step) on the resident grid, its Encoder4 shapes held to the
+config's, then the fit's validation: the sweep of 1,036,800 rows and the
+battery at the fast tier from global seed 0, as the JAX run validated;
+β-VAE, MIG, FactorVAE and DCI within MILESTONE_BOUNDS of the run's record
+(``mpi3d_run/6075.json``), the card's fast DCI at global seeds 0, 1 and 2
+printed beside them.
+posthoc: ``evalx.evaluate.evaluate_representation`` for each of the twelve
+registry names on those reps on the card at the fast tier (2,500 / 1,250
+points, 20 stages): every score finite, in its range, with the JAX key
+set; MED's and explicitness's logistic scores held to the host CPU's on
+the same reps and seed (POSTHOC_CPU_TOL); each metric's seconds.
+udr: ``python -m encdiff_tpu_torch.udr_eval -b mpi3d -r <that checkpoint>
+<the mpi3d-harness run's last>`` on the card, held to the same codes'
+scores with the Lasso on the host CPU (UDR_CPU_TOL). These three run no
+kernel of the port: the launch counters must stay at 0.
 Every kernel of these runs is held against its plain version at every
 shape they run.
 
@@ -364,12 +385,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from encdiff_tpu_torch import faces_eval
+from encdiff_tpu_torch import convert, faces_eval
 from encdiff_tpu_torch import fid as fid_cli
-from encdiff_tpu_torch import generate_swap, main_val
+from encdiff_tpu_torch import generate_swap, main_val, udr_eval
 from encdiff_tpu_torch import tad as tad_cli
 from encdiff_tpu_torch import train_steps
 from encdiff_tpu_torch.configs import FACES, FACES_TRAIN, FLAGSHIP_TRAIN
+from encdiff_tpu_torch.core.compact_ckpt import load_model_variables
 from encdiff_tpu_torch.core.schedules import DDIMSchedule
 from encdiff_tpu_torch.data import (synthetic_faces, synthetic_mpi3d,
                                     synthetic_shapes)
@@ -379,6 +401,7 @@ from encdiff_tpu_torch.data.synthetic_shapes import (
     epoch_batches, render_all_v4)
 from encdiff_tpu_torch.evalx import fid as fid_lib
 from encdiff_tpu_torch.evalx.eval_driver import eval_func
+from encdiff_tpu_torch.evalx.evaluate import evaluate_battery
 from encdiff_tpu_torch.evalx.ground_truth.named_data import get_index_dataset
 from encdiff_tpu_torch.evalx.swap import (TOKEN_BUDGET, swap_conditions,
                                           swap_sample)
@@ -645,6 +668,37 @@ CROSS.update({
     "bands_control": dict(vq=["-n", "bandsvq"], ldm=["-n", "bandsld"],
                           kgen=17, log=[NO_LOG]),
 })
+#: the v4 grid's latent cache, shared by the four fits that encode it with
+#: the same frozen first stage (harness-train and its -r, mcl-train,
+#: mcl-fisher-train), held at each reuse against a direct encode of
+#: SHARED_LATENT_ROWS sampled rows (LATENT_TOL)
+SHARED_LATENT_ROWS = 256
+#: the JAX-trained MPI3D checkpoint and the validation record of its run
+MPI3D_CKPT = os.path.join(ROOT,
+                          "demo_artifacts/round5/mpi3d_best_dci_fp16.npz")
+MPI3D_RECORD = os.path.join(ROOT, "demo_artifacts/round5/mpi3d_run/6075.json")
+MPI3D_STEP = 6075
+#: (metric, key, bound) of the card's fast-tier battery against the
+#: record: each bound is narrower than the same run's move between its
+#: 4,050- and 6,075-step records and wider than sklearn's own spread
+#: between global seeds
+MILESTONE_BOUNDS = (("beta_VAE", "eval_accuracy", 0.01),
+                    ("beta_VAE", "train_accuracy", 0.01),
+                    ("MIG", "discrete_mig", 0.01),
+                    ("factor_VAE", "eval_accuracy", 0.02),
+                    ("factor_VAE", "train_accuracy", 0.02),
+                    ("dci", "disentanglement", 0.03),
+                    ("dci", "completeness", 0.03),
+                    ("dci", "informativeness_test", 0.01))
+#: the global seeds of the card's fast-tier DCI printed beside the bounds
+MILESTONE_DCI_SEEDS = (0, 1, 2)
+#: the post-hoc battery's logistic-regression scores, card against CPU
+POSTHOC_CPU_TOL = 1e-3
+POSTHOC_CPU_KEYS = {"med": ("informativeness_train", "informativeness_test"),
+                    "modularity": ("explicitness_score_train",
+                                   "explicitness_score_test")}
+#: UDR on the card against its CPU path (the Lasso in float64)
+UDR_CPU_TOL = 1e-6
 #: ``-b shapes_mcl`` over the v1 chain's EncDiff run: SHAPES_MCL_STEPS steps
 #: and test() with the swap visualization
 SHAPES_MCL_STEPS = 8
@@ -881,9 +935,30 @@ def backward_times(forward, leaves, grad):
     return times
 
 
+#: true inside ``uncounted``: the shape hooks record nothing
+UNCOUNTED = [False]
+
+
+@contextlib.contextmanager
+def uncounted():
+    """A check's own kernel calls inside a counted run: they add to no
+    launch count and record no shape, so each path's counts stay its
+    own."""
+    saved = {k: (w.launches, w.plain_calls) for k, w in WRAPPERS.items()}
+    UNCOUNTED[0] = True
+    try:
+        yield
+    finally:
+        UNCOUNTED[0] = False
+        for k, (launches, plain_calls) in saved.items():
+            WRAPPERS[k].launches, WRAPPERS[k].plain_calls = launches, \
+                plain_calls
+
+
 def record_shapes(model):
     """Forward pre-hooks that record, per kernel, the shape of every call
-    one forward pass makes. Returns (records, remove)."""
+    one forward pass makes, outside ``uncounted``. Returns (records,
+    remove)."""
     records = {"groupnorm_silu": [], "attention_core": [],
                "flash_attention_fwd": [], "fused_attention": []}
 
@@ -894,11 +969,15 @@ def record_shapes(model):
             records["attention_core"].append((b, h, n, m, dh))
 
     def gn_hook(mod, args):
+        if UNCOUNTED[0]:
+            return
         x = args[0]
         film = len(args) > 1 and args[1] is not None
         records["groupnorm_silu"].append((tuple(x.shape), mod.eps, film))
 
     def xattn_hook(mod, args, kwargs):  # the routing of CrossAttention
+        if UNCOUNTED[0]:
+            return
         x = args[0]
         ctx = kwargs.get("context", args[1] if len(args) > 1 else None)
         if mod.takes_fused(x, ctx):
@@ -910,6 +989,8 @@ def record_shapes(model):
         attn(x.shape[0], mod.heads, x.shape[1], m, mod.dim_head)
 
     def attnblock_hook(mod, args):
+        if UNCOUNTED[0]:
+            return
         b, c, h, w = args[0].shape
         attn(b, 1, h * w, h * w, c)
 
@@ -1764,8 +1845,9 @@ def read_counts():
             {k: w.plain_calls for k, w in WRAPPERS.items()})
 
 
-def profile(fn, calls: int = 3):
-    """torch.profiler over ``calls`` calls of ``fn`` after one warm-up:
+def profile(fn, calls: int = 1):
+    """torch.profiler over ``calls`` calls of ``fn`` (one: the time limit
+    holds the later phases) after one warm-up:
     (wall ms per call, device-busy ms per call, [(kernel, ms per call,
     launches per call)]) from the CUDA kernel events, or None if the trace
     holds none. Busy is the union of the kernels' intervals: kernels that
@@ -1943,17 +2025,27 @@ def main(argv=None) -> int:
     del model
 
     train_rows, train_launches, per_step = train_phases(smi, card)
-    harness_launches, harness_rows = harness_phases(
-        smi, card, seen_rows(serve_rows, train_rows), args.out)
-    vq_rows, vq_other, vq_launches, per_vq_step = vq_phases(
-        smi, card, seen_rows(serve_rows, train_rows, harness_rows), args.out)
-    mcl_rows, mcl_vjp_rows, mcl_launches, per_mcl_step = mcl_phases(
-        smi, card, seen_rows(serve_rows, train_rows, harness_rows, vq_rows),
-        args.out)
-    fisher_rows, fisher_other, fisher_launches, per_fisher_step, fisher = \
-        mcl_fisher_phases(smi, card, seen_rows(
-            serve_rows, train_rows, harness_rows, vq_rows, mcl_rows,
-            {"attention_core_bwd_vjp": mcl_vjp_rows}), args.out)
+    # one latent cache of the v4 grid for the four fits that encode it
+    shared = SharedLatents().install()
+    try:
+        harness_launches, harness_rows = harness_phases(
+            smi, card, seen_rows(serve_rows, train_rows), args.out)
+        vq_rows, vq_other, vq_launches, per_vq_step = vq_phases(
+            smi, card, seen_rows(serve_rows, train_rows, harness_rows),
+            args.out)
+        mcl_rows, mcl_vjp_rows, mcl_launches, per_mcl_step = mcl_phases(
+            smi, card, seen_rows(serve_rows, train_rows, harness_rows,
+                                 vq_rows), args.out)
+        fisher_rows, fisher_other, fisher_launches, per_fisher_step, \
+            fisher = mcl_fisher_phases(smi, card, seen_rows(
+                serve_rows, train_rows, harness_rows, vq_rows, mcl_rows,
+                {"attention_core_bwd_vjp": mcl_vjp_rows}), args.out)
+    finally:
+        shared.uninstall()
+    print(f"# shared v4 latent cache: {shared.fills} encode(s) of the grid, "
+          f"{shared.reuses} reuse(s), each after a direct encode of "
+          f"{SHARED_LATENT_ROWS} sampled rows within {LATENT_TOL} (largest "
+          f"differences {[f'{e:.2e}' for e in shared.errors]})", flush=True)
     harness.clear_device_cache()
     synthetic_shapes.clear_cache()
     torch.cuda.empty_cache()
@@ -1981,6 +2073,10 @@ def main(argv=None) -> int:
     mpi_render = mpi3d_shapes_phase(smi)
     mpi = cross_phases(smi, card, {**seen, **seen_rows(*cars["rows"])},
                        args.out, "mpi3d")
+    reps, mpi_truth, milestone = mpi3d_milestone_phase(smi, args.out)
+    posthoc_s = posthoc_phase(smi, args.out, reps, mpi_truth)
+    udr = udr_phase(smi, args.out, mpi["dirs"][1])
+    del reps
     harness.clear_device_cache()
     synthetic_mpi3d.clear_cache()
     shapes_render = shapes_render_phase(smi)
@@ -2151,6 +2247,15 @@ def main(argv=None) -> int:
               flush=True)
     print(f"# mpi3d render on {smi}: " + ", ".join(
         f"{k} {v:.6g}" for k, v in mpi_render.items()), flush=True)
+    print(f"# mpi3d milestone (-b mpi3d on {os.path.relpath(MPI3D_CKPT, ROOT)}"
+          f") on {smi}: " + ", ".join(
+              f"{k} {v:.6g}" for k, v in milestone.items()), flush=True)
+    print(f"# posthoc (the registry at the fast tier on the milestone's reps)"
+          f" on {smi}: " + ", ".join(
+              f"{k} {v:.3f}s" for k, v in posthoc_s.items()), flush=True)
+    print(f"# udr (-b mpi3d, the MPI3D checkpoint and the mpi3d run's last) "
+          f"on {smi}: " + ", ".join(f"{k} {v:.6g}" for k, v in udr.items()),
+          flush=True)
     print(f"# shapes render on {smi}: " + ", ".join(
         f"{k} {v:.6g}" for k, v in shapes_render.items()), flush=True)
     print("# shapes_mcl: -b shapes_mcl over the v1 chain's last on "
@@ -2386,7 +2491,7 @@ def train_phases(smi, card):
     t0 = time.perf_counter()
     print_profile("train-profile", t0, f"one train step at B={TRAIN_BATCH}",
                   profile(lambda: train_step(model, state, batch,
-                                             generator=gen), calls=2))
+                                             generator=gen)))
     return rows, launches, per_step
 
 
@@ -3140,8 +3245,8 @@ def vq_phases(smi, card, seen, out):
     t0 = time.perf_counter()
     batch = images[order[bs:2 * bs]]
     print_profile("vq-profile", t0, f"one VQ-GAN train step at B={bs}",
-                  profile(lambda: vq_trainer.train_step(model, state, batch),
-                          calls=2))
+                  profile(lambda: vq_trainer.train_step(model, state,
+                                                        batch)))
     del trainer, model, state
     torch.cuda.empty_cache()
     return step_rows, other_rows, launches, per_step
@@ -3342,7 +3447,7 @@ def faces_vq_phases(smi, card, seen, out):
     def update():
         for b in batches:
             vq_trainer.train_step(model, state, b)
-    prof = profile(update, calls=1)
+    prof = profile(update)
     print_profile("faces-vq-profile", t0, f"one faces VQ-GAN update "
                   f"({accumulate} micro-steps of {bs})", prof)
     if prof is not None:
@@ -3841,8 +3946,8 @@ def mcl_phases(smi, card, seen, out):
     gen = torch.Generator("cuda").manual_seed(SEED + 11)
     print_profile("mcl-profile", t0, f"one MCL train step at "
                   f"B={ref.batch_size}", profile(
-                      lambda: train_step(model, state, batch, generator=gen),
-                      calls=2))
+                      lambda: train_step(model, state, batch,
+                                         generator=gen)))
     del ref, model, state
     torch.cuda.empty_cache()
     return rows, vjp_rows, launches, per_step
@@ -3928,8 +4033,8 @@ def mcl_fisher_phases(smi, card, seen, out):
     gen = torch.Generator("cuda").manual_seed(SEED + 14)
     print_profile("mcl-fisher-profile", t0, f"one fisher_sm step at "
                   f"B={ref.batch_size}", profile(
-                      lambda: train_step(model, state, batch, generator=gen),
-                      calls=2))
+                      lambda: train_step(model, state, batch,
+                                         generator=gen)))
     del ref, model, state
     torch.cuda.empty_cache()
     return rows, other, launches, per_step, dict(ms_per_step=step_ms,
@@ -4086,7 +4191,7 @@ def faces_phases(smi, card, seen):
         for _ in range(accumulate):
             train_step(model, state, first, generator=gen)
     print_profile("faces-profile", t0, f"one update ({accumulate} "
-                  f"micro-steps of {micro})", profile(update, calls=1))
+                  f"micro-steps of {micro})", profile(update))
     return rows, launches, per_micro
 
 
@@ -5215,6 +5320,351 @@ def cross_phases(smi, card, seen, out, ds):
                 numbers={**{f"vq_{k}": v for k, v in vq_numbers.items()},
                          **h_numbers},
                 dirs=(vq_dir, h_dir))
+
+
+class SharedLatents:
+    """The harness's ``precompute_latents`` with one cache of a grid's
+    latents: a fit that encodes the same device grid with a first stage
+    equal, leaf for leaf, to the one that filled the cache takes the
+    cached latents, after a direct encode of SHARED_LATENT_ROWS sampled
+    rows by its own first stage matches them (LATENT_TOL); any other fit
+    encodes and refills it. The check's encode is ``uncounted``: a fit
+    that reuses the cache counts and records no encode at all. ``install`` puts it in the harness's place,
+    ``uninstall`` takes it out and drops the cache. ``fills`` and
+    ``reuses`` count the two, ``errors`` holds each reuse's largest
+    difference."""
+
+    def __init__(self):
+        self.fn = harness.precompute_latents
+        self.fills, self.reuses, self.errors = 0, 0, []
+        self.key = self.z = self.first_stage = None
+
+    def install(self):
+        harness.precompute_latents = self
+        return self
+
+    def uninstall(self):
+        harness.precompute_latents = self.fn
+        self.key = self.z = self.first_stage = None
+        torch.cuda.empty_cache()
+
+    def __call__(self, model, images, *args, **kwargs):
+        key = (images.data_ptr(), tuple(images.shape), args,
+               tuple(sorted(kwargs.items())))
+        own = model.first_stage_model.state_dict()
+        if self.z is not None and key == self.key and own.keys() == \
+                self.first_stage.keys() and all(
+                    torch.equal(v, self.first_stage[k])
+                    for k, v in own.items()):
+            rows = torch.from_numpy(np.sort(np.random.RandomState(
+                SEED + self.reuses).choice(len(images), SHARED_LATENT_ROWS,
+                                           replace=False))).cuda()
+            with torch.no_grad(), uncounted():
+                direct = model.encode_first_stage(
+                    model.split_batch(images[rows])[0])
+            torch.testing.assert_close(self.z[rows], direct, **LATENT_TOL)
+            self.errors.append((self.z[rows] - direct).abs().max().item())
+            self.reuses += 1
+            return self.z
+        self.z = None
+        z = self.fn(model, images, *args, **kwargs)
+        self.key, self.z = key, z
+        self.first_stage = {k: v.clone() for k, v in own.items()}
+        self.fills += 1
+        return z
+
+
+def encoder_shape_faults(model, ckpt) -> list:
+    """Encoder4's leaves whose shape in ``ckpt`` is not ``model``'s."""
+    variables, _ = load_model_variables(ckpt)
+    cond = variables["cond"]
+    theirs = convert.encoder4_state_dict(cond["params"], cond["batch_stats"])
+    own = model.cond_stage_model.state_dict()
+    return [f"{k}: {tuple(own[k].shape) if k in own else None} here, "
+            f"{tuple(theirs[k].shape) if k in theirs else None} in the file"
+            for k in sorted(set(own) | set(theirs))
+            if k not in own or k not in theirs
+            or tuple(own[k].shape) != tuple(theirs[k].shape)]
+
+
+def mpi3d_milestone_phase(smi, out):
+    """mpi3d-milestone: ``main_val -b mpi3d --resume_ckpt <the JAX-trained
+    MPI3D checkpoint> --no-test`` (no train step) on the grid the MPI3D
+    phases left on the card, then the fit's validation: the sweep of all
+    1,036,800 rows and the battery at the fast tier from global seed 0, as
+    the JAX run validated. Its Encoder4 shapes must be the config's and its
+    step MPI3D_STEP; each score of MILESTONE_BOUNDS must lie within its
+    bound of the run's record (``6075.json``). The card's fast-tier DCI at
+    the global seeds MILESTONE_DCI_SEEDS is printed beside the bounds. No
+    kernel of the port runs. Returns the reps, the ground truth and the
+    phase's numbers."""
+    t0 = time.perf_counter()
+    with np.load(MPI3D_CKPT) as f:
+        step = int(f["state/step"])
+    with open(MPI3D_RECORD) as f:
+        record = json.load(f)
+    reset_counts()
+    trainer = main_val.main([
+        "-b", "mpi3d", "--resume_ckpt", MPI3D_CKPT, "--no-test", "-l",
+        os.path.join(out, "mpi3d_milestone"), "--device", "cuda"])
+    faults = encoder_shape_faults(trainer.model, MPI3D_CKPT)
+    if step != MPI3D_STEP or faults:
+        raise RuntimeError(f"mpi3d-milestone: {MPI3D_CKPT} at step {step} "
+                           f"({MPI3D_STEP} expected); Encoder4 against -b "
+                           f"mpi3d: {faults}")
+    trainer._ensure_state()
+    if trainer.state.step != step:
+        raise RuntimeError(f"mpi3d-milestone: restored step "
+                           f"{trainer.state.step}, {step} in the file")
+    np.random.seed(MILESTONE_DCI_SEEDS[0])
+    val = trainer.validate(0, step)
+    tm = dict(trainer.timings)
+    with open(os.path.join(trainer.logdir, "metrics_sin", f"{step}.json")) \
+            as f:
+        scores = json.load(f)
+    reps = np.load(os.path.join(trainer.logdir, "reps", f"{step}.npy"))
+    label_dataset = trainer.label_dataset
+    del trainer
+    torch.cuda.empty_cache()
+    dci = {MILESTONE_DCI_SEEDS[0]: scores["dci"]}
+    dci_s = {}
+    for seed in MILESTONE_DCI_SEEDS[1:]:
+        np.random.seed(seed)
+        t = time.perf_counter()
+        dci[seed] = eval_func(label_dataset, reps, None, step,
+                              metrics=("dci",), budget="fast",
+                              device="cuda")["dci"]
+        dci_s[seed] = time.perf_counter() - t
+    launches, plain_calls = read_counts()
+    held = []
+    for metric, key, bound in MILESTONE_BOUNDS:
+        got, want = float(scores[metric][key]), float(record[metric][key])
+        held.append(f"{metric} {key} {got:.4f} (record {want:.4f}, "
+                    f"|diff| {abs(got - want):.4f} <= {bound})")
+        if not abs(got - want) <= bound:
+            faults.append(f"{metric} {key} {got} against the record's "
+                          f"{want} (bound {bound})")
+    if reps.shape != (synthetic_mpi3d.N_IMAGES_MPI3D, 20) or \
+            scores["dci"].get("dci_budget") != "fast" or \
+            sorted(val) != BATTERY_KEYS:
+        faults.append(f"reps {reps.shape}, DCI tier "
+                      f"{scores['dci'].get('dci_budget')}, validation {val}")
+    if any(launches.values()) or any(plain_calls.values()):
+        faults.append(f"kernel launches {launches}, plain calls "
+                      f"{plain_calls}: the battery runs none")
+    seeds = "; ".join(
+        f"global seed {k}: D {float(v['disentanglement']):.4f} C "
+        f"{float(v['completeness']):.4f} I "
+        f"{float(v['informativeness_test']):.4f}" for k, v in dci.items())
+    if faults:
+        raise RuntimeError("mpi3d-milestone: " + "; ".join(faults)
+                           + " | " + "; ".join(held) + " | " + seeds)
+    phase("mpi3d-milestone", t0, f"main_val -b mpi3d --resume_ckpt "
+          f"{os.path.relpath(MPI3D_CKPT, ROOT)} (step {step}, no train "
+          f"step), validation at the fast tier: sweep of {tm['images']} "
+          f"images {tm['sweep_s']:.3f}s, metrics on the card "
+          f"{tm['metrics_s']:.3f}s (" + ", ".join(
+              f"{k} {v:.3f}s" for k, v in tm["metric_s"].items())
+          + "); against the JAX run's record "
+          f"{os.path.relpath(MPI3D_RECORD, ROOT)}: " + "; ".join(held)
+          + f"; the card's fast-tier DCI at {seeds} (seeds 1, 2: "
+          + ", ".join(f"{v:.3f}s" for v in dci_s.values())
+          + f"); no kernel launch | {smi}")
+    numbers = {"sweep_s": tm["sweep_s"], "metrics_s": tm["metrics_s"],
+               **{f"{m}_{k}": float(scores[m][k])
+                  for m, k, _ in MILESTONE_BOUNDS},
+               **{f"dci_seed{k}_D": float(v["disentanglement"])
+                  for k, v in dci.items()}}
+    return reps, label_dataset, numbers
+
+
+def posthoc_keys(metric, n_factors, train_size):
+    """The JAX package's keys of ``metric``'s scores (``encdiff_tpu/evalx/
+    metrics/*.py``) over ``n_factors`` factors."""
+    s = str(train_size)
+    pairs = [(i, j) for i in range(n_factors) for j in range(n_factors)
+             if i != j]
+    fair = []
+    for prefix in ("mean_fairness", "max_fairness"):
+        fair += [f"{prefix}:pred{i}:sens{j}" for i, j in pairs]
+        for i in range(n_factors):
+            fair += [f"{prefix}:pred{i}:mean_sens", f"{prefix}:pred{i}:max_sens"]
+        fair += [f"{prefix}:{a}_pred:{b}_sens" for a, b in (
+            ("mean", "mean"), ("mean", "max"), ("max", "mean"),
+            ("max", "max"))]
+    down = [f"{s}:{k}" for k in ("mean_train_accuracy", "mean_test_accuracy",
+                                 "min_train_accuracy", "min_test_accuracy")]
+    for i in range(n_factors):
+        down += [f"{s}:train_accuracy_factor_{i}",
+                 f"{s}:test_accuracy_factor_{i}"]
+    reduced = []
+    for f in range(n_factors):
+        reduced += [f"{s}:reduced_factor_{f}:mean_{p}_accuracy_reduced_factor"
+                    for p in ("train", "test")]
+    reduced += [f"{s}:mean_{p}_accuracy_{w}" for w in (
+        "reduced_factor", "other_factors") for p in ("train", "test")]
+    return {
+        "dci": ["informativeness_train", "informativeness_test",
+                "disentanglement", "completeness", "importance_matrix"],
+        "factor_vae": ["train_accuracy", "eval_accuracy", "num_active_dims"],
+        "beta_vae": ["train_accuracy", "eval_accuracy"],
+        "mig": ["discrete_mig"],
+        "sap": ["SAP_score"],
+        "irs": ["IRS", "num_active_dims"],
+        "modularity": ["modularity_score", "explicitness_score_train",
+                       "explicitness_score_test"],
+        "fairness": fair,
+        "unsupervised": ["gaussian_total_correlation",
+                         "gaussian_wasserstein_correlation",
+                         "gaussian_wasserstein_correlation_norm",
+                         "mutual_info_score"],
+        "downstream": down,
+        "reduced_downstream": reduced,
+        "med": ["informativeness_train", "informativeness_test",
+                "disentanglement", "completeness"],
+    }[metric]
+
+
+def posthoc_faults(name, scores, n_factors, n_codes, train_size) -> list:
+    """A post-hoc score set's faults: its keys against the JAX package's,
+    values not finite or out of their range."""
+    faults = []
+    want = posthoc_keys(name, n_factors, train_size)
+    if list(scores) != want:
+        faults.append(f"{name}: keys {list(scores)[:6]}..., the JAX "
+                      f"package's {want[:6]}...")
+    for k, v in scores.items():
+        a = np.asarray(v, np.float64)
+        if not np.isfinite(a).all():
+            faults.append(f"{name} {k}: {v} not finite")
+        elif k == "num_active_dims":
+            if not (v == int(v) and 0 <= v <= n_codes):
+                faults.append(f"{name} {k}: {v}")
+        elif name == "unsupervised":
+            # KL, a Wasserstein-type distance and an MI in nats: >= 0, up to
+            # the discretiser's rounding
+            if (a < -1e-9).any():
+                faults.append(f"{name} {k}: {v} < 0")
+        elif (a < 0).any() or (a > 1 + 1e-9).any():
+            faults.append(f"{name} {k}: {v} outside [0, 1]")
+    return faults
+
+
+def posthoc_phase(smi, out, reps, label_dataset):
+    """posthoc: ``evaluate_representation`` of every name of the JAX
+    package's registry on the milestone's reps (1,036,800 x 20) on the
+    card, at the fast tier (2,500 / 1,250 points, 20 stages where a GBT
+    fits, fairness at 100 points a class), from ``RandomState(0)`` and
+    global seed SEED. Every score must be finite, in its range and carry
+    the JAX key set; MED's informativeness and explicitness (the logistic
+    regressions) must agree with the port's CPU path on the same reps and
+    seed within POSTHOC_CPU_TOL. No kernel of the port runs. Every score
+    goes to ``<out>/posthoc_mpi3d.json``. Returns each metric's
+    seconds."""
+    t0 = time.perf_counter()
+    n_factors = label_dataset.num_factors
+    reset_counts()
+    seconds = {}
+    np.random.seed(SEED)
+    scores = evaluate_battery("mpi3d", reps, tier="fast", seed=0,
+                              device="cuda", timings=seconds)
+    launches, plain_calls = read_counts()
+    faults = []
+    for name, sc in scores.items():
+        faults += posthoc_faults(name, sc, n_factors, reps.shape[1], 2500)
+    t = time.perf_counter()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small host ops: one thread spins the least
+    try:
+        cpu = evaluate_battery("mpi3d", reps, tier="fast", seed=0,
+                               device="cpu", metrics=tuple(POSTHOC_CPU_KEYS))
+    finally:
+        torch.set_num_threads(threads)
+    cpu_s = time.perf_counter() - t
+    diffs = {f"{name} {k}": abs(float(scores[name][k]) - float(cpu[name][k]))
+             for name, keys in POSTHOC_CPU_KEYS.items() for k in keys}
+    if max(diffs.values()) > POSTHOC_CPU_TOL:
+        faults.append(f"card against CPU {diffs} (tol {POSTHOC_CPU_TOL})")
+    if any(launches.values()) or any(plain_calls.values()):
+        faults.append(f"kernel launches {launches}, plain calls "
+                      f"{plain_calls}: the battery runs none")
+    if faults:
+        raise RuntimeError("posthoc: " + "; ".join(faults))
+    head = {"dci": "disentanglement", "factor_vae": "eval_accuracy",
+            "beta_vae": "eval_accuracy", "mig": "discrete_mig",
+            "sap": "SAP_score", "irs": "IRS",
+            "modularity": "explicitness_score_test",
+            "fairness": "mean_fairness:mean_pred:mean_sens",
+            "unsupervised": "gaussian_total_correlation",
+            "downstream": "2500:mean_test_accuracy",
+            "reduced_downstream": "2500:mean_test_accuracy_reduced_factor",
+            "med": "informativeness_test"}
+    path = os.path.join(out, "posthoc_mpi3d.json")
+    with open(path, "w") as f:
+        json.dump({"seconds": seconds, "scores": {
+            k: {kk: (vv if isinstance(vv, list) else float(vv))
+                for kk, vv in v.items()} for k, v in scores.items()}}, f,
+            indent=1)
+    phase("posthoc", t0, f"the registry's {len(scores)} metrics on "
+          f"{reps.shape} reps on the card at the fast tier, every score "
+          f"finite, in range, with the JAX key set: " + ", ".join(
+              f"{k} {seconds[k]:.3f}s ({head[k]} "
+              f"{float(scores[k][head[k]]):.4f})" for k in scores)
+          + f"; total {sum(seconds.values()):.3f}s; MED's and "
+          f"explicitness's logistic scores on the host CPU ({cpu_s:.3f}s) "
+          f"against the card: " + ", ".join(
+              f"{k} {v:.2e}" for k, v in diffs.items())
+          + f" (tol {POSTHOC_CPU_TOL}); no kernel launch; every score in "
+          f"{path} | {smi}")
+    return seconds
+
+
+def udr_phase(smi, out, ldm_dir):
+    """udr: ``python -m encdiff_tpu_torch.udr_eval -b mpi3d -r <the MPI3D
+    checkpoint> <the mpi3d-harness run's checkpoints/last>`` on the card
+    (Encoder4 and the Lasso there, on the resident grid), then its scores
+    again from the same codes with the Lasso on the host CPU: within
+    UDR_CPU_TOL, finite and in [0, 1]. No kernel of the port runs."""
+    t0 = time.perf_counter()
+    last = os.path.join(ldm_dir, "checkpoints", "last")
+    record = {}
+    reset_counts()
+    scores = udr_eval.main(["-b", "mpi3d", "-r", MPI3D_CKPT, last,
+                            "--device", "cuda", "--out",
+                            os.path.join(out, "udr_mpi3d.json")],
+                           record=record)
+    card_s = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    t = time.perf_counter()
+    cpu = udr_eval.replay(record, device="cpu")
+    cpu_s = time.perf_counter() - t
+    faults = []
+    diff = 0.0
+    for k in ("model_scores", "pairwise_disentanglement_scores"):
+        a, b = np.asarray(scores[k]), np.asarray(cpu[k])
+        diff = max(diff, float(np.abs(a - b).max()))
+        if not (np.isfinite(a).all() and (a >= 0).all() and (a <= 1).all()):
+            faults.append(f"{k} {scores[k]}")
+    if diff > UDR_CPU_TOL:
+        faults.append(f"card against CPU {diff} (tol {UDR_CPU_TOL})")
+    if any(launches.values()) or any(plain_calls.values()):
+        faults.append(f"kernel launches {launches}, plain calls "
+                      f"{plain_calls}: UDR runs none")
+    if faults:
+        raise RuntimeError("udr: " + "; ".join(faults))
+    active = [int(np.sum(np.asarray(a) > scores["activity_threshold"]))
+              for a in scores["activity_vectors"]]
+    phase("udr", t0, f"udr_eval -b mpi3d -r "
+          f"{os.path.relpath(MPI3D_CKPT, ROOT)} <mpi3d-harness>/checkpoints/"
+          f"last on the card {card_s:.3f}s (Lasso, 1,000 points, "
+          f"{active} active codes): model scores "
+          f"{[round(float(v), 6) for v in scores['model_scores']]}; the "
+          f"same codes with the Lasso on the host CPU {cpu_s:.3f}s, largest "
+          f"difference {diff:.3e} (tol {UDR_CPU_TOL}); no kernel launch | "
+          f"{smi}")
+    return {"udr_card_s": card_s, "udr_cpu_s": cpu_s,
+            **{f"model_score_{i}": float(v)
+               for i, v in enumerate(scores["model_scores"])}}
 
 
 def shapes_render_phase(smi):

@@ -6,7 +6,10 @@ and of the ``.npz``
 branch of ``encdiff_tpu/train/checkpoint_io.py`` (``load_model_variables``).
 A compact checkpoint is one ``.npz`` whose keys are ``/``-joined paths of
 the flax variable tree, with weight tensors stored as float16 and scalars
-(step, scale_factor) exact; it holds no optimizer state.
+(step, scale_factor) exact; it holds no optimizer state. The port writes
+the archive's members stored, where the JAX package deflates them: deflate
+shrinks float16 weights by under a tenth (the flagship's 80.8 MiB to 74.7)
+for seconds of host time a save, and ``np.load`` reads both alike.
 """
 
 from __future__ import annotations
@@ -108,7 +111,7 @@ def save_compact(path: str, state: dict, frozen: dict) -> str:
         },
         "frozen": frozen,
     }
-    np.savez_compressed(path, **_flatten(tree))
+    np.savez(path, **_flatten(tree))
     return path
 
 
@@ -126,5 +129,5 @@ def save_compact_vq(path: str, state: dict) -> str:
         "loss_vars": state.get("loss_vars") or {},
         "step": np.asarray(state.get("step") or 0),
     }}
-    np.savez_compressed(path, **_flatten(tree))
+    np.savez(path, **_flatten(tree))
     return path

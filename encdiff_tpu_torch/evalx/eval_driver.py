@@ -22,6 +22,7 @@ import time
 from typing import Any
 
 import numpy as np
+import scipy.linalg
 import torch
 
 from encdiff_tpu_torch.evalx.metrics import (
@@ -32,15 +33,25 @@ METRICS = ("beta_VAE", "dci", "MIG", "factor_VAE")
 
 def reduce_tokens_pca1(reps, device="cpu") -> np.ndarray:
     """(N, U, D) token reps -> (N, U) float64 scalars, sklearn's
-    ``PCA(n_components=1).fit_transform`` per token: for N >= 10 D (and
-    D <= 1000) its ``auto`` solver takes the covariance's eigenvectors,
-    else an SVD of the centred data; ``svd_flip`` makes the largest
-    loading of the component positive. (Below that, on more than 500 rows,
-    sklearn takes a randomized SVD from numpy's global state, which only
-    approximates this one.)"""
+    ``PCA(n_components=1).fit_transform`` per token, by the solver its
+    ``auto`` policy picks: for N >= 10 D (and D <= 1000) the covariance's
+    eigenvectors, for max(N, D) <= 500 an SVD of the centred data (both in
+    torch on ``device``), else ``_randomized_svd`` (``randomized_pca1``,
+    scipy on the host, drawing from numpy's global ``RandomState`` token by
+    token). ``svd_flip`` makes the largest loading of the component
+    positive."""
+    if not isinstance(reps, torch.Tensor):
+        reps = np.asarray(reps)
+    n, u, d = reps.shape
+    if not (d <= 1000 and n >= 10 * d) and max(n, d) > 500:
+        host = np.asarray(reps.cpu() if isinstance(reps, torch.Tensor)
+                          else reps)
+        out = np.zeros((n, u), dtype=np.float64)
+        for i in range(u):
+            out[:, i] = randomized_pca1(host[:, i, :])
+        return out
     x = torch.as_tensor(np.asarray(reps, np.float64) if not isinstance(
         reps, torch.Tensor) else reps).to(torch.device(device), torch.float64)
-    n, u, d = x.shape
     mean = x.mean(0)                                            # (U, D)
     if d <= 1000 and n >= 10 * d:
         xt = x.transpose(0, 1)                                  # (U, N, D)
@@ -54,6 +65,44 @@ def reduce_tokens_pca1(reps, device="cpu") -> np.ndarray:
     comp = comp * torch.sign(comp.gather(-1, top))
     out = (x * comp).sum(-1) - (mean * comp).sum(-1)
     return out.cpu().numpy()
+
+
+def randomized_pca1(x: np.ndarray) -> np.ndarray:
+    """One token's ``PCA(n_components=1, svd_solver="randomized")
+    .fit_transform`` as sklearn 1.9 computes it (``_pca.py:_fit_truncated``,
+    ``utils/extmath.py:_randomized_svd`` and ``_randomized_range_finder``),
+    in the input's dtype: 1 + 10 oversamples drawn from numpy's global
+    ``RandomState``, ``n_iter`` "auto" (7 below a tenth of the smaller
+    side, else 4), the power iterations normalised by LU (by nothing at 2
+    or fewer), a QR at the end, an SVD of the projection, ``svd_flip`` on
+    the component, and the scores U S."""
+    x = np.asarray(x)
+    centred = x - np.mean(x, axis=0)
+    n_random = 1 + 10
+    n_iter = 7 if 1 < 0.1 * min(centred.shape) else 4
+    transpose = centred.shape[0] < centred.shape[1]
+    m = centred.T if transpose else centred
+    q = np.random.mtrand._rand.normal(size=(m.shape[1], n_random))
+    if m.dtype == np.float32:
+        q = q.astype(np.float32, copy=False)
+    if n_iter <= 2:
+        normalizer = lambda a: (a, None)  # noqa: E731
+    else:
+        normalizer = lambda a: scipy.linalg.lu(  # noqa: E731
+            a, permute_l=True, check_finite=False)
+    for _ in range(n_iter):
+        q, _ = normalizer(m @ q)
+        q, _ = normalizer(m.T @ q)
+    q, _ = scipy.linalg.qr(m @ q, mode="economic", check_finite=False)
+    uhat, s, vt = scipy.linalg.svd(q.T @ m, full_matrices=False,
+                                   lapack_driver="gesdd")
+    u = q @ uhat
+    if transpose:
+        u, s, vt = vt[:1].T, s[:1], u[:, :1].T
+    else:
+        u, s, vt = u[:, :1], s[:1], vt[:1]
+    sign = np.sign(vt[0, np.argmax(np.abs(vt[0]))])
+    return (u[:, 0] * sign) * s[0]
 
 
 def eval_func(label_dataset, reps, save_path: str | None, step: int,

@@ -19,7 +19,7 @@ import scipy.stats
 from encdiff_tpu_torch.evalx.metrics import gbt, utils
 
 #: boosting stages of each predictor
-STAGES = {"gradient_boosting": 100, "gradient_boosting_fast": 20}
+STAGES = utils.GBT_STAGES
 
 
 def compute_dci(ground_truth_data, representation_function, random_state,

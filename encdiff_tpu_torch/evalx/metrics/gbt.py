@@ -697,13 +697,28 @@ def _leaf_values(neg, y_ind, leaf_of, n_classes, trees):
     return values
 
 
-def fit_many(X, ys, n_estimators: int = 100, device="cpu"):
+def draw_seeds(ys, n_estimators: int) -> np.ndarray:
+    """The trees' seeds of fits on each label vector of ``ys`` one after
+    the other, from numpy's global ``RandomState`` (sklearn's
+    ``check_random_state(None)``): (stages, trees a stage of every fit)."""
+    rs = np.random.mtrand._rand
+    parts = []
+    for y in ys:
+        k = len(np.unique(np.asarray(y).ravel()))
+        k_trees = 1 if k == 2 else k
+        parts.append(np.array([[rs.randint(0, RAND_R_MAX)
+                                for _ in range(k_trees)]
+                               for _ in range(n_estimators)],
+                              np.int64).reshape(n_estimators, k_trees))
+    return np.concatenate(parts, 1)
+
+
+def fit_many(X, ys, n_estimators: int = 100, device="cpu", seeds=None):
     """Fit one ``GradientBoostingClassifier`` per label vector of ``ys``
     on the same ``X``, every tree of a stage of every fit in one pass.
     The fits draw their trees' seeds from numpy's global ``RandomState``
-    (sklearn's ``check_random_state(None)``) in the order sklearn's fits
-    one after the other would."""
-    rs = np.random.mtrand._rand
+    in the order sklearn's fits one after the other would
+    (``draw_seeds``), unless ``seeds`` gives them."""
     fit = _Fit(X, device)
     dev = fit.device
     groups, cols, n_classes = [], [], []
@@ -725,11 +740,11 @@ def fit_many(X, ys, n_estimators: int = 100, device="cpu"):
         y_cols.append(ind)
         groups.append((classes, y, first, k_trees))
     T = len(cols)
-    seeds = np.zeros((n_estimators, T), np.int64)
-    for classes, y, first, k_trees in groups:
-        for i in range(n_estimators):
-            for k in range(k_trees):
-                seeds[i, first + k] = rs.randint(0, RAND_R_MAX)
+    if seeds is None:
+        seeds = draw_seeds(ys, n_estimators)
+    if seeds.shape != (n_estimators, T):
+        raise ValueError(f"seeds {seeds.shape}, ({n_estimators}, {T}) "
+                         "expected")
     raw = torch.from_numpy(np.concatenate(raw_cols, 1).T.copy()).to(dev)
     y_ind = torch.from_numpy(np.concatenate(y_cols, 0)).to(dev)
     shape = (n_estimators, T, N_SLOTS)

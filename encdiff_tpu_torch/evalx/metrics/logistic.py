@@ -14,14 +14,37 @@ intercept unpenalised), minimised by ``scipy.optimize.minimize(method=
 sklearn's (classes of one feature contiguous). ``random_state`` is
 accepted and unused, as lbfgs draws nothing.
 
-Everything runs in float64. sklearn keeps float32 input in float32; on
-float64 input the two minimise the same function.
+The fit keeps the input's dtype, as sklearn does. Float64 input runs in
+float64. Float32 input follows sklearn's float32 path:
+
+* the starting point is float32 zeros, so scipy's ``ScalarFunction``
+  hands the loss float32 coefficients at every call;
+* the raw predictions are float32 products of float32 ``X`` and the
+  coefficients;
+* each sample's loss and gradient are computed in double from those
+  float32 values (the Cython losses; torch's exp, whose last bit of a
+  double does not reach the float32 it is stored as) and stored as
+  float32 (the
+  multinomial one keeps its exponentials, their sum, the division and the
+  true class's subtraction in float32, as ``CyHalfMultinomialLoss`` does);
+* the mean loss is a float32 sum, and the penalty and the gradient are
+  float32;
+* ``coef_`` and ``intercept_`` are float32.
+
+On the CPU the products and sums of that path are numpy's own calls on the
+arrays sklearn builds, so the fit equals sklearn's; on the card they are
+torch's, which round otherwise. Torch's calls on the CPU would not do
+there: on ``tests/test_torch_posthoc_repairs.py``'s 500 float32 points of
+5 classes they leave the intercepts 2.8e-6 from sklearn's (coefficients
+8.9e-7, probabilities 8.6e-7), outside that test's 1e-6, where numpy's
+calls land on sklearn's exactly.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.optimize
+import scipy.special
 import torch
 
 from encdiff_tpu_torch.evalx.metrics.gbt import _exp
@@ -39,10 +62,14 @@ class LogisticRegression:
         self.random_state = random_state
         self.device = device
 
-    def _x(self, X) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(X, np.float64) if not isinstance(
-            X, torch.Tensor) else X).to(torch.device(self.device),
-                                        torch.float64)
+    def _x(self, X, dtype=None) -> torch.Tensor:
+        if dtype is None:
+            dtype = (torch.float32 if getattr(X, "dtype", None) in (
+                np.float32, torch.float32) else torch.float64)
+        if not isinstance(X, torch.Tensor):
+            X = torch.from_numpy(np.ascontiguousarray(
+                X, np.float32 if dtype == torch.float32 else np.float64))
+        return X.to(torch.device(self.device), dtype).contiguous()
 
     def fit(self, X, y):
         x = self._x(X)
@@ -53,40 +80,72 @@ class LogisticRegression:
             raise ValueError(f"needs samples of at least 2 classes, got {K}")
         n, d = x.shape
         l2 = 1.0 / (C * n)
-        dev = x.device
+        dev, dt = x.device, x.dtype
+        f32 = dt == torch.float32
         if K == 2:
-            target = torch.from_numpy((enc == 1).astype(np.float64)).to(dev)
-            w0 = np.zeros(d + 1)
-            func = lambda w: _binomial(w, x, target, l2)  # noqa: E731
+            target = torch.from_numpy((enc == 1).astype(
+                np.float32 if f32 else np.float64)).to(dev)
+            w0 = np.zeros(d + 1, np.float32 if f32 else np.float64)
+            func = ((lambda w: _binomial32(w, x, target, l2)) if f32 else
+                    (lambda w: _binomial(w, x, target, l2)))
         else:
-            onehot = torch.zeros(n, K, dtype=torch.float64, device=dev)
+            onehot = torch.zeros(n, K, dtype=dt, device=dev)
             onehot[torch.arange(n, device=dev),
                    torch.from_numpy(enc).to(dev)] = 1.0
-            w0 = np.zeros(K * (d + 1))
-            func = lambda w: _multinomial(w, x, onehot, l2)  # noqa: E731
+            w0 = np.zeros(K * (d + 1), np.float32 if f32 else np.float64)
+            func = ((lambda w: _multinomial32(w, x, onehot, l2)) if f32 else
+                    (lambda w: _multinomial(w, x, onehot, l2)))
         res = scipy.optimize.minimize(
             func, w0, method="L-BFGS-B", jac=True,
             options={"maxiter": MAX_ITER, "maxls": 50, "gtol": TOL,
                      "ftol": 64 * np.finfo(float).eps})
+        out = np.float32 if f32 else np.float64
         if K == 2:
-            self.coef_ = res.x[None, :-1]
-            self.intercept_ = res.x[-1:]
+            self.coef_ = res.x[None, :-1].astype(out)
+            self.intercept_ = res.x[-1:].astype(out)
         else:
             w = res.x.reshape((K, -1), order="F")
-            self.coef_ = w[:, :-1].copy()
-            self.intercept_ = w[:, -1].copy()
+            self.coef_ = w[:, :-1].astype(out)
+            self.intercept_ = w[:, -1].astype(out)
         return self
 
-    def _scores(self, X) -> torch.Tensor:
-        x = self._x(X)
-        coef = torch.from_numpy(self.coef_).to(x.device)
-        scores = x @ coef.T + torch.from_numpy(self.intercept_).to(x.device)
+    def decision_function(self, X) -> torch.Tensor:
+        """``X @ coef_.T + intercept_`` in the coefficients' dtype, (n,)
+        for two classes, else (n, K)."""
+        dt = torch.float32 if self.coef_.dtype == np.float32 else \
+            torch.float64
+        x = self._x(X, dt)
+        if x.device.type == "cpu":
+            scores = torch.from_numpy(
+                x.numpy() @ self.coef_.T + self.intercept_)
+        else:
+            scores = (x @ torch.from_numpy(self.coef_).to(x.device).T
+                      + torch.from_numpy(self.intercept_).to(x.device))
         return scores[:, 0] if scores.shape[1] == 1 else scores
 
     def predict(self, X) -> np.ndarray:
-        scores = self._scores(X)
+        scores = self.decision_function(X)
         idx = (scores > 0).long() if scores.ndim == 1 else scores.argmax(1)
         return self.classes_[idx.cpu().numpy()]
+
+    def predict_proba(self, X) -> np.ndarray:
+        """Class probabilities in ``classes_``'s order: ``[1 - p, p]`` with
+        p the expit of the decision for two classes, else the softmax of
+        the decisions (sklearn's ``_predict_proba_lr`` and ``softmax``)."""
+        scores = self.decision_function(X)
+        if scores.device.type == "cpu":
+            s = scores.numpy().copy()
+            if s.ndim == 1:
+                p = scipy.special.expit(s)
+                return np.stack([1 - p, p], axis=1)
+            s -= np.max(s, axis=1).reshape(-1, 1)
+            np.exp(s, out=s)
+            s /= np.sum(s, axis=1).reshape(-1, 1)
+            return s
+        if scores.ndim == 1:
+            p = torch.sigmoid(scores)
+            return torch.stack([1 - p, p], 1).cpu().numpy()
+        return torch.softmax(scores, 1).cpu().numpy()
 
     def score(self, X, y) -> float:
         return float(np.mean(self.predict(X) == np.asarray(y).ravel()))
@@ -99,12 +158,22 @@ def _binomial(w, x, target, l2):
     wt = torch.from_numpy(w).to(x.device)
     weights, intercept = wt[:-1], wt[-1]
     raw = x @ weights + intercept
-    y = target
+    loss, grad = _binomial_pointwise(raw, target)
+    value = float(loss.sum() / n) + float(0.5 * l2 * (weights @ weights))
+    grad = grad / n
+    out = torch.empty(d + 1, dtype=torch.float64, device=x.device)
+    out[:d] = x.T @ grad + l2 * weights
+    out[d] = grad.sum()
+    return value, out.cpu().numpy()
+
+
+def _binomial_pointwise(raw, y, exp=_exp):
+    """The Cython ``closs_grad_half_binomial``, in the dtype of ``raw``."""
     lo = raw <= -37
     mid = (raw > -37) & (raw <= -2)
     hi = raw > 18
-    e_pos = _exp(torch.where(raw <= -2, raw, 0.0))
-    e_neg = _exp(torch.where(raw > -2, -raw, 0.0))
+    e_pos = exp(torch.where(raw <= -2, raw, 0.0))
+    e_neg = exp(torch.where(raw > -2, -raw, 0.0))
     loss = torch.where(
         lo, e_pos - y * raw,
         torch.where(mid, torch.log1p(e_pos) - y * raw,
@@ -114,12 +183,7 @@ def _binomial(w, x, target, l2):
         lo, e_pos - y,
         torch.where(raw <= -2, ((1 - y) * e_pos - y) / (1 + e_pos),
                     ((1 - y) - y * e_neg) / (1 + e_neg)))
-    value = float(loss.sum() / n) + float(0.5 * l2 * (weights @ weights))
-    grad = grad / n
-    out = torch.empty(d + 1, dtype=torch.float64, device=x.device)
-    out[:d] = x.T @ grad + l2 * weights
-    out[d] = grad.sum()
-    return value, out.cpu().numpy()
+    return loss, grad
 
 
 def _multinomial(w, x, onehot, l2):
@@ -143,3 +207,73 @@ def _multinomial(w, x, onehot, l2):
     out[:, :d] = grad.T @ x + l2 * weights
     out[:, d] = grad.sum(0)
     return value, out.cpu().numpy().ravel(order="F")
+
+
+# --- the float32 path ---------------------------------------------------------
+def _host(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def _binomial32(w, x, target, l2):
+    """sklearn's float32 ``loss_gradient`` over ``HalfBinomialLoss``: ``w``
+    is the float32 point scipy hands the loss."""
+    n, d = x.shape
+    weights, intercept = w[:-1], w[-1]
+    if _host(x):
+        raw = torch.from_numpy(x.numpy() @ weights + intercept)
+    else:
+        raw = x @ torch.from_numpy(weights).to(x.device) + float(intercept)
+    loss64, grad64 = _binomial_pointwise(raw.double(), target.double(),
+                                         torch.exp)
+    loss, grad = loss64.float(), grad64.float()
+    grad = grad / np.float32(n)
+    out = np.empty_like(w)
+    if _host(x):
+        value = float(np.sum(loss.numpy()) / n)
+        out[:d] = x.numpy().T @ grad.numpy() + l2 * weights
+        out[d] = np.sum(grad.numpy())
+    else:
+        value = float(loss.sum() / n)
+        out[:d] = (x.T @ grad).cpu().numpy() + l2 * weights
+        out[d] = grad.sum().item()
+    value += float(0.5 * l2 * (weights @ weights))
+    return value, out
+
+
+def _multinomial32(w, x, onehot, l2):
+    """sklearn's float32 ``loss_gradient`` over ``HalfMultinomialLoss``:
+    ``CyHalfMultinomialLoss.loss_gradient`` keeps its exponentials in
+    float32 (exp in double of the float32 raw less the row's largest),
+    sums them in double, and divides, subtracts the true class's raw value
+    and forms the gradient in float32."""
+    n, d = x.shape
+    K = onehot.shape[1]
+    coef = w.reshape((K, -1), order="F")
+    weights, intercept = coef[:, :-1], coef[:, -1]
+    w32 = np.asarray(weights, dtype=np.float32)
+    if _host(x):
+        raw = torch.from_numpy(x.numpy() @ w32.T + intercept)
+    else:
+        raw = (x @ torch.from_numpy(np.ascontiguousarray(w32)).to(x.device).T
+               + torch.from_numpy(np.ascontiguousarray(intercept)).to(
+                   x.device))
+    top = raw.amax(1, keepdim=True)
+    p = torch.exp(raw.double() - top.double()).float()
+    sum_exps = p.double().cumsum(1)[:, -1:].float()
+    loss = (torch.log(sum_exps.double()) + top.double()).float()[:, 0]
+    loss = loss - (raw * onehot).sum(1)
+    grad = p / sum_exps - onehot
+    grad = grad / np.float32(n)
+    out = np.empty((K, d + 1), dtype=np.float32, order="F")
+    if _host(x):
+        g = grad.numpy()
+        value = float(np.sum(loss.numpy()) / n)
+        out[:, :d] = g.T @ x.numpy() + l2 * weights
+        out[:, d] = np.sum(g, axis=0)
+    else:
+        value = float(loss.sum() / n)
+        out[:, :d] = (grad.T @ x).cpu().numpy() + l2 * weights
+        out[:, d] = grad.sum(0).cpu().numpy()
+    flat = np.ravel(weights, order="K")
+    value += float(0.5 * l2 * np.dot(flat, flat))
+    return value, out.ravel(order="F")

@@ -1,18 +1,22 @@
 """Metric utilities: the numpy part of ``encdiff_tpu/evalx/metrics/utils.py``.
 
 Copies of ``generate_batch_factor_code``, ``obtain_representation``,
-``split_train_test``, ``histogram_discretize``, ``discrete_mutual_info``,
-``discrete_entropy``, ``normalize_data``, ``sample_factor_batches`` and
+``split_train_test``, ``histogram_discretize``, ``make_discretizer``,
+``discrete_mutual_info``, ``discrete_entropy``, ``normalize_data``, ``sample_factor_batches`` and
 ``observations_from_factor_batches`` (:20-87, 116-131). The JAX package
 takes the mutual information from ``sklearn.metrics.mutual_info_score``;
 the port keeps no sklearn, so ``mutual_info_score`` below computes the same
 expression (natural log) from the dense contingency table, visiting its
 non-zero cells in the row-major order sklearn's sparse table gives. The
 predictor registry (:90-113) returns the port's gradient boosting
-(``gbt.py``); the cross-validated logistic regression is not ported.
+(``gbt.py``), at sklearn's 100 stages or the in-training tier's 20
+(``gradient_boosting_fast``); the cross-validated logistic regression is
+not ported. ``fit_predictors`` fits one predictor per factor in one batch.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -83,6 +87,11 @@ def histogram_discretize(target, num_bins=20):
     return out
 
 
+def make_discretizer(target, num_bins=20,
+                     discretizer_fn=histogram_discretize):
+    return discretizer_fn(target, num_bins)
+
+
 def discrete_mutual_info(mus, ys):
     """Pairwise discrete MI matrix (num_codes, num_factors), in nats."""
     num_codes, num_factors = mus.shape[0], ys.shape[0]
@@ -116,18 +125,37 @@ def logistic_regression_cv():
         "grid) is not ported: ROADMAP queue 1 #16")
 
 
-def gradient_boosting_classifier(device="cpu"):
-    return gbt.GradientBoostingClassifier(device=device)
+#: boosting stages of each gradient-boosting predictor: sklearn's default,
+#: and the in-training tier's (a name of the port's only)
+GBT_STAGES = {"gradient_boosting": 100, "gradient_boosting_fast": 20}
 
 
-def make_predictor_fn(predictor: str = "gradient_boosting"):
+def gradient_boosting_classifier(device="cpu", n_estimators=100):
+    return gbt.GradientBoostingClassifier(n_estimators=n_estimators,
+                                          device=device)
+
+
+def make_predictor_fn(predictor: str = "gradient_boosting", device="cpu"):
     """Predictor registry (the reference binds
-    gradient_boosting_classifier)."""
-    if predictor == "gradient_boosting":
-        return gradient_boosting_classifier
+    gradient_boosting_classifier); the factory fits on ``device``."""
+    if predictor in GBT_STAGES:
+        return functools.partial(gradient_boosting_classifier, device,
+                                 GBT_STAGES[predictor])
     if predictor == "logistic_regression_cv":
         return logistic_regression_cv
     raise ValueError(f"unknown predictor {predictor!r}")
+
+
+def fit_predictors(predictor, x, ys, device="cpu"):
+    """One fitted predictor per label vector of ``ys`` on the same ``x``
+    (samples, features), as many ``predictor_fn().fit(x, y)`` one after the
+    other would give: the gradient-boosted trees of every fit grow
+    together (``gbt.fit_many``), drawing their seeds from numpy's global
+    ``RandomState`` in that order."""
+    if predictor not in GBT_STAGES:
+        make_predictor_fn(predictor)()  # raises: not ported
+    return gbt.fit_many(x, list(ys), n_estimators=GBT_STAGES[predictor],
+                        device=device)
 
 
 def sample_factor_batches(ground_truth_data, num_points, batch_size,
