@@ -25,6 +25,32 @@ with its wall time; any failure exits non-zero:
 5. main path: one swap request, B = 8, 160 samples, DDIM 200, eta 0, with
    the launch counters set to 0 just before it and read just after.
 6. reference: a 10-step chain and a decode, kernel path against plain path.
+
+Then the rest of the sampling and image surface on the same model and the
+8 inputs, each drive with the launch counters set to 0 just before it and
+read just after, its launches equal to its recorded calls:
+
+samplers-shapes: every kernel call of one UNet call at B = 8 and at the
+guidance's B = 16, of one decode at 8 and at 4 (the diffusion row) and of
+one encode at 8; each new shape against its plain version.
+samplers: PLMS at 50 steps; DDIM inversion at 50 steps of the inputs'
+latents, DDIM at eta 0 back and a decode (the round trip's error is
+printed, not gated); guidance at 50 steps, scale 3.0, the unconditional
+branch the warp of zero scalars (the flagship has no null token);
+``log_images`` with every branch (quantized x0, inpainting and
+outpainting, the progressive row's 1,000-step ancestral chain); every
+output of the expected shape and finite.
+samplers-reference: 10-step PLMS, inversion, guidance and inpainting DDIM
+with injected draws, and ancestral DDPM over a 20-timestep schedule with
+the flagship UNet, kernel path against plain path.
+attn-maps: ``cross_attention_maps_for_images`` at t = 500 (16 maps, every
+row summing to 1 within 1e-5; captured ε against uncaptured; maps of the
+kernel path against the plain path's within 1e-4; ``fused_attention`` not
+launched by a captured call), ``ddim_sample_with_attn`` at 50 steps
+capturing every 10, and one captured faces UNet call at B = 4 whose attn1
+runs the flash forward at 4,096 queries; each token's largest spatial share
+at the lowest- and highest-resolution sites is printed.
+
 7. profile: one UNet call's device time by kernel (torch.profiler).
 
 The flagship's stage-2 train step, B = 128, from the same checkpoint through
@@ -392,18 +418,26 @@ from encdiff_tpu_torch import tad as tad_cli
 from encdiff_tpu_torch import train_steps
 from encdiff_tpu_torch.configs import FACES, FACES_TRAIN, FLAGSHIP_TRAIN
 from encdiff_tpu_torch.core.compact_ckpt import load_model_variables
-from encdiff_tpu_torch.core.schedules import DDIMSchedule
+from encdiff_tpu_torch.core.schedules import DDIMSchedule, DiffusionSchedule
 from encdiff_tpu_torch.data import (synthetic_faces, synthetic_mpi3d,
                                     synthetic_shapes)
 from encdiff_tpu_torch.data.datasets import RENDER_THREADS
+from encdiff_tpu_torch.diffusion.ddim import (ddim_invert, ddim_sample,
+                                             ddim_sample_cfg)
+from encdiff_tpu_torch.diffusion.ddpm import (p_sample_loop, q_sample,
+                                              schedule_tables)
+from encdiff_tpu_torch.diffusion.plms import plms_sample
 from encdiff_tpu_torch.data.synthetic_shapes import (
     FACTOR_SIZES, FULL_FACTOR_SIZES, TRAIN_GRID, SyntheticShapes3DV4FullTrain,
     epoch_batches, render_all_v4)
 from encdiff_tpu_torch.evalx import fid as fid_lib
+from encdiff_tpu_torch.evalx.attn_maps import (
+    cross_attention_maps_for_images, ddim_sample_with_attn)
 from encdiff_tpu_torch.evalx.eval_driver import eval_func
 from encdiff_tpu_torch.evalx.evaluate import evaluate_battery
 from encdiff_tpu_torch.evalx.ground_truth.named_data import get_index_dataset
-from encdiff_tpu_torch.evalx.swap import (TOKEN_BUDGET, swap_conditions,
+from encdiff_tpu_torch.evalx.swap import (TOKEN_BUDGET, inpaint_mask,
+                                          log_images, swap_conditions,
                                           swap_sample)
 from encdiff_tpu_torch.generate_swap import pick_inputs
 from encdiff_tpu_torch.models.autoencoder import generator_state
@@ -732,6 +766,21 @@ SHAPES_DIGESTS = {
     ("v4", tuple(FULL_FACTOR_SIZES)):
         "aa61855207576968a278e8b46b21e90419e292120b2655f7c6fa2796fd89e434",
 }
+#: the samplers and attn-maps phases on the flagship (NUM_INPUTS images):
+#: chains of SAMPLER_STEPS, guidance scale, the maps' timestep and the
+#: capture stride of ddim_sample_with_attn, the reference chains' steps and
+#: the reference ancestral chain's timesteps (the plain path cannot afford
+#: 1,000), the tolerance of a map row's sum and of kernel- vs plain-path
+#: maps, and the batch of the captured faces UNet call
+SAMPLER_STEPS = 50
+CFG_SCALE = 3.0
+ATTN_T = 500
+CAPTURE_EVERY = 10
+SAMPLER_REFERENCE_STEPS = 10
+SAMPLER_REFERENCE_TIMESTEPS = 20
+ROW_SUM_TOL = 1e-5
+MAP_TOL = dict(rtol=0.0, atol=1e-4)
+FACES_CAPTURE_BATCH = 4
 KERNELS = {
     "groupnorm_silu": dict(
         source="encdiff_tpu_torch/csrc/groupnorm_silu.cu",
@@ -976,7 +1025,7 @@ def record_shapes(model):
         records["groupnorm_silu"].append((tuple(x.shape), mod.eps, film))
 
     def xattn_hook(mod, args, kwargs):  # the routing of CrossAttention
-        if UNCOUNTED[0]:
+        if UNCOUNTED[0] or kwargs.get("capture"):  # capture: no kernel
             return
         x = args[0]
         ctx = kwargs.get("context", args[1] if len(args) > 1 else None)
@@ -2018,6 +2067,14 @@ def main(argv=None) -> int:
           f"{(lat_k - lat_p).abs().max().item():.3e}, decode max_abs_err "
           f"{(img_k - img_p).abs().max().item():.3e} (tol {PATH_TOL})")
 
+    # ---- the samplers and log_images' branches, then map capture, on the
+    # flagship at B = NUM_INPUTS
+    smp_rows, smp_launches, sampled = samplers_phases(
+        smi, card, model, images, seen_rows(serve_rows))
+    attn_rows, attn_launches = attn_maps_phase(
+        smi, card, model, images, seen_rows(serve_rows, smp_rows), sampled)
+    del sampled
+
     # ---- 7: where the time of one UNet call goes (not a pass/fail phase)
     t0 = time.perf_counter()
     print_profile("profile", t0, f"one UNet call at B={batch}",
@@ -2108,7 +2165,10 @@ def main(argv=None) -> int:
             ("shapes_mcl_step", smcl_rows))
             if rows.get(name)}
         top = next(iter(parts.values()))
-        launches = {"swap": swap_launches[name], "train": train_launches[name],
+        launches = {"swap": swap_launches[name],
+                    "samplers": smp_launches[name],
+                    "attn_maps": attn_launches[name],
+                    "train": train_launches[name],
                     "harness": harness_launches[name],
                     "vq_train": vq_launches[name],
                     "mcl_train": mcl_launches[name],
@@ -2138,7 +2198,9 @@ def main(argv=None) -> int:
                                + [r["err"]
                                   for r in smcl_rows.get(name, ())]
                                + [r["err"]
-                                  for r in harness_rows.get(name, ())]),
+                                  for r in harness_rows.get(name, ())]
+                               + [r["err"] for table in (smp_rows, attn_rows)
+                                  for r in table.get(name, ())]),
             **{k: top[k] for k in (*fields, BASELINE.get(name)) if k in top}}
         for workload, calls in (("train_step", per_step),
                                 ("faces_micro_step", per_micro),
@@ -2212,7 +2274,13 @@ def main(argv=None) -> int:
           "visualization (shapes_mcl); max_abs_err also covers the "
           "faces EncDiff run's latent encode and image log shapes, the eval "
           "chain's and those of the Cars3D, MPI3D, v1 and bands-control "
-          "chains; shapes_mcl_step: one -b shapes_mcl step at B=128; "
+          "chains and the samplers' and captured calls' shapes (B=8 and the "
+          "guidance's B=16 on the flagship, B=4 on the faces UNet); "
+          f"samplers: the PLMS, inversion, guidance and log_images drives "
+          f"at B={NUM_INPUTS}, {SAMPLER_STEPS} steps; attn_maps: "
+          "cross_attention_maps_for_images, ddim_sample_with_attn and the "
+          "captured faces call; "
+          "shapes_mcl_step: one -b shapes_mcl step at B=128; "
           "mcl_step: one MCL fine-tune step at "
           "B=128 (-b flagship_mcl, infonce_mechgrad), whose second order "
           "runs gn_silu_bwd_bwd and the attention VJP (PyTorch ops, not a "
@@ -2404,6 +2472,347 @@ def reference_check(name, t0, model, state, batch, draws):
           f"within {PATH_TOL}; the {len(zero)} leaves with a zero exact "
           f"gradient within {GRAD_ZERO} of the global norm: {zero}. "
           + " | ".join(readings))
+
+
+def nchw(x):
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def nhwc(x):
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def record_calls(model, fn):
+    """(fn(), the shape of every kernel call ``fn()`` makes on ``model`` by
+    kernel)."""
+    records, remove = record_shapes(model)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        remove()
+    return out, {k: list(v) for k, v in records.items()}
+
+
+def counted_drive(label, fn, parts):
+    """``fn()`` with the launch counters set to 0 just before it and read
+    just after: (its output, launches by kernel, wall s). Fails unless the
+    launches equal the recorded calls of ``parts`` ([(calls by kernel,
+    times)]) and no plain version ran."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches, plain_calls = read_counts()
+    expected = {k: sum(len(calls.get(k, ())) * n for calls, n in parts)
+                for k in KERNELS}
+    if launches != expected or any(plain_calls.values()):
+        raise RuntimeError(f"{label}: launches {launches}, expected "
+                           f"{expected}; plain calls {plain_calls}")
+    return out, launches, wall
+
+
+def check_finite(label, x, shape):
+    if tuple(x.shape) != tuple(shape):
+        raise RuntimeError(f"{label}: shape {tuple(x.shape)}, expected "
+                           f"{tuple(shape)}")
+    if not torch.isfinite(torch.as_tensor(x)).all():
+        raise RuntimeError(f"{label}: non-finite values")
+
+
+def check_rows_sum(label, maps, n_maps, shape_of):
+    """Fail unless ``maps`` holds ``n_maps`` maps, each of
+    ``shape_of(path)`` and finite, each row summing to 1 within
+    ROW_SUM_TOL. Returns the largest row error."""
+    if len(maps) != n_maps:
+        raise RuntimeError(f"{label}: {len(maps)} maps, expected {n_maps}")
+    worst = 0.0
+    for k, v in maps.items():
+        v = torch.as_tensor(v)
+        check_finite(f"{label} {k}", v, shape_of(k, v))
+        worst = max(worst, (v.sum(-1) - 1.0).abs().max().item())
+    if worst > ROW_SUM_TOL:
+        raise RuntimeError(f"{label}: a row sums to 1 +- {worst:.2e}")
+    return worst
+
+
+def cross_map_shape(model):
+    """(path, map) -> the shape a cross-attention map of ``model`` at B
+    must have: (B, heads, HW, latent_unit), the heads and HW its site's."""
+    def shape_of(path, v):
+        site = getattr(model.unet, path.split("/")[0])
+        attn2 = site.block_0.attn2
+        return (v.shape[0], attn2.heads, v.shape[2], model.latent_unit)
+    return shape_of
+
+
+def samplers_phases(smi, card, model, images, seen):
+    """The samplers and log_images' branches on the flagship at B =
+    NUM_INPUTS. Returns (rows checked at the new shapes by kernel, the
+    launches of the four drives summed, (tokens, the images' latents, the
+    recorded calls by kind of call))."""
+    # ---- samplers-shapes: every kernel call of each kind of call the
+    # drives make, and every new shape against its plain version
+    t0 = time.perf_counter()
+    b = len(images)
+    side, ch = model.image_size, model.channels
+    u = model.cond_encoding(images)
+    tokens = model.cond_warp(u)
+    # the flagship has no null token: guidance's unconditional branch is
+    # the warp of zero scalars
+    uncond = model.cond_warp(torch.zeros_like(u))
+    gen = torch.Generator("cuda").manual_seed(SEED + 20)
+    x_T = torch.randn(b, side, side, ch, generator=gen, device="cuda")
+    t_mid = torch.full((b,), ATTN_T, device="cuda")
+    z, enc = record_calls(
+        model, lambda: model.encode_first_stage(images) * model.scale_factor)
+    calls = {"encode": enc}
+    _, calls["unet"] = record_calls(
+        model, lambda: model.apply_model(x_T, t_mid, tokens))
+    _, calls["unet_cfg"] = record_calls(model, lambda: model.apply_model(
+        torch.cat([x_T, x_T]), torch.cat([t_mid, t_mid]),
+        torch.cat([uncond, tokens])))
+    _, calls["decode"] = record_calls(
+        model, lambda: model.decode_first_stage(x_T))
+    n_row = min(b, 4)  # log_images' diffusion row
+    _, calls["decode_row"] = record_calls(
+        model, lambda: model.decode_first_stage(x_T[:n_row]))
+    kgen = torch.Generator("cuda").manual_seed(SEED + 21)
+    shapes = {k: [s for c in calls.values() for s in c[k]]
+              for k in calls["unet"]}
+    rows = {name: check_rows(name, v, kgen, card, seen)
+            for name, v in shapes.items() if v}
+    phase("samplers-shapes", t0, f"B={b} (guidance B={2 * b}); calls per "
+          + ", ".join(f"{kind} { {k: len(v) for k, v in c.items()} }"
+                      for kind, c in calls.items())
+          + f"; each new shape against its plain version (tol {KERNEL_TOL})")
+
+    # ---- samplers: PLMS, inversion and back, guidance, log_images
+    t0 = time.perf_counter()
+    dsched = DDIMSchedule.create(model.schedule, SAMPLER_STEPS)
+    den = model.make_denoiser(tokens)
+    total = collections.Counter()
+    walls = {}
+
+    def drive(label, fn, parts):
+        out, launches, walls[label] = counted_drive(label, fn, parts)
+        total.update(launches)
+        return out
+
+    plms = drive("plms", lambda: plms_sample(dsched, den, nchw(x_T)),
+                 [(calls["unet"], SAMPLER_STEPS + 1)])
+    check_finite("plms", plms, (b, ch, side, side))
+
+    def round_trip():
+        z0 = model.encode_first_stage(images) * model.scale_factor
+        inv = ddim_invert(dsched, den, nchw(z0))
+        back = nhwc(ddim_sample(dsched, den, inv))
+        return inv, back, model.decode_first_stage(back)
+
+    inv, back, img_back = drive(
+        "invert", round_trip, [(calls["encode"], 1),
+                               (calls["unet"], 2 * SAMPLER_STEPS),
+                               (calls["decode"], 1)])
+    check_finite("inversion", inv, (b, ch, side, side))
+    check_finite("inversion round trip", img_back, images.shape)
+    recon = model.decode_first_stage(z)
+    trip = dict(latent=(back - z).abs().max().item(),
+                image=(img_back - model._tensor(images)).abs().max().item(),
+                recon=(img_back - recon).abs().max().item(),
+                inverted_std=inv.std().item())
+
+    cfg = drive("cfg", lambda: ddim_sample_cfg(
+        dsched, model.unet, tokens, uncond, CFG_SCALE, nchw(x_T)),
+        [(calls["unet_cfg"], SAMPLER_STEPS)])
+    check_finite("cfg", cfg, (b, ch, side, side))
+
+    n_t = model.num_timesteps
+    diff_rows = len(range(0, n_t, model.log_every_t)) + (
+        (n_t - 1) % model.log_every_t != 0)
+    prog_rows = len(range(0, n_t, model.log_every_t))
+    log = drive("log_images", lambda: log_images(
+        model, images, N=b, ddim_steps=SAMPLER_STEPS, quantize_denoised=True,
+        inpaint=True, plot_progressive_rows=True, sample_swap=False,
+        generator=torch.Generator("cuda").manual_seed(SEED)),
+        [(calls["encode"], 1), (calls["unet"], 4 * SAMPLER_STEPS + n_t),
+         (calls["decode"], 5 + prog_rows), (calls["decode_row"], diff_rows)])
+    px = images.shape[1:]
+    want = {"inputs": images.shape, "reconstruction": images.shape,
+            "conditioning": images.shape,
+            "diffusion_row": (n_row, diff_rows, *px),
+            "samples": images.shape, "samples_x0_quantized": images.shape,
+            "samples_inpainting": images.shape, "mask": (b, side, side, 1),
+            "samples_outpainting": images.shape,
+            "progressive_row": (b, prog_rows, *px)}
+    if set(log) != set(want):
+        raise RuntimeError(f"log_images keys {sorted(log)}")
+    for k, shape in want.items():
+        check_finite(f"log_images {k}", log[k], shape)
+    phase("samplers", t0, f"B={b}, {SAMPLER_STEPS} steps: walls "
+          + ", ".join(f"{k} {v:.3f}s" for k, v in walls.items())
+          + f" (PLMS {SAMPLER_STEPS + 1} UNet calls; inversion, DDIM eta 0 "
+          f"back and a decode; guidance scale {CFG_SCALE} at B={2 * b}, "
+          "uncond the warp of zero scalars, the flagship having no null "
+          f"token; log_images with every branch, its ancestral chain "
+          f"{n_t} UNet calls, log_every_t {model.log_every_t}); launches "
+          f"{dict(total)} (expected, no plain call); inversion round trip "
+          f"(a finding): latent max_abs_err {trip['latent']:.3e}, image "
+          f"{trip['image']:.3e} against the inputs, {trip['recon']:.3e} "
+          f"against their reconstruction, x_T std {trip['inverted_std']:.3f}"
+          f" | {smi}")
+
+    # ---- samplers-reference: kernel path vs plain path, same draws
+    t0 = time.perf_counter()
+    steps = SAMPLER_REFERENCE_STEPS
+    d_ref = DDIMSchedule.create(model.schedule, steps)
+    d_eta = DDIMSchedule.create(model.schedule, steps, eta=1.0)
+    sched20 = DiffusionSchedule.create(
+        timesteps=SAMPLER_REFERENCE_TIMESTEPS,
+        linear_start=model.schedule.linear_start,
+        linear_end=model.schedule.linear_end)
+    tables20 = schedule_tables(sched20, "cuda")
+    rgen = torch.Generator("cuda").manual_seed(SEED + 22)
+    draw = lambda: torch.randn(b, ch, side, side, generator=rgen,
+                               device="cuda")
+    noises, q_noises = [draw() for _ in range(steps)], [
+        draw() for _ in range(steps)]
+    noises20 = [draw() for _ in range(SAMPLER_REFERENCE_TIMESTEPS)]
+    mask = nchw(inpaint_mask(b, side).cuda())
+
+    def chains():
+        return {
+            "plms": plms_sample(d_ref, den, nchw(x_T)),
+            "invert": ddim_invert(d_ref, den, nchw(z)),
+            "cfg": ddim_sample_cfg(d_ref, model.unet, tokens, uncond,
+                                   CFG_SCALE, nchw(x_T)),
+            "inpaint": ddim_sample(d_eta, den, nchw(x_T), noises=noises,
+                                   mask=mask, x0=nchw(z), tables=model.tables,
+                                   q_noises=q_noises),
+            "ancestral": p_sample_loop(tables20, den, nchw(x_T),
+                                       noises=noises20)}
+
+    kernel = chains()
+    with plain_path():
+        plain = chains()
+    torch.cuda.synchronize()
+    errs = {}
+    for k in kernel:
+        torch.testing.assert_close(kernel[k], plain[k], **PATH_TOL)
+        errs[k] = (kernel[k] - plain[k]).abs().max().item()
+    phase("samplers-reference", t0, f"B={b}, {steps}-step PLMS, inversion, "
+          f"guidance and inpainting DDIM (eta 1), ancestral DDPM over a "
+          f"{SAMPLER_REFERENCE_TIMESTEPS}-timestep schedule, kernel vs plain "
+          "path max_abs_err " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in errs.items())
+          + f" (tol {PATH_TOL})")
+    return rows, dict(total), (tokens, z, calls)
+
+
+def token_shares(maps):
+    """Each token's largest share of its attention over the spatial
+    positions, averaged over the batch and the heads: (latent_unit,)."""
+    share = maps / maps.sum(dim=2, keepdim=True)
+    return share.amax(dim=2).mean(dim=(0, 1))
+
+
+def attn_maps_phase(smi, card, model, images, seen, sampled):
+    """Cross-attention map capture on the flagship at B = NUM_INPUTS, and
+    one captured faces UNet call at B = FACES_CAPTURE_BATCH, whose attn1
+    runs the flash forward at 4,096 queries. Returns (rows checked at the
+    faces call's shapes, the launches of the three drives summed)."""
+    t0 = time.perf_counter()
+    tokens, z, calls = sampled
+    b = len(images)
+    gen = torch.Generator("cuda").manual_seed(SEED + 23)
+    noise = torch.randn(z.shape, generator=gen, device="cuda")
+    t = torch.full((b,), ATTN_T, device="cuda")
+    z_noisy = q_sample(model.tables, z, t, noise)
+    (eps_c, maps_k), cap = record_calls(model, lambda: model.apply_model(
+        z_noisy, t, tokens, capture_attn=True))
+    if cap["fused_attention"] or cap["flash_attention_fwd"]:
+        raise RuntimeError(f"a captured call records {cap}")
+    total = collections.Counter()
+    walls = {}
+
+    def drive(label, fn, parts):
+        out, launches, walls[label] = counted_drive(label, fn, parts)
+        total.update(launches)
+        return out
+
+    maps, _, _ = drive("cross_attention_maps_for_images",
+                       lambda: cross_attention_maps_for_images(
+                           model, images, t_value=ATTN_T, noise=noise),
+                       [(calls["encode"], 1), (cap, 1)])
+    n_sites = len(maps_k)
+    shape_of = cross_map_shape(model)
+    row_err = check_rows_sum("maps", maps, n_sites, shape_of)
+    eps_u = model.apply_model(z_noisy, t, tokens)
+    torch.testing.assert_close(eps_c, eps_u, **PATH_TOL)
+    with plain_path():
+        _, maps_p = model.apply_model(z_noisy, t, tokens, capture_attn=True)
+    map_err = 0.0
+    for k in maps:
+        torch.testing.assert_close(maps[k], maps_p[k], **MAP_TOL)
+        map_err = max(map_err, (maps[k] - maps_p[k]).abs().max().item())
+
+    x_T = torch.randn(z.shape, generator=gen, device="cuda")
+    n_capt = len(range(0, SAMPLER_STEPS, CAPTURE_EVERY))
+    img, collected = drive(
+        "ddim_sample_with_attn", lambda: ddim_sample_with_attn(
+            model, tokens, ddim_steps=SAMPLER_STEPS,
+            capture_every=CAPTURE_EVERY, x_T=x_T),
+        [(calls["unet"], SAMPLER_STEPS), (cap, n_capt)])
+    check_finite("ddim_sample_with_attn", img, z.shape)
+    if len(collected) != n_capt:
+        raise RuntimeError(f"{len(collected)} captures, expected {n_capt}")
+    for step_t, step_maps in collected.items():
+        row_err = max(row_err, check_rows_sum(
+            f"capture at t={step_t}", step_maps, n_sites, shape_of))
+
+    # one captured faces UNet call: attn1 on the flash forward at 4,096
+    fmodel = faces_model(FACES_TRAIN["seed"])
+    fb, fside = FACES_CAPTURE_BATCH, fmodel.image_size
+    fx = torch.randn(fb, fside, fside, fmodel.channels, generator=gen,
+                     device="cuda")
+    ft = torch.full((fb,), ATTN_T, device="cuda")
+    ftok = fmodel.cond_warp(torch.randn(fb, fmodel.latent_unit,
+                                        generator=gen, device="cuda"))
+    _, fcap = record_calls(fmodel, lambda: fmodel.apply_model(
+        fx, ft, ftok, capture_attn=True))
+    if not fcap["flash_attention_fwd"] or fcap["fused_attention"]:
+        raise RuntimeError(f"the captured faces call records {fcap}")
+    (_, fmaps) = drive("faces_capture", lambda: fmodel.apply_model(
+        fx, ft, ftok, capture_attn=True), [(fcap, 1)])
+    row_err = max(row_err, check_rows_sum("faces maps", fmaps, len(fmaps),
+                                          cross_map_shape(fmodel)))
+    kgen = torch.Generator("cuda").manual_seed(SEED + 24)
+    rows = {name: check_rows(name, v, kgen, card, seen)
+            for name, v in fcap.items() if v}
+    del fmodel
+
+    by_hw = sorted(maps, key=lambda k: (maps[k].shape[2], k))
+    shares = {k: token_shares(maps[k]).tolist() for k in (by_hw[0],
+                                                          by_hw[-1])}
+    phase("attn-maps", t0, f"{n_sites} cross-attention maps of {b} images at "
+          f"t={ATTN_T}, {tuple(maps[by_hw[0]].shape)} to "
+          f"{tuple(maps[by_hw[-1]].shape)}; rows sum to 1 within "
+          f"{row_err:.2e} (tol {ROW_SUM_TOL}); captured eps vs uncaptured "
+          f"max_abs_err {(eps_c - eps_u).abs().max().item():.3e} (tol "
+          f"{PATH_TOL}); maps kernel vs plain path max_abs_err {map_err:.3e} "
+          f"(tol {MAP_TOL}); per captured call "
+          f"{ {k: len(v) for k, v in cap.items()} }; ddim_sample_with_attn "
+          f"{SAMPLER_STEPS} steps, {len(collected)} captures at t="
+          f"{sorted(collected)}; faces captured call at B={fb} "
+          f"{ {k: len(v) for k, v in fcap.items()} }, {len(fmaps)} maps; "
+          "walls " + ", ".join(f"{k} {v:.3f}s" for k, v in walls.items())
+          + f"; launches {dict(total)} (expected, no plain call) | {smi}")
+    for k, v in shares.items():
+        print(f"  attn-maps token shares at {k} (HW {maps[k].shape[2]}; "
+              "each token's largest spatial share, a finding): "
+              + " ".join(f"{x:.3f}" for x in v), flush=True)
+    return rows, dict(total)
 
 
 def train_phases(smi, card):

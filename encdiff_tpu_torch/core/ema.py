@@ -61,3 +61,11 @@ def applied(state: EmaState, named_params: dict):
         with torch.no_grad():
             for k, v in saved.items():
                 named_params[k].copy_(v)
+
+
+def maybe_applied(state: EmaState | None, module):
+    """``applied`` to ``module``'s parameters where ``state`` is given, else
+    a block that changes nothing."""
+    if state is None:
+        return contextlib.nullcontext()
+    return applied(state, dict(module.named_parameters()))

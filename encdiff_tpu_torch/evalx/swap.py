@@ -4,12 +4,10 @@ Counterpart of ``encdiff_tpu/evalx/swap.py:35-111`` (``swap_conditions``,
 ``_decode_chunked``, ``swap_sample``): the swaps of all ``latent_unit``
 factors fold into one batch of ``latent_unit * B`` samples, run through DDIM
 in chunks of a token budget and decoded in factor-major order. ``log_images``
-(:114-238) holds the branches the flagship's image logger turns on.
+(:114-238) holds every branch of the JAX battery.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import torch
 
@@ -68,16 +66,21 @@ def swap_sample(model, images, ddim_steps: int = 200, eta: float = 1.0,
     return torch.cat(outs)
 
 
-#: the ``log_images`` branches that are not ported (ROADMAP queue 1 #13)
-UNPORTED_LOG_BRANCHES = ("quantize_denoised", "inpaint",
-                         "plot_progressive_rows")
+def inpaint_mask(n: int, h: int):
+    """(n, h, h, 1) ones with the centre square [h/4, 3h/4)² zeroed: the
+    region the inpainting branch samples and the outpainting one keeps."""
+    mask = torch.ones(n, h, h, 1)
+    mask[:, h // 4:3 * h // 4, h // 4:3 * h // 4] = 0.0
+    return mask
 
 
 @torch.no_grad()
 def log_images(model, batch, N: int = 8, n_row: int = 4, sample: bool = True,
                ddim_steps: int = 200, ddim_eta: float = 1.0,
-               sample_swap: bool = False, plot_diffusion_rows: bool = True,
-               ema=None, log_every_t: int = 200,
+               quantize_denoised: bool = False, inpaint: bool = False,
+               plot_progressive_rows: bool = False, sample_swap: bool = False,
+               plot_diffusion_rows: bool = True, ema=None,
+               log_every_t: int | None = None,
                generator: torch.Generator | None = None,
                **kwargs) -> dict:
     """The image logger's battery (``encdiff_tpu/evalx/swap.py:114-238``)
@@ -87,18 +90,28 @@ def log_images(model, batch, N: int = 8, n_row: int = 4, sample: bool = True,
     (the images Encoder4 reads), ``diffusion_row`` (the first
     ``min(N, n_row)`` latents noised at every ``log_every_t``-th timestep
     and the last, decoded: (n_row, T', S, S, 3)), ``samples`` (DDIM from
-    the inputs' tokens) and ``samples_swapping`` (``swap_sample``). With
-    ``ema`` (an ``EmaState`` of the UNet) both samplers run on its
-    weights, as the JAX logger's ``use_ema=True``. Noise comes from
-    ``generator`` (seed 42 by default). ``quantize_denoised``, ``inpaint``
-    and ``plot_progressive_rows`` raise ``NotImplementedError``."""
-    asked = [k for k in UNPORTED_LOG_BRANCHES if kwargs.pop(k, False)]
-    if asked:
-        raise NotImplementedError(
-            f"log_images branches {asked} are not ported (ROADMAP queue 1 "
-            "#13)")
+    the inputs' tokens), ``samples_swapping`` (``swap_sample``),
+    ``samples_x0_quantized`` (DDIM with each step's predicted x0 through
+    the VQ codebook), ``samples_inpainting``, ``mask`` (``inpaint_mask``)
+    and ``samples_outpainting`` (DDIM with the inputs' noised latents
+    blended in outside, then inside, the centre square) and
+    ``progressive_row`` (ancestral DDPM decoded after every
+    ``log_every_t``-th step: (N, T / log_every_t, S, S, 3)).
+    ``log_every_t`` defaults to the model's (its config's, as the JAX
+    branches read ``model.log_every_t``). With ``ema`` (an ``EmaState`` of
+    the UNet) every sampler runs on its weights, as the JAX logger's
+    ``use_ema=True``. Noise comes from ``generator`` (seed 42 by default).
+
+    ``quantize_denoised`` departs from the JAX branch, which cannot run:
+    its ``quantize_fn`` runs the VQ encoder on the latent x0
+    (``encdiff_tpu/evalx/swap.py:191-197``) and fails on the shrunken
+    shape; here x0 goes through the codebook only, what the branch means
+    (``ddpm_enc.py:1552-1559``)."""
+    del kwargs
     if generator is None:
         generator = torch.Generator(model.device).manual_seed(42)
+    if log_every_t is None:
+        log_every_t = model.log_every_t
     x, _ = model.split_batch(batch[:N])
     N = x.shape[0]
     n_row = min(N, n_row)
@@ -119,14 +132,29 @@ def log_images(model, batch, N: int = 8, n_row: int = 4, sample: bool = True,
                                noise)
             rows.append(model.decode_first_stage(z_noisy))
         log["diffusion_row"] = torch.stack(rows, dim=1)
-    with (ema_lib.applied(ema, dict(model.unet.named_parameters()))
-          if ema is not None else contextlib.nullcontext()):
+    tokens = model.cond_warp(model.cond_encoding(x))
+    ddim = dict(steps=ddim_steps, eta=ddim_eta, generator=generator)
+    with ema_lib.maybe_applied(ema, model.unet):
         if sample_swap:
             log["samples_swapping"] = swap_sample(
                 model, x, ddim_steps=ddim_steps, eta=ddim_eta,
                 generator=generator)
         if sample:
-            tokens = model.cond_warp(model.cond_encoding(x))
-            log["samples"] = model.decode_first_stage(model.sample_ddim(
-                tokens, steps=ddim_steps, eta=ddim_eta, generator=generator))
+            log["samples"] = model.decode_first_stage(
+                model.sample_ddim(tokens, **ddim))
+        if quantize_denoised:
+            log["samples_x0_quantized"] = model.decode_first_stage(
+                model.sample_ddim(tokens, quantize_denoised=True, **ddim))
+        if inpaint:
+            mask = inpaint_mask(N, model.image_size).to(model.device)
+            log["samples_inpainting"] = model.decode_first_stage(
+                model.sample_ddim(tokens, mask=mask, x0=z, **ddim))
+            log["mask"] = mask
+            log["samples_outpainting"] = model.decode_first_stage(
+                model.sample_ddim(tokens, mask=1.0 - mask, x0=z, **ddim))
+        if plot_progressive_rows:
+            _, inter = model.sample_ddpm(tokens, generator=generator,
+                                         log_every_t=log_every_t)
+            log["progressive_row"] = torch.stack(
+                [model.decode_first_stage(zi) for zi in inter], dim=1)
     return {k: v.cpu().numpy() for k, v in log.items()}

@@ -1,8 +1,10 @@
 """LatentDiffusion: the EncDiff model behind the serving and training paths.
 
 Counterpart of ``encdiff_tpu/models/latent_diffusion.py``: for serving
-``apply_model``, ``cond_encoding``, ``cond_warp``, ``decode_first_stage``,
-``sample_ddim``; for training (:243-376, 412-421) ``encode_first_stage``,
+``apply_model`` (with attention-map capture), ``cond_encoding``,
+``cond_warp``, ``decode_first_stage``, ``make_denoiser``, ``sample_ddim``
+(with the inpainting mask, x0 quantization and intermediates) and
+``sample_ddpm``; for training (:243-376, 412-421) ``encode_first_stage``,
 ``get_learned_conditioning``, ``split_batch``, ``loss_fn`` (with the MCL
 term of :354-373 where the config asks for it) and
 ``compute_scale_factor``, with the constant logvar table
@@ -30,7 +32,8 @@ from encdiff_tpu_torch.core.compact_ckpt import (checkpoint_npz,
 from encdiff_tpu_torch.core.device import resolve_device
 from encdiff_tpu_torch.core.schedules import DDIMSchedule, DiffusionSchedule
 from encdiff_tpu_torch.diffusion.ddim import ddim_sample
-from encdiff_tpu_torch.diffusion.ddpm import ddpm_losses, schedule_tables
+from encdiff_tpu_torch.diffusion.ddpm import (ddpm_losses, p_sample_loop,
+                                              schedule_tables)
 from encdiff_tpu_torch.losses.indep import indep_penalty
 from encdiff_tpu_torch.losses.mcl import MCL_LOSS_TYPES, build_mcl_modules, mcl_loss
 from encdiff_tpu_torch.models.autoencoder import VQModelInterface
@@ -68,6 +71,7 @@ READ = {
     "timesteps", "linear_start", "linear_end", "image_size", "channels",
     "unet_config", "first_stage_config", "cond_stage_config", "scale_by_std", "indep_type", "lambda_indep", "use_mcl", "mcl_type",
     "lambda_mcl", "mcl_tau", "mcl_sigma", "mcl_neg_mode", "mcl_proj_dim",
+    "log_every_t",
 }
 #: keys read elsewhere (the harness, its callbacks, ``train_steps``), and
 #: ``dtype``: parameters and activations are fp32 whatever it names (the
@@ -75,18 +79,19 @@ READ = {
 #: read by the JAX step either, which trains Encoder4 whatever it says;
 #: ``concat_mode`` matters only without a ``conditioning_key``
 ELSEWHERE = {
-    "monitor", "scheduler_config", "eval_name", "log_every_t",
-    "base_learning_rate", "batch_size", "seed", "accumulate_grad_batches",
-    "dtype", "cond_stage_trainable", "concat_mode",
+    "monitor", "scheduler_config", "eval_name", "base_learning_rate",
+    "batch_size", "seed", "accumulate_grad_batches", "dtype",
+    "cond_stage_trainable", "concat_mode",
 }
 
 
 class LatentDiffusion(nn.Module):
     """UNet + Encoder4 + VQ first stage with the flagship's linear schedule,
     and the MCL heads where ``use_mcl`` is set. The loss settings
-    ``scale_by_std``, ``indep_type``, ``lambda_indep`` and the seven MCL
-    keys come from ``config`` with the JAX package's
-    defaults; the rest are the flagship's (ε-prediction, L1, no vlb term, a
+    ``scale_by_std``, ``indep_type``, ``lambda_indep``, the seven MCL
+    keys and ``log_every_t`` (the image logger's stride over the timesteps)
+    come from ``config`` with the JAX package's defaults; the rest are the
+    flagship's (ε-prediction, L1, no vlb term, a
     constant logvar of 0, HSIC bandwidth 1, an initial scale factor of 1:
     ``FIXED``), and a config that
     names another value of them, or a key the port does not know, is
@@ -117,6 +122,8 @@ class LatentDiffusion(nn.Module):
             linear_start=config["linear_start"],
             linear_end=config["linear_end"])
         self.num_timesteps = config["timesteps"]
+        self.log_every_t = int(config.get("log_every_t", 100))
+        self.latent_unit = config["unet_config"].get("latent_unit", 20)
         self.scale_factor = 1.0
         self.scale_by_std = config.get("scale_by_std", False)
         self.indep_type = config.get("indep_type") or None
@@ -260,11 +267,29 @@ class LatentDiffusion(nn.Module):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     @torch.no_grad()
-    def apply_model(self, x_noisy, t, cond):
-        """ε_θ(x_t, t, tokens): x_noisy (B, H, W, C), t (B,), cond (B, U*D)."""
+    def apply_model(self, x_noisy, t, cond, capture_attn: bool = False):
+        """ε_θ(x_t, t, tokens): x_noisy (B, H, W, C), t (B,), cond (B, U*D).
+        With ``capture_attn``: (ε, {path: the cross-attention probabilities
+        (B, heads, HW, latent_unit)}), the paths the JAX ``attn_maps``
+        collection's (``nn.unet``)."""
         t = torch.as_tensor(t, device=self.device).long()
-        return _nhwc(self.unet(_nchw(self._tensor(x_noisy)), t,
-                               self._tensor(cond)))
+        x, cond = _nchw(self._tensor(x_noisy)), self._tensor(cond)
+        if capture_attn:
+            eps, maps = self.unet(x, t, cond, capture=True)
+            return _nhwc(eps), maps
+        return _nhwc(self.unet(x, t, cond))
+
+    def make_denoiser(self, tokens):
+        """ε_θ(·, ·, tokens) on NCHW latents, the denoiser the samplers of
+        ``encdiff_tpu_torch.diffusion`` take."""
+        tokens = self._tensor(tokens)
+        return lambda x, t: self.unet(x, t, tokens)
+
+    def quantize_latent(self, z):
+        """NCHW latents at the diffusion's scale through the first stage's
+        codebook alone: quantize(z / scale_factor) * scale_factor."""
+        sf = self.scale_factor
+        return self.first_stage_model.quantize(z / sf)[0] * sf
 
     @torch.no_grad()
     def cond_encoding(self, x):
@@ -288,27 +313,71 @@ class LatentDiffusion(nn.Module):
             z, force_not_quantize=force_not_quantize,
             disentangled_repr=disentangled_repr))
 
+    def _x_T(self, b, x_T, generator):
+        """x_T (B, H, W, C) as given, else drawn from ``generator``."""
+        if x_T is None:
+            return torch.randn(b, self.image_size, self.image_size,
+                               self.channels, generator=generator,
+                               device=self.device)
+        return self._tensor(x_T)
+
     @torch.no_grad()
     def sample_ddim(self, tokens, steps: int = 200, eta: float = 0.0,
                     x_T=None, generator: torch.Generator | None = None,
-                    noises=None, temperature: float = 1.0):
+                    noises=None, temperature: float = 1.0,
+                    log_every: int | None = None, mask=None, x0=None,
+                    q_noises=None, quantize_denoised: bool = False):
         """DDIM in latent space conditioned on flat tokens (B, U*D).
         ``x_T`` (B, H, W, C) and the per-step ``noises`` (S, B, H, W, C) may
         be injected; otherwise they are drawn from ``generator``. Returns
-        latents (B, H, W, C)."""
+        latents (B, H, W, C).
+
+        ``mask`` (B, H, W, 1) and ``x0`` (B, H, W, C) blend the forward-noised
+        x0 in where the mask is 1 before each step (inpainting), with the
+        per-step ``q_noises`` (S, B, H, W, C) or draws from ``generator``;
+        ``quantize_denoised`` maps each step's predicted x0 through the
+        codebook (``quantize_latent``); ``log_every`` also returns the
+        sample and the predicted x0 after steps 0, log_every, ...:
+        (latents, (samples, x0s)), each (K, B, H, W, C)."""
         tokens = self._tensor(tokens)
-        b = tokens.shape[0]
-        if x_T is None:
-            x_T = torch.randn(b, self.image_size, self.image_size,
-                              self.channels, generator=generator,
-                              device=self.device)
-        if noises is not None:
-            noises = [_nchw(self._tensor(n)) for n in noises]
+        nchw = lambda seq: None if seq is None else [
+            _nchw(self._tensor(n)) for n in seq]
         dsched = DDIMSchedule.create(self.schedule, steps, eta=eta)
-        out = ddim_sample(dsched, lambda x, t: self.unet(x, t, tokens),
-                          _nchw(self._tensor(x_T)), noises=noises,
-                          generator=generator, temperature=temperature)
-        return _nhwc(out)
+        out = ddim_sample(
+            dsched, self.make_denoiser(tokens),
+            _nchw(self._x_T(tokens.shape[0], x_T, generator)),
+            noises=nchw(noises), generator=generator, temperature=temperature,
+            quantize_fn=self.quantize_latent if quantize_denoised else None,
+            mask=None if mask is None else _nchw(self._tensor(mask)),
+            x0=None if x0 is None else _nchw(self._tensor(x0)),
+            tables=self.tables, q_noises=nchw(q_noises), log_every=log_every)
+        if not log_every:
+            return _nhwc(out)
+        img, (imgs, x0s) = out
+        stacked = lambda t: t.permute(0, 1, 3, 4, 2).contiguous()
+        return _nhwc(img), (stacked(imgs), stacked(x0s))
+
+    @torch.no_grad()
+    def sample_ddpm(self, tokens, x_T=None, noises=None,
+                    generator: torch.Generator | None = None,
+                    log_every_t: int | None = None):
+        """Ancestral DDPM over all ``num_timesteps`` conditioned on flat
+        tokens (B, U*D), the predicted x0 clipped to [-1, 1]. ``x_T``
+        (B, H, W, C) and the per-step ``noises`` (T, B, H, W, C) may be
+        injected; otherwise they are drawn from ``generator``. Returns
+        latents (B, H, W, C); with ``log_every_t`` also the samples after
+        steps 0, log_every_t, ...: (K, B, H, W, C)."""
+        tokens = self._tensor(tokens)
+        if noises is not None:
+            noises = self._tensor(noises).permute(0, 1, 4, 2, 3).contiguous()
+        out = p_sample_loop(
+            self.tables, self.make_denoiser(tokens),
+            _nchw(self._x_T(tokens.shape[0], x_T, generator)), noises=noises,
+            generator=generator, log_every_t=log_every_t)
+        if not log_every_t:
+            return _nhwc(out)
+        img, inter = out
+        return _nhwc(img), inter.permute(0, 1, 3, 4, 2).contiguous()
 
     # --- training -----------------------------------------------------------
     def split_batch(self, batch):

@@ -1,9 +1,8 @@
 """Cross-attention stack of the UNet, NCHW at its edges.
 
-Counterpart of ``encdiff_tpu/nn/attention.py:28-191`` without attention-map
-capture, which is not on the serving or training path. ``attention`` routes
-as the JAX ``attention`` does: large self-attention to the flash kernels,
-everything else to the ``attention_core`` kernel.
+Counterpart of ``encdiff_tpu/nn/attention.py:28-191``. ``attention``
+routes as the JAX ``attention`` does: large self-attention to the flash
+kernels, everything else to the ``attention_core`` kernel.
 
 ``CrossAttention.forward`` takes the ``fused_attention`` kernel (the
 projections, the per-head softmax and the output projection in one launch)
@@ -22,6 +21,16 @@ and the train step keeps ``attention_core`` and its backward there. Inside
 from the JAX routing only in which implementation computes the same
 function: the JAX package runs XLA's projections around ``attention_core``
 there (``encdiff_tpu/nn/pallas/__init__.py:28-36``).
+
+Attention-map capture (``capture=True``, passed to each block's
+cross-attention ``attn2`` only, as the JAX ``BasicTransformerBlock`` passes
+it) returns the per-head probabilities (B, heads, N, M) beside the output.
+It takes the route the JAX capture forces (``encdiff_tpu/nn/attention.py:
+56-60, 92-97``), the one site where the JAX package runs no Pallas kernel:
+the projections, the scores, an fp32 softmax and the value product in
+PyTorch ops, and no kernel of the port. The maps come back under the JAX
+collection's names, the flax path joined by ``/``
+(``down_1_0_attn/block_0/attn2/attn``).
 """
 
 from __future__ import annotations
@@ -75,7 +84,11 @@ class CrossAttention(nn.Module):
         return not (torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, context, *self.parameters())))
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, capture: bool = False):
+        """The attention's output; with ``capture`` (output, probabilities
+        (B, heads, N, M))."""
+        if capture:
+            return self._captured(x, context)
         if self.takes_fused(x, context):
             # no gradient is needed here, so every argument goes in detached
             # (a parameter's view still reports requires_grad under no_grad)
@@ -84,15 +97,31 @@ class CrossAttention(nn.Module):
                 self.to_k.weight.detach().t(), self.to_v.weight.detach().t(),
                 self.to_out.weight.detach().t(), self.to_out.bias.detach(),
                 heads=self.heads, dim_head=self.dim_head)
+        return self._out(attention(*self._project(x, context), self.scale))
+
+    def _project(self, x, context):
+        """q (B, H, N, dh) from x; k and v (B, H, M, dh) from the context
+        (x itself when None)."""
         context = x if context is None else context
         b, n, _ = x.shape
         m = context.shape[1]
         h, dh = self.heads, self.dim_head
-        q = self.to_q(x).view(b, n, h, dh).transpose(1, 2)
-        k = self.to_k(context).view(b, m, h, dh).transpose(1, 2)
-        v = self.to_v(context).view(b, m, h, dh).transpose(1, 2)
-        out = attention(q, k, v, self.scale)
+        return (self.to_q(x).view(b, n, h, dh).transpose(1, 2),
+                self.to_k(context).view(b, m, h, dh).transpose(1, 2),
+                self.to_v(context).view(b, m, h, dh).transpose(1, 2))
+
+    def _out(self, out):
+        """The heads (B, H, N, dh) merged and projected out."""
+        b, h, n, dh = out.shape
         return self.to_out(out.transpose(1, 2).reshape(b, n, h * dh))
+
+    def _captured(self, x, context):
+        """The JAX capture route: einsum, fp32 softmax, einsum, in PyTorch
+        ops."""
+        q, k, v = self._project(x, context)
+        sim = torch.einsum("bhid,bhjd->bhij", q, k) * self.scale
+        attn = torch.softmax(sim.float(), dim=-1)
+        return self._out(torch.einsum("bhij,bhjd->bhid", attn, v)), attn
 
 
 class GEGLU(nn.Module):
@@ -132,10 +161,17 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, capture: bool = False):
+        """The block's output; with ``capture`` (output, {"attn2/attn":
+        attn2's probabilities})."""
         x = self.attn1(self.norm1(x)) + x
-        x = self.attn2(self.norm2(x), context=context) + x
-        return self.ff(self.norm3(x)) + x
+        if capture:
+            h, attn = self.attn2(self.norm2(x), context=context, capture=True)
+        else:
+            h = self.attn2(self.norm2(x), context=context)
+        x = h + x
+        x = self.ff(self.norm3(x)) + x
+        return (x, {"attn2/attn": attn}) if capture else x
 
 
 class SpatialTransformer(nn.Module):
@@ -154,14 +190,24 @@ class SpatialTransformer(nn.Module):
                 inner, n_heads, d_head, context_dim=context_dim))
         self.proj_out = TorchConv(inner, in_channels, 1)
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, capture: bool = False):
+        """The layer's output; with ``capture`` (output, maps by
+        ``block_i/attn2/attn``)."""
         b, _, hgt, wid = x.shape
         h = self.proj_in(self.norm(x))
         inner = h.shape[1]
         h = h.flatten(2).transpose(1, 2)
+        maps = {}
         for i in range(self.depth):
-            h = getattr(self, f"block_{i}")(h, context=context)
+            block = getattr(self, f"block_{i}")
+            if capture:
+                h, block_maps = block(h, context=context, capture=True)
+                maps.update({f"block_{i}/{k}": v
+                             for k, v in block_maps.items()})
+            else:
+                h = block(h, context=context)
         # back to contiguous NCHW: a channels-last view here would make
         # cuDNN return channels-last, which the GN-SiLU kernel refuses
         h = h.transpose(1, 2).contiguous().view(b, inner, hgt, wid)
-        return self.proj_out(h) + x
+        out = self.proj_out(h) + x
+        return (out, maps) if capture else out

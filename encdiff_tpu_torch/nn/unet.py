@@ -4,7 +4,9 @@ Counterpart of ``encdiff_tpu/nn/unet.py:35-247`` for the configuration the
 EncDiff configs use: FiLM ResBlocks (``use_scale_shift_norm``), ResBlock
 up/down-sampling (``resblock_updown``) and SpatialTransformer attention.
 Module names follow the flax tree (``down_{level}_{i}_res``, ``mid_attn``,
-``up_{level}_us``, ...), so converted checkpoints load by name.
+``up_{level}_us``, ...), so converted checkpoints load by name, and the
+attention maps of ``forward(..., capture=True)`` carry the JAX
+``attn_maps`` collection's paths (``down_1_0_attn/block_0/attn2/attn``).
 """
 
 from __future__ import annotations
@@ -122,7 +124,10 @@ class UNetModel(nn.Module):
         self.out_norm = GNSiLU(ch, eps=1e-5)
         self.out_conv = TorchConv(ch, out_channels, 3, padding=1)
 
-    def forward(self, x, timesteps, context):
+    def forward(self, x, timesteps, context, capture: bool = False):
+        """ε (B, out_channels, H, W); with ``capture`` (ε, {path: the
+        cross-attention probabilities (B, heads, HW, M)}) from every
+        SpatialTransformer site."""
         b = x.shape[0]
         if context.dim() == 2:
             context = context.reshape(b, -1, self.context_dim)
@@ -133,8 +138,16 @@ class UNetModel(nn.Module):
         def block(name, h):
             return getattr(self, name)(h, emb)
 
+        maps = {}
+
         def maybe_attn(name, h):
-            return getattr(self, name)(h, context) if hasattr(self, name) else h
+            if not hasattr(self, name):
+                return h
+            if not capture:
+                return getattr(self, name)(h, context)
+            h, site = getattr(self, name)(h, context, capture=True)
+            maps.update({f"{name}/{k}": v for k, v in site.items()})
+            return h
 
         h = self.conv_in(x)
         hs = [h]
@@ -146,11 +159,12 @@ class UNetModel(nn.Module):
             if level != len(self.channel_mult) - 1:
                 h = block(f"down_{level}_ds", h)
                 hs.append(h)
-        h = self.mid_res2(self.mid_attn(self.mid_res1(h, emb), context), emb)
+        h = self.mid_res2(maybe_attn("mid_attn", self.mid_res1(h, emb)), emb)
         for level in reversed(range(len(self.channel_mult))):
             for i in range(self.num_res_blocks + 1):
                 h = block(f"up_{level}_{i}_res", torch.cat([h, hs.pop()], 1))
                 h = maybe_attn(f"up_{level}_{i}_attn", h)
                 if level and i == self.num_res_blocks:
                     h = block(f"up_{level}_us", h)
-        return self.out_conv(self.out_norm(h))
+        out = self.out_conv(self.out_norm(h))
+        return (out, maps) if capture else out

@@ -10,7 +10,6 @@ has neither PIL nor a YAML writer, so image grids are written as uint8
 
 from __future__ import annotations
 
-import contextlib
 import csv
 import json
 import os
@@ -332,9 +331,7 @@ class SwapVisualizationCallback:
         batch, _ = model.split_batch(
             images[torch.from_numpy(idx).to(images.device)])
         gen = torch.Generator(model.device).manual_seed(self.seed)
-        params = dict(model.unet.named_parameters())
-        with ema_lib.applied(ema, params) if ema is not None else \
-                contextlib.nullcontext():
+        with ema_lib.maybe_applied(ema, model.unet):
             x = swap_sample(model, batch, ddim_steps=self.ddim_steps,
                             eta=self.eta, generator=gen)
         batch, x = batch.cpu().numpy(), x.cpu().numpy()

@@ -598,7 +598,7 @@ class Trainer:
             self.model.scale_factor = float(self.state.scale_factor)
             return log_images(
                 self.model, batch, ema=self.state.ema if use_ema else None,
-                log_every_t=self.model_params.get("log_every_t", 200), **kw)
+                **kw)
         return fn
 
     def test(self) -> dict:
